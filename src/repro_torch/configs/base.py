@@ -1,0 +1,133 @@
+"""Configuration dataclasses of the port.
+
+Counterpart of ``repro/configs/base.py``: the port keeps its own copy
+(it imports nothing of ``repro``) with the fields the serving slice
+reads. ``reduced()`` derives the CPU-sized variant of a config with the
+same rule as the reference, so ``qwen2-0.5b-reduced`` has the same
+shapes in both packages.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (per-arch modules hold the numbers)."""
+
+    name: str
+    family: str               # dense (the only family ported so far)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: int = 0         # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    mlp_kind: str = "swiglu"
+    norm_kind: str = "rmsnorm"
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    sliding_window: int = 0   # 0 -> full attention; >0 -> SWA window
+
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+    source: str = ""
+
+    FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+    def __post_init__(self):
+        if self.family not in self.FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the dense family (the reference's
+        formula: final norm not counted)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
+        hd = self.head_dim
+        att = d * (self.num_heads * hd) + d * (self.num_kv_heads * hd) * 2 \
+            + (self.num_heads * hd) * d
+        if self.qkv_bias:
+            att += self.num_heads * hd + 2 * self.num_kv_heads * hd
+        mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * f
+        return v * d * (1 if self.tie_embeddings else 2) \
+            + L * (att + mlp + 2 * d)
+
+
+@dataclass(frozen=True)
+class CommConfig:
+    """The comm fields the serving slice reads. ``mode`` must name a
+    registered backend (``repro_torch.core.backends.available_modes``);
+    only ``gspmd`` is registered in this slice. Wire compression comes
+    with the training slice's codecs (ROADMAP.md)."""
+
+    mode: str = "gspmd"
+    channels: int = 4                  # connection pool split across loops
+
+    def __post_init__(self):
+        from repro_torch.core.backends import available_modes
+        if self.mode not in available_modes():
+            raise ValueError(f"unknown comm mode {self.mode!r}; registered: "
+                             f"{available_modes()}")
+        if self.channels < 1:
+            raise ValueError(
+                f"comm.channels must be >= 1 (got {self.channels}): the "
+                "connection pool needs at least one channel")
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Event-loop serving: ``event_loops`` loops, each owning a disjoint
+    contiguous run of the ``comm.channels`` pool, with ``max_batch``
+    decode slots per loop. ``poll``: ``busy`` spins on completion,
+    ``park`` blocks, ``adaptive`` spins for ``spin_us`` then parks."""
+
+    event_loops: int = 1
+    poll: str = "busy"
+    spin_us: float = 50.0
+    max_batch: int = 8
+    max_len: int = 256
+    comm: CommConfig = field(default_factory=CommConfig)
+
+    POLLS = ("busy", "park", "adaptive")
+
+    def __post_init__(self):
+        if self.event_loops < 1:
+            raise ValueError(
+                f"serve.event_loops must be >= 1 (got {self.event_loops})")
+        if self.poll not in self.POLLS:
+            raise ValueError(
+                f"unknown serve.poll {self.poll!r}: expected one of "
+                f"{self.POLLS} (busy spins, park blocks, adaptive spins "
+                "for spin_us then parks)")
+        if self.event_loops > self.comm.channels:
+            raise ValueError(
+                f"serve.event_loops={self.event_loops} exceeds "
+                f"comm.channels={self.comm.channels}: each event loop "
+                "must OWN a disjoint non-empty run of the channel pool")
+        if self.spin_us < 0:
+            raise ValueError(f"serve.spin_us must be >= 0 ({self.spin_us})")
+        if self.max_batch < 1 or self.max_len < 2:
+            raise ValueError("serve.max_batch must be >= 1 and "
+                             "serve.max_len >= 2")
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """The CPU-sized variant: same family and topology, tiny dims, f32 —
+    the same rule as ``repro.configs.base.reduced`` for dense configs."""
+    num_heads = min(cfg.num_heads, 4)
+    return replace(
+        cfg, name=cfg.name + "-reduced",
+        num_layers=min(cfg.num_layers, 4), d_model=64,
+        num_heads=num_heads,
+        num_kv_heads=max(1, min(cfg.num_kv_heads, num_heads)),
+        head_dim=16, d_ff=128, vocab_size=256,
+        sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window
+        else 0,
+        param_dtype="float32", compute_dtype="float32")
+

@@ -1,0 +1,41 @@
+"""Architecture registry: ``--arch <id>`` resolution.
+
+Counterpart of ``repro/configs/registry.py``. Only the dense
+``qwen2-0.5b`` is ported so far; the reference's other ids are known
+here and raise ``NotImplementedError`` naming the ROADMAP queue entry
+that brings their family.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, reduced
+
+_ARCH_MODULES = {
+    "qwen2-0.5b": "qwen2_0_5b",
+}
+
+# reference ids whose family (or config module) is not ported yet
+_NOT_PORTED = ("qwen1.5-4b", "starcoder2-3b", "qwen1.5-110b", "whisper-tiny",
+               "dbrx-132b", "mixtral-8x7b", "llava-next-mistral-7b",
+               "rwkv6-7b", "recurrentgemma-9b")
+
+ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    """Resolve ``--arch`` ids; ``<id>-reduced`` yields the smoke variant."""
+    want_reduced = arch.endswith("-reduced")
+    base = arch[: -len("-reduced")] if want_reduced else arch
+    if base in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP.md, "
+            "Queue 1: 'The other model families')")
+    if base not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[base]}")
+    cfg: ModelConfig = mod.CONFIG
+    return reduced(cfg) if want_reduced else cfg
+
+
+__all__ = ["ARCH_IDS", "get_config", "reduced"]

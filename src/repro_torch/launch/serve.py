@@ -1,0 +1,103 @@
+"""Serving launcher of the port: init params from a seed, run the
+event-loop serving subsystem (EventLoopGroup of decode engines over the
+CommBackend wire), print the reference CLI's summary lines.
+
+Counterpart of ``repro/launch/serve.py`` in its single-tenant,
+unsupervised form (tenants, the supervisor, pods, checkpoints and the
+telemetry flags come in later slices: ROADMAP.md). Runs on the card
+unless ``--device cpu`` is given.
+
+CLI::
+
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8 \
+      --batch 2 --max-len 2048 --event-loops 2 --poll busy
+
+  # CPU-sized smoke run
+  python -m repro_torch.launch.serve --arch qwen2-0.5b-reduced \
+      --device cpu --requests 6 --max-new 4
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.compat import resolve_device
+from repro_torch.configs.base import CommConfig, ServeConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.core.backends import available_modes
+from repro_torch.models import api
+from repro_torch.serving import Request, make_engine_group
+
+
+def make_requests(cfg, n: int, *, max_new: int, temperature: float,
+                  seed: int, min_len: int = 4, max_len: int = 32) -> list:
+    """``n`` requests with prompt lengths drawn in ``[min_len, max_len)``
+    and tokens drawn from the vocabulary, all from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        size=rng.integers(min_len, max_len)),
+                    max_new=max_new, temperature=temperature)
+            for i in range(n)]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", required=True, help="registry id")
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--max-new", type=int, default=16)
+    p.add_argument("--max-len", type=int, default=256)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--event-loops", type=int, default=1,
+                   help="EventLoopGroup size; each loop owns a disjoint "
+                        "run of the channel pool")
+    p.add_argument("--poll", default="busy", choices=ServeConfig.POLLS,
+                   help="completion polling: busy spins, park blocks, "
+                        "adaptive spins then parks (hadroNIO §IV-B)")
+    p.add_argument("--comm-mode", default="gspmd", choices=available_modes(),
+                   help="CommBackend the serving collectives flow through")
+    p.add_argument("--channels", type=int, default=4,
+                   help="global CommChannel pool partitioned across loops")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (default) raises when no card is present")
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = api.init(gen, cfg, device=device)
+    serve = ServeConfig(event_loops=args.event_loops, poll=args.poll,
+                        max_batch=args.batch, max_len=args.max_len,
+                        comm=CommConfig(mode=args.comm_mode,
+                                        channels=args.channels))
+    group = make_engine_group(cfg, params, serve, seed=args.seed,
+                              device=device)
+    reqs = make_requests(cfg, args.requests, max_new=args.max_new,
+                         temperature=args.temperature, seed=args.seed)
+    t0 = time.time()
+    group.submit(reqs)
+    results = sorted(group.run(threads=args.event_loops > 1),
+                     key=lambda r: r.uid)
+    dt = time.time() - t0
+    tok = sum(len(r.tokens) for r in results)
+    st = group.poll_stats()
+    print(f"[serve] {len(results)} requests, {tok} tokens in {dt:.2f}s "
+          f"({tok / dt:.1f} tok/s) | {serve.event_loops} event loop(s), "
+          f"poll={serve.poll} (spins={st.spins} parks={st.parks}), "
+          f"comm={args.comm_mode}, device={device}")
+    for loop in group.loops:
+        print(f"  loop {loop.index}: channels={loop.channels} "
+              f"results={len(loop.results)}")
+    for r in results[:4]:
+        print(f"  uid={r.uid} prompt_len={r.prompt_len} -> "
+              f"{r.tokens[:12].tolist()}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,119 @@
+"""Model API of the port (dense family):
+
+  specs(cfg)                                   -> ParamSpec tree
+  init(gen, cfg, device=)                      -> params
+  prefill(params, batch, cfg, ...)             -> (last-token logits, cache)
+  decode_step(params, cache, batch, cfg, ...)  -> (logits, cache)
+  init_cache / grow_cache
+
+Counterpart of ``repro/models/api.py``. ``batch`` is a dict: prefill
+{"tokens": (B,S) int, "last_pos"?: (B,)}; decode {"token": (B,),
+"pos": () or (B,)}. Other families raise ``NotImplementedError`` naming
+the ROADMAP queue entry that brings them.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as att
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import init_params
+from repro_torch.models.layers import (apply_norm, embedding_specs,
+                                       embed_tokens, lm_logits, norm_specs)
+
+Tree = Any
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet "
+            "(ROADMAP.md, Queue 1: 'The other model families')")
+
+
+def specs(cfg: ModelConfig) -> Tree:
+    _check_family(cfg)
+    return {
+        "embed": embedding_specs(cfg.vocab_size, cfg.d_model,
+                                 cfg.tie_embeddings),
+        "ln_f": norm_specs(cfg.d_model, cfg.norm_kind),
+        "layers": tfm.stack_specs(cfg),
+    }
+
+
+def init(gen: torch.Generator, cfg: ModelConfig,
+         device: DeviceLike = None) -> Tree:
+    """Random params from ``gen`` on ``device`` (the card unless "cpu")."""
+    return init_params(gen, specs(cfg), cfg.param_dtype,
+                       resolve_device(device))
+
+
+def prefill(params: Tree, batch: dict, cfg: ModelConfig,
+            logits_fn: Optional[Callable] = None,
+            attend: Optional[Callable] = None):
+    """Last-token logits (B, V) and the KV cache. ``logits_fn`` replaces
+    the LM head (signature of :func:`layers.lm_logits`; the serving
+    dispatch passes its tensor-parallel head). ``attend`` replaces the
+    prefill attention (default: the CUDA kernel via
+    ``kernels.ops.flash_attention``)."""
+    _check_family(cfg)
+    head = logits_fn or lm_logits
+    x = embed_tokens(params["embed"], batch["tokens"],
+                     torch_dtype(cfg.compute_dtype))
+    x, cache = tfm.apply_stack(params["layers"], x, cfg, mode="prefill",
+                               attend=attend)
+    x = apply_norm(params["ln_f"], x, cfg.norm_kind)
+    if "last_pos" in batch:     # per-request prompt end (serving engine)
+        rows = torch.arange(x.shape[0], device=x.device)
+        x_last = x[rows, batch["last_pos"]][:, None]
+    else:
+        x_last = x[:, -1:]
+    return head(params["embed"], x_last)[:, 0], cache
+
+
+def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
+                logits_fn: Optional[Callable] = None):
+    """One token for the whole batch against ``cache`` (updated in
+    place). batch: {"token": (B,), "pos": () or (B,)}."""
+    _check_family(cfg)
+    head = logits_fn or lm_logits
+    x = embed_tokens(params["embed"], batch["token"][:, None],
+                     torch_dtype(cfg.compute_dtype))
+    x, cache = tfm.apply_stack(params["layers"], x, cfg, mode="decode",
+                               cache=cache, pos=batch["pos"])
+    x = apply_norm(params["ln_f"], x, cfg.norm_kind)
+    return head(params["embed"], x)[:, 0], cache
+
+
+def _cache_len(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Tree:
+    _check_family(cfg)
+    return att.init_kv_cache(cfg.num_layers, batch, _cache_len(cfg, max_len),
+                             cfg.num_kv_heads, cfg.head_dim,
+                             torch_dtype(cfg.compute_dtype),
+                             resolve_device(device))
+
+
+def grow_cache(cfg: ModelConfig, cache: Tree, max_len: int) -> Tree:
+    """Pad prefill KV caches (sized to the prompt) to ``max_len`` decode
+    slots; rolling-window caches are already fixed-size."""
+    _check_family(cfg)
+    tgt = _cache_len(cfg, max_len)
+
+    def grow(x: torch.Tensor) -> torch.Tensor:      # (L, B, S, KV, Dh)
+        if x.shape[2] >= tgt:
+            return x
+        out = x.new_zeros(x.shape[:2] + (tgt,) + x.shape[3:])
+        out[:, :, :x.shape[2]] = x
+        return out
+
+    return {k: grow(v) for k, v in cache.items()}

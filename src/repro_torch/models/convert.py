@@ -1,0 +1,35 @@
+"""Parameters from numpy arrays (the port's own; no ``repro`` counterpart).
+
+``from_numpy_params`` turns a nested dict of numpy arrays — for example
+the reference's JAX param pytree after ``np.asarray`` on every leaf —
+into the port's params with the same dotted paths. bfloat16 arrives as
+the ml_dtypes ``bfloat16`` numpy dtype, which ``torch.from_numpy``
+rejects: it crosses as its 16-bit pattern (``int16``) and is
+reinterpreted as ``torch.bfloat16``. The dtype is recognised by name, so
+the port needs no ``ml_dtypes`` import.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.models.common import tree_map
+
+
+def from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")          # an owned, writable copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def from_numpy_params(tree: Any, device: DeviceLike = None) -> Any:
+    """Nested dict of numpy arrays -> nested dict of tensors on ``device``
+    (the card unless "cpu")."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: from_numpy(np.asarray(a), dev), tree)

@@ -1,0 +1,114 @@
+"""Decoder-only transformer stack, dense family.
+
+Counterpart of ``repro/models/transformer.py``. Parameters are stacked
+along a leading ``layers`` dim as in the reference; a Python loop over
+the layers replaces ``lax.scan``.
+
+``mode``:
+  train   — full sequence, causal (optionally windowed), no cache.
+  prefill — full sequence, returns the per-layer KV cache.
+  decode  — one token per call against the cache (written in place).
+
+Train/prefill attention is the hand-written CUDA flash-attention kernel
+(``kernels.ops.flash_attention``; on CPU tensors its plain version),
+where the reference calls its jnp ``attend_chunked``. ``attend``
+overrides it with another function of the same signature, such as the
+plain ``attention.attend_chunked``, to hold the kernel path against the
+plain one on the same inputs.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as att
+from repro_torch.models.common import stacked, tree_map
+from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
+                                       norm_specs)
+from repro_torch.kernels import ops
+
+
+def depth_scale(cfg: ModelConfig) -> float:
+    return 1.0 / (2.0 * max(cfg.num_layers, 1)) ** 0.5
+
+
+def block_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": norm_specs(cfg.d_model, cfg.norm_kind),
+        "ln2": norm_specs(cfg.d_model, cfg.norm_kind),
+        "attn": att.attention_specs(cfg.d_model, cfg.num_heads,
+                                    cfg.num_kv_heads, cfg.head_dim,
+                                    cfg.qkv_bias, depth_scale(cfg)),
+        "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                         depth_scale(cfg)),
+    }
+
+
+def stack_specs(cfg: ModelConfig) -> dict:
+    return tree_map(lambda s: stacked(s, cfg.num_layers), block_specs(cfg))
+
+
+def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                window: int, attend: Callable,
+                cache_k: Optional[torch.Tensor] = None,
+                cache_v: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None):
+    """Returns (x, new_cache_k, new_cache_v)."""
+    s = x.shape[1]
+    h = apply_norm(p["ln1"], x, cfg.norm_kind)
+    if mode != "decode":
+        q_positions = torch.arange(s, device=x.device)
+    else:
+        # 0-d pos -> (s,); per-request (B,) pos -> (B, s)
+        q_positions = pos[..., None] + torch.zeros(s, dtype=pos.dtype,
+                                                   device=x.device)
+    q, k, v = att.project_qkv(p["attn"], h, h, q_positions, q_positions,
+                              cfg.rope_theta)
+    new_k = new_v = None
+    if mode == "decode":
+        out, new_k, new_v = att.decode_attend(
+            q, cache_k, cache_v, k, v, pos, num_heads=cfg.num_heads,
+            window=window)
+    else:
+        out = attend(q, att.expand_kv(k, cfg.num_heads),
+                     att.expand_kv(v, cfg.num_heads), causal=True,
+                     window=window)
+        if mode == "prefill":
+            if window > 0:     # rolling layout for windowed decode caches
+                new_k, new_v = att.to_rolling(k, window), att.to_rolling(
+                    v, window)
+            else:
+                new_k, new_v = k, v
+    x = x + att.out_project(p["attn"], out)
+    x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_kind),
+                      cfg.mlp_kind)
+    return x, new_k, new_v
+
+
+def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                mode: str, cache: Optional[dict] = None,
+                pos: Optional[torch.Tensor] = None,
+                attend: Optional[Callable] = None):
+    """Run the block over the stacked params. Returns (x, cache):
+    ``cache`` is {"k","v"}: (L,B,S,KV,Dh) for prefill (new) and decode
+    (the given cache, updated in place); None in train mode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    attend = attend or ops.flash_attention
+    ks, vs = [], []
+    for layer in range(cfg.num_layers):
+        p = tree_map(lambda t: t[layer], params)
+        ck = cache["k"][layer] if mode == "decode" else None
+        cv = cache["v"][layer] if mode == "decode" else None
+        x, nk, nv = apply_block(p, x, cfg, mode=mode,
+                                window=cfg.sliding_window, attend=attend,
+                                cache_k=ck, cache_v=cv, pos=pos)
+        ks.append(nk)
+        vs.append(nv)
+    if mode == "train":
+        return x, None
+    if mode == "prefill":
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return x, cache

@@ -1,0 +1,329 @@
+"""Batched decode engine: KV-cache manager + request batcher + sampler.
+
+Counterpart of ``repro/serving/engine.py`` for attention families.
+
+* Prompts are **right-padded** to the batch maximum and tracked with
+  per-request ``pos`` vectors: pad slots are never attended (validity
+  mask ``j <= pos``) and the first generated token overwrites the first
+  pad slot, so mixed-length batches are exact per row.
+* **Continuous batching**: the engine runs ``max_batch`` decode SLOTS.
+  When requests finish, the freed slots are refilled from the run queue
+  at the flush boundary (the decode-step boundary) with ONE batched
+  prefill over every freed slot (prompts padded to ``ADMIT_PAD``), whose
+  cache rows are written into the resident cache in place.
+* Sampling: greedy, or temperature from the engine's own
+  ``torch.Generator`` (no global RNG); stop on ``eos_id`` or ``max_new``.
+* Steps come from ``serving/dispatch.py`` when a ``ServeConfig`` is
+  given (collectives through the registered CommBackend, honouring the
+  owning loop's channel affinity), else straight from ``models/api``.
+  Completion waits go through the loop's
+  :class:`~repro_torch.serving.event_loop.Poller`.
+
+The reference's chaos and supervisor seams, tracing spans and tenants
+come with later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.models import api
+from repro_torch.serving import dispatch
+from repro_torch.serving.event_loop import (EventLoop, EventLoopGroup,
+                                            Poller, channel_affinity)
+
+ADMIT_PAD = 16      # admitted prompts pad to this granularity (bounded
+#                     set of prefill shapes, as in the reference)
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (len,) int32
+    max_new: int = 32
+    temperature: float = 0.0      # 0 -> greedy
+
+    def __post_init__(self):
+        self.prompt = np.asarray(self.prompt, np.int32)
+
+
+@dataclasses.dataclass
+class Result:
+    uid: int
+    tokens: np.ndarray            # generated tokens (<= max_new)
+    prompt_len: int
+    steps: int
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One in-flight request occupying a decode slot."""
+    req: Request
+    admitted_step: int
+    toks: list
+    done: bool = False
+
+
+class DecodeEngine:
+    """Synchronous batched engine around prefill/decode_step on
+    ``device`` (the card unless "cpu"). ``params`` must already live
+    there. ``prefills`` counts prefill calls (first wave + one per
+    admission round); ``admit_prefills`` the admission rounds alone."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, *,
+                 max_batch: int = 8, max_len: int = 256,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 serve: Optional[ServeConfig] = None,
+                 channel_indices: Optional[tuple] = None,
+                 poller: Optional[Poller] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.device = resolve_device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.poller = poller or Poller(
+            serve.poll if serve else "park",
+            serve.spin_us * 1e-6 if serve else 50e-6)
+        self.prefills = 0
+        self.admit_prefills = 0
+        if serve is not None:
+            self.step = dispatch.make_serve_step(
+                cfg, serve.comm, channel_indices=channel_indices)
+            self._prefill = self.step.prefill
+            self._decode = self.step.decode
+            self.n_shards = self.step.n_shards
+        else:
+            self.step = None
+            self.n_shards = 1
+            self._prefill = lambda p, b: api.prefill(p, b, cfg)
+            self._decode = lambda p, c, b: api.decode_step(p, c, b, cfg)
+
+    # -- sampling ------------------------------------------------------
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray) -> torch.Tensor:
+        greedy = torch.argmax(logits, dim=-1)
+        if not (temps > 0).any():
+            return greedy
+        t = torch.as_tensor(np.maximum(temps, 1e-6), dtype=torch.float32,
+                            device=logits.device)
+        probs = torch.softmax(logits.float() / t[:, None], dim=-1)
+        sampled = torch.multinomial(probs, 1, generator=self.gen)[:, 0]
+        hot = torch.as_tensor(temps > 0, device=logits.device)
+        return torch.where(hot, sampled, greedy)
+
+    # -- main entry ----------------------------------------------------
+
+    def generate(self, reqs: Sequence[Request]) -> list:
+        reqs = list(reqs)
+        results: list = []
+        if reqs:
+            pending = deque(reqs[self.max_batch:])   # the run queue
+            results.extend(self._run_wave(reqs[: self.max_batch], pending))
+        results.sort(key=lambda r: r.uid)
+        return results
+
+    def _prefill_batch(self, toks: np.ndarray, lens: np.ndarray) -> dict:
+        dev = self.device
+        return {"tokens": torch.as_tensor(toks, dtype=torch.long, device=dev),
+                "last_pos": torch.as_tensor(np.maximum(lens - 1, 0),
+                                            dtype=torch.long, device=dev)}
+
+    def _check_fits(self, req: Request) -> None:
+        if len(req.prompt) + req.max_new > self.max_len:
+            raise ValueError(f"request {req.uid}: prompt {len(req.prompt)} "
+                             f"+ max_new {req.max_new} exceeds engine "
+                             f"max_len {self.max_len}")
+
+    # -- the slot loop -------------------------------------------------
+
+    def _run_wave(self, initial: list, pending: deque) -> list:
+        b = len(initial)
+        R = self.n_shards
+        b_pad = max(R, -(-b // R) * R)    # rows padded to the ring size
+        for r in initial:
+            self._check_fits(r)
+        lens = np.zeros((b_pad,), np.int32)
+        for i, r in enumerate(initial):
+            lens[i] = len(r.prompt)
+        toks = np.zeros((b_pad, int(lens.max())), np.int32)
+        for i, r in enumerate(initial):
+            toks[i, : lens[i]] = r.prompt
+
+        logits, cache = self._prefill(self.params,
+                                      self._prefill_batch(toks, lens))
+        self.prefills += 1
+        self.poller.wait(logits)
+        cache = api.grow_cache(self.cfg, cache, self.max_len)
+
+        slots: list = [_Slot(r, 0, []) for r in initial] + [None] * (b_pad - b)
+        temps = np.zeros((b_pad,), np.float32)
+        for i, r in enumerate(initial):
+            temps[i] = r.temperature
+        pos = torch.as_tensor(lens, dtype=torch.long, device=self.device)
+        tok = self._sample(logits, temps)
+        steps = 0
+        results: list = []
+
+        while True:
+            # flush boundary: this step's work is complete once the
+            # sampled tokens are ready
+            self.poller.wait(tok)
+            tok_np = tok.cpu().numpy()
+            for i, s in enumerate(slots):
+                if s is None:
+                    continue
+                if s.req.max_new > 0:    # max_new=0: prefill-only, no token
+                    s.toks.append(int(tok_np[i]))
+                    if self.eos_id is not None and s.toks[-1] == self.eos_id:
+                        s.done = True
+                if len(s.toks) >= s.req.max_new:
+                    s.done = True
+                if s.done:
+                    results.append(Result(
+                        uid=s.req.uid, tokens=np.asarray(s.toks, np.int64),
+                        prompt_len=len(s.req.prompt),
+                        steps=steps + 1 - s.admitted_step))
+                    slots[i] = None
+            steps += 1
+            # continuous batching: refill freed slots from the run queue
+            if pending:
+                tok, cache, pos = self._admit_ready(
+                    pending, cache, pos, temps, tok, steps, slots, results)
+            if not any(s is not None for s in slots) and not pending:
+                break
+            active = torch.as_tensor([s is not None for s in slots],
+                                     device=self.device)
+            logits, cache = self._decode(self.params, cache,
+                                         {"token": tok, "pos": pos})
+            tok = self._sample(logits, temps)
+            pos = torch.where(active, pos + 1, pos)
+        return results
+
+    def _admit_ready(self, pending: deque, cache: dict, pos: torch.Tensor,
+                     temps: np.ndarray, tok: torch.Tensor, steps: int,
+                     slots: list, results: list):
+        """Admit from the run queue into EVERY freed slot at this flush
+        boundary, one batched prefill per round. Loops because a request
+        finishing AT admission (eos / max_new <= 1) leaves its slot free
+        for the next queued request within the same boundary."""
+        while pending:
+            free = [i for i in range(min(len(slots), self.max_batch))
+                    if slots[i] is None]
+            if not free:
+                break
+            take = min(len(free), len(pending))
+            batch = [pending.popleft() for _ in range(take)]
+            tok, cache, pos = self._admit_batch(free[:take], batch, cache,
+                                                pos, temps, tok, steps,
+                                                slots, results)
+        return tok, cache, pos
+
+    def _admit_batch(self, free: list, reqs: list, cache: dict,
+                     pos: torch.Tensor, temps: np.ndarray, tok: torch.Tensor,
+                     steps: int, slots: list, results: list):
+        """Admit ``reqs[j]`` into freed slot ``free[j]`` with ONE prefill
+        (rows padded to the ring size, prompts right-padded to the batch
+        max rounded up to ``ADMIT_PAD``). Each request's first token is
+        sampled from its own prefill logits and recorded at once; a
+        request done at its first token finishes here and leaves the slot
+        free. Mutates ``temps``/``slots``/``results``; returns the new
+        (tok, cache, pos)."""
+        R = self.n_shards
+        rows = max(R, -(-len(reqs) // R) * R)
+        for req in reqs:
+            self._check_fits(req)
+        # round for a bounded set of shapes, but never past the resident
+        # cache's sequence capacity (max_len, or the rolling window)
+        limit = self.max_len
+        if self.cfg.sliding_window:
+            limit = min(limit, self.cfg.sliding_window)
+        pmax = max(len(req.prompt) for req in reqs)
+        pad_to = min(-(-pmax // ADMIT_PAD) * ADMIT_PAD, max(pmax, limit))
+        toks = np.zeros((rows, pad_to), np.int32)
+        lens = np.zeros((rows,), np.int32)
+        rtemps = np.zeros((rows,), np.float32)
+        for row, req in enumerate(reqs):
+            toks[row, :len(req.prompt)] = req.prompt
+            lens[row] = len(req.prompt)
+            rtemps[row] = req.temperature
+        logits1, cache1 = self._prefill(self.params,
+                                        self._prefill_batch(toks, lens))
+        self.prefills += 1
+        self.admit_prefills += 1
+        self.poller.wait(logits1)
+        t_arr = self._sample(logits1, rtemps)
+        t_np = t_arr.cpu().numpy()
+        live_rows: list = []
+        live_slots: list = []
+        for row, (i, req) in enumerate(zip(free, reqs)):
+            t0 = int(t_np[row])
+            plen = int(lens[row])
+            if req.max_new <= 0:          # prefill-only: zero tokens
+                results.append(Result(uid=req.uid,
+                                      tokens=np.asarray([], np.int64),
+                                      prompt_len=plen, steps=0))
+                continue
+            if (self.eos_id is not None and t0 == self.eos_id) \
+                    or req.max_new == 1:  # finished at its first token
+                results.append(Result(uid=req.uid,
+                                      tokens=np.asarray([t0], np.int64),
+                                      prompt_len=plen, steps=1))
+                continue
+            live_rows.append(row)
+            live_slots.append(i)
+            temps[i] = req.temperature
+            slots[i] = _Slot(req, steps, [t0])
+        if live_rows:
+            cache1 = api.grow_cache(self.cfg, cache1, self.max_len)
+            rsel = torch.as_tensor(live_rows, device=self.device)
+            ssel = torch.as_tensor(live_slots, device=self.device)
+            # attention caches carry batch at axis 1 (L, B, S, KV, Dh);
+            # the freed rows are overwritten in place
+            for name, c in cache.items():
+                c[:, ssel] = cache1[name][:, rsel]
+            tok = tok.clone()
+            tok[ssel] = t_arr[rsel]
+            pos = pos.clone()
+            pos[ssel] = torch.as_tensor(lens, dtype=torch.long,
+                                        device=self.device)[rsel]
+        return tok, cache, pos
+
+
+# ---------------------------------------------------------------------------
+# Event-loop glue: one engine per loop, channel affinity baked in
+# ---------------------------------------------------------------------------
+
+
+def make_engine_group(cfg: ModelConfig, params: Any, serve: ServeConfig, *,
+                      eos_id: Optional[int] = None, seed: int = 0,
+                      device: DeviceLike = None) -> EventLoopGroup:
+    """The serving front door: an :class:`EventLoopGroup` of
+    ``serve.event_loops`` loops, each owning a disjoint contiguous run of
+    the ``serve.comm.channels`` pool and driving its OWN
+    :class:`DecodeEngine` (generator seeded ``seed + loop index``) whose
+    serve step emits only on those channels. Requests submitted to the
+    group are assigned round-robin; GREEDY outputs do not depend on
+    ``event_loops``."""
+    dev = resolve_device(device)
+    loops = []
+    for i, chans in enumerate(channel_affinity(serve.comm.channels,
+                                               serve.event_loops)):
+        loop = EventLoop(i, channels=chans, poll=serve.poll,
+                         spin_s=serve.spin_us * 1e-6)
+        eng = DecodeEngine(cfg, params, max_batch=serve.max_batch,
+                           max_len=serve.max_len, eos_id=eos_id,
+                           seed=seed + i, serve=serve, channel_indices=chans,
+                           poller=loop.poller, device=dev)
+        loop.engine = eng
+        loop.runner = lambda _loop, items, eng=eng: eng.generate(items)
+        loops.append(loop)
+    return EventLoopGroup(loops)

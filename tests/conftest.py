@@ -24,6 +24,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips with a reason when "
+        "torch.cuda.is_available() is False")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
