@@ -9,11 +9,14 @@ non-zero (no phase's failure is caught):
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    TF32 switched off for f32 products;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a) and report the seconds;
+   sm_90a, one nvcc per source, all started together) and report the
+   seconds and ptxas' register report;
 3. hold each kernel against its plain PyTorch version on the card at
-   the stated tolerances, then time kernel, plain version and the one
-   PyTorch library call that computes the same function, at the serving
-   path's largest prefill shape, beside the roofline bound;
+   the stated tolerances (flash attention at 3e-2/5e-2 in bf16 and
+   2e-4/2e-3 in f32; ring pack and unpack bit for bit, ``torch.equal``
+   on the bit patterns), then time kernel, plain version and the one
+   PyTorch library call that computes the same function, at the shapes
+   the main paths give them, beside the roofline bound;
 4. serve qwen2-0.5b at full width (random weights from a seed) through
    ``make_engine_group`` -> ``EventLoopGroup`` -> ``DecodeEngine`` ->
    ``dispatch.ServeStep``: 8 requests, prompts of 16..1024 tokens, 16
@@ -22,7 +25,22 @@ non-zero (no phase's failure is caught):
    token count, that every prefill went through the kernel (launch
    counter), that served first tokens replay from the kernel-path
    logits, and that those logits match the plain-attention path;
-5. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+5. train qwen2-0.5b at full width (random weights from seed 0) through
+   ``launch.train.Trainer`` -> ``steps.make_train_step`` ->
+   ``tac.sync_grads`` -> ``HadronioBackend.sync`` ->
+   ``pipeline.reduce_slices`` (ring-pack kernel -> one NCCL all-reduce
+   per slice through 4 channel communicators -> unpack kernel) ->
+   AdamW, on a one-peer NCCL group: synthetic data from seed 0,
+   ``seq_len`` 1024, ``global_batch`` 4, 5 steps, ``hadronio`` with
+   ``compress=bf16``, ``pack=pallas``, ``aggregate=slice``,
+   ``flush=step``. Checks finite and falling loss, one pack and one
+   unpack launch per step and no flash launch; then syncs one real
+   full-width gradient with ``pack=pallas`` and ``pack=jnp``, as it is
+   (bf16, exact on the wire, zero EF) and in f32 with a nonzero EF,
+   and checks each pair bitwise equal; times steps 2-5 for
+   ``hadronio/bf16/pallas``, ``hadronio/bf16/jnp`` and ``gspmd`` from
+   one start state; profiles one hadronio step; reports peak memory;
+6. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -31,9 +49,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,7 +84,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def profile_device(fn, top: int = 6):
     """Kernel time of one ``fn`` call from the profiler's device trace:
     (summed kernel ms, kernel count, [(name, ms)] of the ``top`` kernel
-    names by time). An empty trace returns (None, 0, [])."""
+    names by time, {name: ms} of all). An empty trace returns
+    (None, 0, [], {})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -80,9 +101,9 @@ def profile_device(fn, top: int = 6):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
     if not n:
-        return None, 0, []
+        return None, 0, [], {}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return sum(by_name.values()), n, ranked
+    return sum(by_name.values()), n, ranked, by_name
 
 
 def attn_bound_ms(b, s, h, dh, causal, window, elem_bytes, peak_flops):
@@ -103,6 +124,28 @@ def attn_bound_ms(b, s, h, dh, causal, window, elem_bytes, peak_flops):
                                        else "bytes")
 
 
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def check_bitwise(name, pairs) -> float:
+    """``pairs``: (got, want) tensors that must agree bit for bit.
+    Returns the largest |got - want| over the pairs (0.0 when they
+    agree), measured, not assumed."""
+    ok = all(g is None and w is None or (
+        g is not None and w is not None and g.shape == w.shape
+        and g.dtype == w.dtype and torch.equal(bits(g), bits(w)))
+        for g, w in pairs)
+    max_err = max((float((g.float() - w.float()).abs().max())
+                   for g, w in pairs if g is not None and w is not None
+                   and g.shape == w.shape), default=0.0)
+    print(f"[check] {name}: bitwise {'ok' if ok else 'FAIL'} "
+          f"(max_abs_err={max_err:.3e})")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return max_err
+
+
 def check_close(name, got, want, atol, rtol) -> float:
     got, want = got.float(), want.float()
     err = (got - want).abs()
@@ -121,9 +164,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    from repro_torch.configs.base import CommConfig, ServeConfig
+    import torch.distributed as dist
+    from repro_torch.configs.base import (CommConfig, RunConfig, ServeConfig,
+                                          ShapeConfig)
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import tac
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import Trainer
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import api
     from repro_torch.models.attention import attend_chunked
@@ -146,15 +195,19 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # -- 2. build ---------------------------------------------------------
+    # -- 2. build (one nvcc per source, started together) -------------------
     t0 = time.perf_counter()
-    build.load("flash_attention")
-    info = build.BUILD_INFO["flash_attention"]
-    print(f"[build] flash_attention: {time.perf_counter() - t0:.2f}s "
-          f"(nvcc {info['seconds']:.2f}s) -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}")
+    names = ("flash_attention", "ring_pack")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build.load, names))
+    print(f"[build] {', '.join(names)}: {time.perf_counter() - t0:.2f}s")
+    for name in names:
+        info = build.BUILD_INFO[name]
+        print(f"[build] {name}: nvcc {info['seconds']:.2f}s -> "
+              f"{info['path']}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] {name}: {line.strip()}")
 
     # -- 3. kernel vs plain version ----------------------------------------
     def qkv(b, s, h, dh, dtype):
@@ -199,6 +252,90 @@ def main() -> int:
           f"kernel {ms_kernel:.4f} / {ms_kernel2:.4f} ms, plain "
           f"{ms_plain:.4f} ms, sdpa {ms_lib:.4f} ms, bound {bound:.4f} ms "
           f"({bound_by}; f32-FMA bound {fma_bound:.4f} ms) | {smi}")
+
+    # ring pack / unpack: bitwise against the plain version, every shape
+    # of the reference's tests plus a ragged one, both wires, EF on, off
+    # and on-but-None
+    def flat_ef(n, s, flat_std=1.0, ef_std=1e-2):
+        flat = torch.randn(n * s, generator=gen, device=dev) * flat_std
+        ef = torch.randn((n, s), generator=gen, device=dev) * ef_std
+        return flat, ef
+
+    shapes = [(1, 512), (3, 1024), (5, 8192), (3, 4608), (5, 1536),
+              (7, 2560), (1, 5632), (3, 1000)]
+    for n, s in shapes:
+        flat, ef = flat_ef(n, s)
+        flat[::97] = -0.0
+        for wire in ("bfloat16", "float32"):
+            for mode in ("ef", "no_ef", "ef_none"):
+                kw = dict(n_slices=n, slice_elems=s, wire_dtype=wire,
+                          with_ef=mode != "no_ef")
+                e = None if mode == "ef_none" else ef
+                kw_, ke_ = ops.pack_slices(flat, e, **kw)
+                out = ops.unpack_slices(kw_)
+                torch.cuda.synchronize()
+                rw, re = ref.pack_slices(flat, e, **kw)
+                check_bitwise(f"ring_pack ({n}, {s}) {wire} {mode}",
+                              [(kw_, rw), (ke_, re),
+                               (out, ref.unpack_slices(rw))])
+
+    # the main path's shape: qwen2-0.5b's capacity-clamped plan
+    n, s = 64, 7_719_424
+    flat, ef = flat_ef(n, s, 1e-3, 1e-6)
+    kw = dict(n_slices=n, slice_elems=s, wire_dtype="bfloat16")
+    wire_k, ef_k = ops.pack_slices(flat, ef, **kw)
+    torch.cuda.synchronize()
+    wire_r, ef_r = ref.pack_slices(flat, ef, **kw)
+    pack_err = check_bitwise(
+        f"ring_pack ({n}, {s}) bfloat16 ef (timed shape)",
+        [(wire_k, wire_r), (ef_k, ef_r)])
+    del ef_r
+    un_k = ops.unpack_slices(wire_k)
+    unpack_err = check_bitwise(
+        f"ring_unpack ({n}, {s}) bfloat16 (timed shape)",
+        [(un_k, ref.unpack_slices(wire_r))])
+    nowire_k, _ = ops.pack_slices(flat, None, n_slices=n, slice_elems=s,
+                                  wire_dtype="float32", with_ef=False)
+    check_bitwise(f"ring_pack ({n}, {s}) float32 no_ef (timed shape)",
+                  [(nowire_k, ref.pack_slices(flat, None, n_slices=n,
+                                              slice_elems=s,
+                                              wire_dtype="float32",
+                                              with_ef=False)[0])])
+    del wire_r, un_k, nowire_k
+    elems = n * s
+
+    def ring_times(kernel, plain, library, bytes_per_elem):
+        """kernel, plain, library (or None), kernel again; the bound is
+        the bytes over the HBM rate."""
+        k1 = time_ms(kernel, iters=10)
+        p_ms = time_ms(plain, iters=5)
+        lib = None if library is None else time_ms(library, iters=10)
+        k2 = time_ms(kernel, iters=10)
+        return {"ms": k1, "ms_again": k2, "plain_ms": p_ms,
+                "library_ms": lib,
+                "bound_ms": bytes_per_elem * elems / H100_BYTES_S * 1e3}
+
+    nkw = dict(n_slices=n, slice_elems=s, wire_dtype="float32",
+               with_ef=False)
+    rp = {"pack_ef": ring_times(lambda: ops.pack_slices(flat, ef, **kw),
+                                lambda: ref.pack_slices(flat, ef, **kw),
+                                None, 14.0),
+          "pack_no_ef": ring_times(
+              lambda: ops.pack_slices(flat, None, **nkw),
+              lambda: ref.pack_slices(flat, None, **nkw),
+              lambda: flat.view(n, s).clone(), 8.0),
+          "unpack": ring_times(lambda: ops.unpack_slices(wire_k),
+                               lambda: ref.unpack_slices(wire_k),
+                               lambda: wire_k.to(torch.float32), 6.0)}
+    for name, t in rp.items():
+        lib = "none (no single call)" if t["library_ms"] is None \
+            else f"{t['library_ms']:.4f} ms"
+        print(f"[time] ring {name} ({n}, {s}): kernel {t['ms']:.4f} / "
+              f"{t['ms_again']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {t['bound_ms']:.4f} ms (bytes; "
+              f"{t['bound_ms'] / t['ms']:.1%} of the HBM rate) | {smi}")
+    del flat, ef, wire_k, ef_k
+    torch.cuda.empty_cache()
 
     # -- 4. serve qwen2-0.5b at full width -----------------------------------
     cfg = get_config("qwen2-0.5b")
@@ -256,7 +393,7 @@ def main() -> int:
                             ms_prefill),
                            ("decode", lambda: step.decode(params, cache, dec),
                             ms_decode)):
-        busy, n, ranked = profile_device(fn)
+        busy, n, ranked, _ = profile_device(fn)
         if busy is None:
             print(f"[profile] {what}: device time not measured (the "
                   "profiler recorded no device events)")
@@ -324,14 +461,155 @@ def main() -> int:
         raise AssertionError("prefill logits: kernel path disagrees with "
                              "the plain attention path")
 
-    # -- 5. result lines ----------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:91",
-        "launches": launches, "max_abs_err": fa_err,
-        "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound,
-        "bound_by": bound_by, "library_ms": ms_lib}]}))
+    # -- 5. train qwen2-0.5b at full width ---------------------------------
+    from repro_torch.models.common import tree_paths
+    del group, solo, step, cache, params, lk, lp, l32, lk32
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    shape = ShapeConfig("smoke", "train", seq_len=1024, global_batch=4)
+
+    def train_run(mode, **comm):
+        return RunConfig(model=cfg, shape=shape,
+                         comm=CommConfig(mode=mode, channels=4, **comm),
+                         total_steps=5, warmup_steps=1, seed=0)
+
+    main_run = train_run("hadronio", compress="bf16", pack="pallas",
+                         aggregate="slice", flush="step")
+    trainer = Trainer(main_run, device=dev, log_every=1)
+    start = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in (ops.pack_slices, ops.unpack_slices, ops.flash_attention):
+        wrapper.launches = 0
+    out = trainer.run_loop(start)
+    torch.cuda.synchronize()
+    train_launches = {w.__name__: w.launches for w in (
+        ops.pack_slices, ops.unpack_slices, ops.flash_attention)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    plan = agg.make_plan(start.params, main_run.comm)
+    print(f"[train] {cfg.name} hadronio/bf16/pallas, B=4 S=1024, "
+          f"{plan.n_slices} slices x {plan.slice_elems} elems over 4 "
+          f"channels: losses {[round(x, 4) for x in losses]}, step s "
+          f"{[round(x, 4) for x in out['step_s']]}, launches "
+          f"{train_launches}, max|EF| after the run "
+          f"{float(out['state'].ef.abs().max()):.3e}, peak memory "
+          f"{peak_gb:.2f} GB | {smi}")
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    assert train_launches == {"pack_slices": 5, "unpack_slices": 5,
+                              "flash_attention": 0}, train_launches
+    assert out["state"].step == 5 and out["state"].ef.shape == (
+        plan.n_slices, plan.slice_elems)
+
+    # one real full-width gradient, synced with the kernels and without.
+    # The params are bf16, so the bf16 gradient is exact on the bf16 wire
+    # and its EF is zero (at ring size 1 it stays zero all run): that
+    # sync holds the kernels' copy and the channel path, not their
+    # rounding. So the same gradient also goes through in f32, scaled as
+    # clipping scales it, with a nonzero EF of realistic size: the
+    # residual of that f32 gradient's own bf16 cast.
+    batch = trainer.batch(0)
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                      out["state"].params)
+    api.loss(leaves, batch, cfg)[0].backward()
+    grads = tree_map(lambda t: t.grad, leaves)
+    del leaves
+    g32 = tree_map(lambda g: g.float() * 0.37, grads)
+    plan32 = agg.make_plan(g32, main_run.comm, dtype=torch.float32)
+    flat32 = agg.as_slices(agg.pack(g32, plan32), plan32)
+    ef32 = (flat32 - flat32.to(torch.bfloat16).float()).contiguous()
+    del flat32
+    for what, tree, ef_in in (("bf16 grads, run's EF", grads,
+                               out["state"].ef),
+                              ("f32 grads x0.37, nonzero EF", g32, ef32)):
+        synced = {pack: tac.sync_grads(
+            tree, dataclasses.replace(main_run.comm, pack=pack),
+            ring=trainer.ring, ef=ef_in) for pack in ("pallas", "jnp")}
+        torch.cuda.synchronize()
+        print(f"[check] real-gradient sync ({what}): max|EF in| "
+              f"{float(ef_in.abs().max()):.3e}, max|EF out| "
+              f"{float(synced['pallas'].ef.abs().max()):.3e}")
+        check_bitwise(f"real-gradient sync pallas vs jnp ({what}; grads, "
+                      "new EF)",
+                      [(a, b) for (_, a), (_, b) in zip(
+                          tree_paths(synced["pallas"].grads),
+                          tree_paths(synced["jnp"].grads))]
+                      + [(synced["pallas"].ef, synced["jnp"].ef)])
+    assert float(ef32.abs().max()) > 0 and float(
+        synced["pallas"].ef.abs().max()) > 0, "the f32 sync carried no EF"
+    del synced, grads, g32, ef32
+
+    # step time of the three exchanges from one start state, in turns
+    # (a b c c b a): host times drift on a machine whose CPU is shared
+    trainer.log_every = 10
+    runs = {"hadronio/bf16/pallas": trainer,
+            "hadronio/bf16/jnp": Trainer(train_run(
+                "hadronio", compress="bf16", pack="jnp"), device=dev,
+                log_every=10),
+            "gspmd (no exchange)": Trainer(train_run("gspmd"), device=dev,
+                                           log_every=10)}
+    samples = {label: [] for label in runs}
+    for label in list(runs) + list(runs)[::-1]:
+        t = runs[label]
+        o = t.run_loop(start if t.run.comm.mode == "hadronio"
+                       else start._replace(ef=None))
+        samples[label].append([x * 1e3 for x in o["step_s"][1:]])
+        print(f"[train] {label}: losses {[round(x, 4) for x in o['losses']]}"
+              f", step ms {[round(x * 1e3, 2) for x in o['step_s']]}")
+        del o
+    step_ms = {label: statistics.median(x for run in v for x in run)
+               for label, v in samples.items()}
+    per_run = {label: [round(statistics.median(r), 2) for r in v]
+               for label, v in samples.items()}
+    print("[train-time] median step ms (steps 2-5 of two runs each): "
+          + ", ".join(f"{k} {v:.2f} (per run {per_run[k]})"
+                      for k, v in step_ms.items()) + f" | {smi}")
+
+    state = out["state"]
+    for label, t in runs.items():
+        busy, n_k, ranked, by_name = profile_device(
+            lambda: t.step_fn(state, batch), top=8)
+        wall = step_ms[label]
+        if busy is None:
+            print(f"[profile] train step {label}: device time not measured "
+                  "(the profiler recorded no device events)")
+            continue
+        part = lambda key: sum(ms for name, ms in by_name.items()
+                               if key(name))
+        print(f"[profile] train step {label}: {n_k} kernels, {busy:.3f} ms "
+              f"on the device of {wall:.3f} ms per step ({busy / wall:.1%} "
+              f"busy); ring pack {part(lambda k: '::pack_kernel' in k):.3f}"
+              f" ms, unpack {part(lambda k: '::unpack_kernel' in k):.3f} "
+              f"ms, nccl {part(lambda k: 'nccl' in k.lower()):.3f} ms; top: "
+              + "; ".join(f"{name[:100]} {ms:.3f}" for name, ms in ranked))
+    del runs, t
+    del state, out, start, trainer
+    dist.destroy_process_group()
+
+    # -- 6. result lines ------------------------------------------------------
+    ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
+    print(json.dumps({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:91",
+         "launches": launches, "max_abs_err": fa_err,
+         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound,
+         "bound_by": bound_by, "library_ms": ms_lib},
+        {"name": "pack_slices", "route": "cuda", "source": ring_src,
+         "replaces": "src/repro/kernels/ring_pack.py:61",
+         "launches": train_launches["pack_slices"], "max_abs_err": pack_err,
+         "ms": rp["pack_ef"]["ms"], "plain_ms": rp["pack_ef"]["plain_ms"],
+         "bound_ms": rp["pack_ef"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "unpack_slices", "route": "cuda", "source": ring_src,
+         "replaces": "src/repro/kernels/ring_pack.py:100",
+         "launches": train_launches["unpack_slices"],
+         "max_abs_err": unpack_err,
+         "ms": rp["unpack"]["ms"], "plain_ms": rp["unpack"]["plain_ms"],
+         "bound_ms": rp["unpack"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": rp["unpack"]["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-from repro_torch.configs.base import (CommConfig, ModelConfig, ServeConfig,
-                                      reduced)
+from repro_torch.configs.base import (CommConfig, ModelConfig, RunConfig,
+                                      ServeConfig, ShapeConfig, reduced)
 from repro_torch.configs.registry import ARCH_IDS, get_config
 
-__all__ = ["ARCH_IDS", "CommConfig", "ModelConfig", "ServeConfig",
-           "get_config", "reduced"]
+__all__ = ["ARCH_IDS", "CommConfig", "ModelConfig", "RunConfig",
+           "ServeConfig", "ShapeConfig", "get_config", "reduced"]

@@ -1,10 +1,10 @@
 """Configuration dataclasses of the port.
 
 Counterpart of ``repro/configs/base.py``: the port keeps its own copy
-(it imports nothing of ``repro``) with the fields the serving slice
-reads. ``reduced()`` derives the CPU-sized variant of a config with the
-same rule as the reference, so ``qwen2-0.5b-reduced`` has the same
-shapes in both packages.
+(it imports nothing of ``repro``) with the fields the serving and
+training slices read. ``reduced()`` derives the CPU-sized variant of a
+config with the same rule as the reference, so ``qwen2-0.5b-reduced``
+has the same shapes in both packages.
 """
 from __future__ import annotations
 
@@ -60,14 +60,55 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape: ``kind`` is train | prefill | decode."""
+
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+    KINDS = ("train", "prefill", "decode")
+
+    def __post_init__(self):
+        if self.kind not in self.KINDS:
+            raise ValueError(f"unknown shape kind {self.kind!r}: expected "
+                             f"one of {self.KINDS}")
+
+
+@dataclass(frozen=True)
 class CommConfig:
-    """The comm fields the serving slice reads. ``mode`` must name a
-    registered backend (``repro_torch.core.backends.available_modes``);
-    only ``gspmd`` is registered in this slice. Wire compression comes
-    with the training slice's codecs (ROADMAP.md)."""
+    """The comm fields of the reference, with its defaults and checks.
+    ``mode`` must name a registered backend
+    (``repro_torch.core.backends.available_modes``).
+
+    ``slice_bytes`` is the ring-buffer slice (one collective each) and
+    ``ring_capacity_bytes`` bounds the slices in flight (more slices than
+    that grow the slice). ``compress`` is the wire codec (bf16 and
+    int8_ef carry an f32 error-feedback residual). ``pack`` picks the
+    pack/unpack stage: ``pallas`` is the hand-written kernel (CUDA
+    tensors; the plain version for CPU tensors), ``jnp`` that plain
+    version on any device; both give the same bytes. ``aggregate`` is the
+    flush granularity (one collective per slice, or one coalesced
+    collective per channel) and ``flush`` the channel schedule
+    (round-robin flushed at the end of the exchange, or contiguous
+    groups flushed when their last slice is staged). The reference's
+    pod-aware knobs (``hierarchical``, ``leader_channels``) come with the
+    pod-aware emission (ROADMAP.md Queue 1 item 8)."""
 
     mode: str = "gspmd"
-    channels: int = 4                  # connection pool split across loops
+    ring_capacity_bytes: int = 256 * 1024 * 1024
+    slice_bytes: int = 4 * 1024 * 1024
+    channels: int = 4                  # in-flight slices ("connections")
+    compress: str = "none"             # none | bf16 | int8_ef
+    pack: str = "jnp"                  # pack/unpack-stage impl: jnp | pallas
+    aggregate: str = "slice"           # wire-flush granularity: slice | channel
+    flush: str = "step"                # channel schedule: step | ready
+
+    COMPRESS_CODECS = ("none", "bf16", "int8_ef")
+    PACK_IMPLS = ("jnp", "pallas")
+    AGGREGATES = ("slice", "channel")
+    FLUSHES = ("step", "ready")
 
     def __post_init__(self):
         from repro_torch.core.backends import available_modes
@@ -77,7 +118,31 @@ class CommConfig:
         if self.channels < 1:
             raise ValueError(
                 f"comm.channels must be >= 1 (got {self.channels}): the "
-                "connection pool needs at least one channel")
+                "connection pool needs at least one channel; values above "
+                "n_slices are clamped to fully-independent emission")
+        if self.compress not in self.COMPRESS_CODECS:
+            raise ValueError(
+                f"unknown comm.compress {self.compress!r}: expected one of "
+                f"{self.COMPRESS_CODECS}")
+        if self.pack not in self.PACK_IMPLS:
+            raise ValueError(
+                f"unknown comm.pack {self.pack!r}: expected one of "
+                f"{self.PACK_IMPLS}")
+        if self.aggregate not in self.AGGREGATES:
+            raise ValueError(
+                f"unknown comm.aggregate {self.aggregate!r}: expected one "
+                f"of {self.AGGREGATES} ('channel' coalesces every slice on "
+                "a channel into one wire flush per collective)")
+        if self.flush not in self.FLUSHES:
+            raise ValueError(
+                f"unknown comm.flush {self.flush!r}: expected one of "
+                f"{self.FLUSHES} ('ready' emits each channel's flush the "
+                "moment its last assigned bucket is staged; 'step' flushes "
+                "every channel at one end-of-exchange loop)")
+        if not 0 < self.slice_bytes <= self.ring_capacity_bytes:
+            raise ValueError(
+                f"comm.slice_bytes must be > 0 and <= ring_capacity_bytes "
+                f"(got {self.slice_bytes}, {self.ring_capacity_bytes})")
 
 
 @dataclass(frozen=True)
@@ -115,6 +180,33 @@ class ServeConfig:
         if self.max_batch < 1 or self.max_len < 2:
             raise ValueError("serve.max_batch must be >= 1 and "
                              "serve.max_len >= 2")
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """What the trainer needs beyond the model: the reference's
+    optimizer, data and seed fields (checkpointing and restarts come in
+    a later slice, ROADMAP.md Queue 1)."""
+
+    model: ModelConfig
+    shape: ShapeConfig
+    comm: CommConfig = field(default_factory=CommConfig)
+
+    # optimizer
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+
+    # data
+    data_path: str = ""                # empty -> synthetic
+    data_seed: int = 0
+
+    seed: int = 0
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -1,50 +1,137 @@
-"""CommBackend — the pluggable transport behind serving (and, in a later
-slice, gradient) collectives.
+"""CommBackend — the pluggable transport behind gradient and serving
+collectives.
 
-Counterpart of ``repro/core/backends/base.py``. Callers reach a strategy
-only through the registry (``get_backend`` / ``available_modes``) and
-never branch on mode names — the hadroNIO transparency boundary. This
-slice ports the serving wire path (``serve_emit``) and the registry; the
-gradient exchange, state layouts and the staged slice pipeline come with
-the training slice (ROADMAP.md, Queue 1).
+Counterpart of ``repro/core/backends/base.py``. hadroNIO keeps the NIO
+API while the transport underneath is swapped; here every
+synchronization strategy is a :class:`CommBackend` registered by mode
+name, and callers reach one only through the registry
+(``get_backend`` / ``available_modes``) — ``core/tac.py`` and
+``launch/steps.py`` carry no per-mode branches. A backend owns:
+
+* ``sync(grads, ctx) -> SyncResult`` — the collective schedule of one
+  gradient exchange;
+* ``state_specs(run)`` — the optimizer and error-feedback state layout
+  it needs;
+* ``apply_update(...)`` — how synced gradients become a parameter
+  update (tree AdamW by default);
+* ``serve_emit`` — the serving wire.
+
+A capability flag replaces mode names: ``manual`` (the backend
+exchanges gradients itself, in the TAC step). The reference's ``zero1``
+flag and ``SyncResult.flat_shard`` come with the ZeRO-1 modes
+(ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import CommConfig
+from repro_torch.configs.base import CommConfig, RunConfig
+from repro_torch.core import aggregation as agg
+from repro_torch.core.channels import Ring
+from repro_torch.models import api
+from repro_torch.models.common import tree_map
+from repro_torch.optim import adamw
+
+Tree = Any
 
 SERVE_KINDS = ("all_reduce", "all_gather")
 
 
+class SyncResult(NamedTuple):
+    """What one gradient exchange produced (the same for every
+    backend — the other half of the transparency boundary)."""
+    grads: Tree               # synced grads (tree)
+    plan: Any = None          # backend-owned pack plan
+    ef: Optional[torch.Tensor] = None    # new error-feedback residual
+    #                                      (this peer's, keyed to the plan)
+
+
 @dataclass(frozen=True)
 class SyncContext:
-    """Resolved ring topology for one emission. ``world_size`` is the
-    ring size and ``rank`` this peer's place in it; ``channel_indices``
-    is the owning event loop's disjoint run of the channel pool (None =
-    the whole ``comm.channels`` pool)."""
+    """Resolved ring topology and carried state for one emission.
+    ``world_size`` is the ring size and ``rank`` this peer's place in
+    it; ``channel_indices`` is the owning event loop's disjoint run of
+    the channel pool (None = the whole ``comm.channels`` pool); ``ring``
+    holds the process group and channel communicators of a gradient
+    exchange; ``ef`` is this peer's error-feedback residual."""
     comm: CommConfig
     world_size: int = 1
     rank: int = 0
     channel_indices: Optional[tuple] = None
+    ring: Optional[Ring] = None
+    ef: Optional[torch.Tensor] = None
+
+
+class StateSpecs(NamedTuple):
+    """Backend-owned part of the train state, as ``meta`` tensors (shape
+    and dtype, no storage)."""
+    opt: adamw.AdamState      # moment layout
+    ef: Optional[torch.Tensor]   # this peer's error-feedback layout
+
+
+@dataclass(frozen=True)
+class UpdateContext:
+    """Ring facts ``apply_update`` needs beyond the sync result (the
+    ring size is ``ring.world_size``)."""
+    ring: Ring
 
 
 class CommBackend(abc.ABC):
     """One synchronization strategy. Subclass + ``@register("name")``."""
 
     name: str = ""            # set by @register
+    manual: bool = True       # True: exchanges gradients in the TAC step
 
     @abc.abstractmethod
+    def sync(self, grads: Tree, ctx: SyncContext) -> SyncResult:
+        """Exchange this peer's gradients over the ring."""
+
+    def needs_ef(self, comm: CommConfig) -> bool:
+        return comm.compress in ("bf16", "int8_ef")
+
+    def state_specs(self, run: RunConfig) -> StateSpecs:
+        """Default layout: f32 tree moments shaped like the params, and
+        this peer's (n_slices, slice_elems) f32 error-feedback residual
+        when compression is on. (The reference's global EF carries a
+        leading ring dim; each process here holds its own row.)"""
+        specs = api.specs(run.model)
+        meta = lambda shape: torch.empty(shape, dtype=torch.float32,
+                                         device="meta")
+        moments = lambda: tree_map(lambda s: meta(s.shape), specs)
+        ef = None
+        if self.needs_ef(run.comm):
+            plan = agg.make_plan(specs, run.comm)
+            ef = meta((plan.n_slices, plan.slice_elems))
+        return StateSpecs(opt=adamw.AdamState(mu=moments(), nu=moments(),
+                                              count=0), ef=ef)
+
+    def apply_update(self, params: Tree, opt: adamw.AdamState,
+                     res: SyncResult, run: RunConfig, uctx: UpdateContext):
+        """(new_params, new_opt, metrics) from a SyncResult. Default: tree
+        AdamW on the synced gradient tree. ``metrics`` holds scalars that
+        are equal on every ring peer (``grad_norm``, ``lr``)."""
+        return adamw.update(res.grads, opt, params, run)
+
+    def validate(self, comm: CommConfig) -> None:
+        """Reject config combinations this strategy cannot honor (called
+        when the step is built)."""
+
     def serve_emit(self, flat: torch.Tensor, ctx: SyncContext,
                    kind: str) -> torch.Tensor:
         """Emit ONE flat f32 serving payload (a tensor-parallel partial
         logit sum, or the coalesced prefill gathering write) through this
         strategy's wire. ``kind`` is one of ``SERVE_KINDS``: all_reduce
-        (sum over the ring) or all_gather (peer-major concatenation)."""
+        (sum over the ring) or all_gather (peer-major concatenation).
+        The reference's default is the sliced ``pipeline.emit_flat``,
+        which is not ported yet."""
+        raise NotImplementedError(
+            f"comm mode {self.name!r} has no serving wire in repro_torch "
+            "yet: the sliced serving emission (pipeline.emit_flat) comes "
+            "with 'Serving at ring size > 1' (ROADMAP.md Queue 1 item 3)")
 
 
 _REGISTRY: dict[str, CommBackend] = {}

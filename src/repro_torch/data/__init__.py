@@ -1,0 +1,5 @@
+from repro_torch.data.pipeline import (BinarySource, DataConfig,
+                                       SyntheticSource, batch_at, make_source)
+
+__all__ = ["BinarySource", "DataConfig", "SyntheticSource", "batch_at",
+           "make_source"]

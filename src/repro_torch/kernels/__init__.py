@@ -4,9 +4,14 @@ PyTorch version (``ref``) and reached through ``ops``:
 * flash_attention — online-softmax prefill attention (CUDA C++,
   ``csrc/flash_attention.cu``), replacing the Pallas
   ``repro/kernels/flash_attention.py::flash_attention_kernel``.
+* pack_slices / unpack_slices — the ring-buffer pack (add error
+  feedback, cast to the wire, capture the residual) and unpack (cast
+  back) passes of the gradient exchange (CUDA C++, ``csrc/ring_pack.cu``),
+  replacing the Pallas ``repro/kernels/ring_pack.py::pack_slices_kernel``
+  and ``unpack_slices_kernel``.
 
-The reference's other Pallas kernels (ring_pack, rwkv6_scan, rglru) are
-listed in ROADMAP.md, Queue 2.
+The reference's other Pallas kernels (rwkv6_scan, rglru) are listed in
+ROADMAP.md, Queue 2.
 """
 from repro_torch.kernels import ops, ref
 

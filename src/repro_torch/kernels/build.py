@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 # per kernel: seconds the build took (0.0 when the library was cached on
 # disk) and what ptxas reported (registers, shared memory, spills)
@@ -44,9 +45,12 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The compiled library of ``csrc/<name>.cu``, built if missing.
-    Thread-safe (event loops may launch a kernel first at the same time)
-    and safe across processes (the library is renamed into place)."""
+    Thread-safe (event loops may launch a kernel first at the same time;
+    different kernels build in parallel, one lock per name) and safe
+    across processes (the library is renamed into place)."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

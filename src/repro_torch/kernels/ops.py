@@ -17,8 +17,98 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ring_pack as _rp
 
 _COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def _device_of(*tensors) -> str:
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: "
+                         f"{sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+# ---------------------------------------------------------------------------
+# ring pack
+# ---------------------------------------------------------------------------
+
+
+def pack_slices(flat: torch.Tensor, ef, *, n_slices: int, slice_elems: int,
+                wire_dtype: str = "bfloat16", with_ef: bool = True):
+    """Fused (add EF, cast to the wire dtype, capture the residual) over
+    the (n_slices, slice_elems) view of ``flat`` — see
+    ``csrc/ring_pack.cu``. flat: contiguous (n_slices * slice_elems,) f32
+    (``aggregation.pack`` pads it so); ef: None or contiguous
+    (n_slices, slice_elems) f32. Returns (wire (n, S), new_ef (n, S) f32)
+    with EF, (wire, None) without."""
+    if wire_dtype not in ref.WIRE_DTYPES:
+        raise ValueError(f"pack_slices: wire_dtype must be one of "
+                         f"{tuple(ref.WIRE_DTYPES)}, got {wire_dtype!r}")
+    if n_slices < 1 or slice_elems < 1:
+        raise ValueError(f"pack_slices: n_slices and slice_elems must be "
+                         f">= 1, got {n_slices}, {slice_elems}")
+    if flat.dtype != torch.float32 or flat.shape != (n_slices * slice_elems,):
+        raise ValueError(f"pack_slices: flat must be a ({n_slices} * "
+                         f"{slice_elems},) float32 vector, got "
+                         f"{tuple(flat.shape)} {flat.dtype}")
+    ef = ef if with_ef else None
+    if ef is not None and (ef.dtype != torch.float32
+                           or ef.shape != (n_slices, slice_elems)):
+        raise ValueError(f"pack_slices: ef must be ({n_slices}, "
+                         f"{slice_elems}) float32, got {tuple(ef.shape)} "
+                         f"{ef.dtype}")
+    if _device_of(flat, ef) == "cpu":
+        return ref.pack_slices(flat, ef, n_slices=n_slices,
+                               slice_elems=slice_elems,
+                               wire_dtype=wire_dtype, with_ef=with_ef)
+    if not flat.is_contiguous() or (ef is not None
+                                    and not ef.is_contiguous()):
+        raise ValueError("pack_slices kernel needs contiguous flat and ef")
+    out = _rp.pack_slices_kernel(flat, ef, n_slices, slice_elems,
+                                 ref.WIRE_DTYPES[wire_dtype], with_ef)
+    _count(pack_slices)
+    return out
+
+
+pack_slices.launches = 0
+
+
+def unpack_slices(wire: torch.Tensor, out_dtype: str = "float32"):
+    """Fused cast-from-wire-dtype + re-slice (the scattering read) — see
+    ``csrc/ring_pack.cu``. wire: contiguous (n, S) bf16 or f32. Returns
+    (n * S,) of ``out_dtype``; the kernel writes float32 only (the one
+    dtype the unpack stage asks for)."""
+    if wire.dim() != 2 or wire.dtype not in ref.WIRE_DTYPES.values():
+        raise ValueError(f"unpack_slices: wire must be (n, S) bfloat16 or "
+                         f"float32, got {tuple(wire.shape)} {wire.dtype}")
+    if out_dtype != "float32":
+        raise ValueError(f"unpack_slices: out_dtype must be 'float32', "
+                         f"got {out_dtype!r}")
+    if _device_of(wire) == "cpu":
+        return ref.unpack_slices(wire, out_dtype)
+    if not wire.is_contiguous():
+        raise ValueError("unpack_slices kernel needs a contiguous wire")
+    out = _rp.unpack_slices_kernel(wire)
+    _count(unpack_slices)
+    return out
+
+
+unpack_slices.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,6 +132,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward, so its "
+            "output would carry no gradient; train through the plain "
+            "attention.attend_chunked (as transformer.apply_stack does in "
+            "train mode) or call the kernel under torch.no_grad()")
     if q.shape[-1] not in _fa.HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes Dh in "
                          f"{_fa.HEAD_DIMS}, got {q.shape[-1]}")
@@ -49,8 +146,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention kernel needs contiguous q/k/v")
     out = _fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
                                      s_valid=q.shape[1])
-    with _COUNT_LOCK:
-        flash_attention.launches += 1
+    _count(flash_attention)
     return out
 
 

@@ -11,6 +11,36 @@ import torch
 
 from repro_torch.models import attention as att
 
+WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+# -- ring pack ---------------------------------------------------------------
+
+
+def pack_slices(flat: torch.Tensor, ef, *, n_slices: int, slice_elems: int,
+                wire_dtype: str = "bfloat16", with_ef: bool = True):
+    """(add EF, cast to the wire dtype, capture the residual) over the
+    (n_slices, slice_elems) view of ``flat``. Returns (wire, new_ef), or
+    (wire, None) without EF. ``ef=None`` with EF on means a zero
+    residual (added, as in the reference, so -0.0 becomes +0.0)."""
+    x = flat.reshape(n_slices, slice_elems).float()
+    wdt = WIRE_DTYPES[wire_dtype]
+    if not with_ef:
+        return x.to(wdt), None
+    if ef is None:
+        ef = torch.zeros_like(x)
+    y = x + ef
+    wire = y.to(wdt)
+    return wire, y - wire.float()
+
+
+def unpack_slices(wire: torch.Tensor, out_dtype: str = "float32"):
+    """(n, S) wire -> (n * S,) of ``out_dtype``."""
+    return wire.to(WIRE_DTYPES[out_dtype]).reshape(-1)
+
+
+# -- flash attention ---------------------------------------------------------
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:

@@ -1,0 +1,130 @@
+"""Train-step builders of the port.
+
+Counterpart of ``repro/launch/steps.py`` (its train steps; the serve
+steps live in ``serving/dispatch.py``). Two step families, picked by the
+backend's ``manual`` flag, never by a mode name:
+
+* TAC (every backend with ``manual=True``) — the paper's regime: each
+  process is one data-parallel peer of the ring. The local loss is
+  scaled by 1/ring size, autograd gives the local gradients,
+  ``tac.sync_grads`` sums them over the ring through the backend's
+  collective schedule, and the backend's ``apply_update`` turns the sum
+  into an update. The reference runs this body inside a manual
+  ``shard_map``; here the process *is* the peer.
+* gspmd (``manual=False``) — local gradients and a tree AdamW with no
+  exchange, on one peer only (a wider ring needs FSDP2/DTensor,
+  ROADMAP.md Queue 1 item 8).
+
+A step is ``step_fn(state, batch) -> (state, metrics)`` with ``batch``
+{"tokens", "labels"} on the device; metrics are 0-d tensors plus the
+Python float ``lr``. Gradient accumulation (``microbatches``) comes in a
+later slice.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import tac
+from repro_torch.core.backends import UpdateContext, get_backend
+from repro_torch.core.channels import Ring
+from repro_torch.models import api
+from repro_torch.models.common import tree_map
+from repro_torch.optim import adamw
+
+Tree = Any
+
+
+class TrainState(NamedTuple):
+    params: Tree
+    opt: adamw.AdamState
+    step: int
+    ef: Optional[torch.Tensor] = None   # this peer's error-feedback row
+
+
+def _loss_and_grads(params: Tree, batch: dict, run: RunConfig,
+                    n_shards: int):
+    """(loss / n_shards, its grads) by autograd over fresh leaves that
+    alias the params."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, _aux = api.loss(leaves, batch, run.model)
+        loss = loss / n_shards
+        loss.backward()
+    return loss.detach(), tree_map(lambda p: p.grad, leaves)
+
+
+def init_train_state(gen: torch.Generator, run: RunConfig,
+                     device: DeviceLike = None) -> TrainState:
+    params = api.init(gen, run.model, device=device)
+    return TrainState(params=params, opt=adamw.init(params), step=0)
+
+
+def init_tac_state(gen: torch.Generator, run: RunConfig,
+                   device: DeviceLike = None) -> TrainState:
+    """Params from ``gen``; moments and error feedback laid out as the
+    backend's ``state_specs`` say, zero-filled on ``device``."""
+    dev = resolve_device(device)
+    specs = get_backend(run.comm.mode).state_specs(run)
+    zeros = lambda m: torch.zeros(m.shape, dtype=m.dtype, device=dev)
+    return TrainState(
+        params=api.init(gen, run.model, device=dev),
+        opt=adamw.AdamState(tree_map(zeros, specs.opt.mu),
+                            tree_map(zeros, specs.opt.nu), 0),
+        step=0,
+        ef=None if specs.ef is None else zeros(specs.ef))
+
+
+def make_train_step_tac(run: RunConfig, ring: Ring):
+    """The TAC step over ``ring``: every process runs it on its own
+    shard of the global batch."""
+    comm = run.comm
+    backend = get_backend(comm.mode)
+    backend.validate(comm)
+    n_shards = ring.world_size
+    uctx = UpdateContext(ring=ring)
+
+    def step_fn(state: TrainState, batch: dict):
+        # local loss scaled so the ring sum of the grads is the global mean
+        loss, grads = _loss_and_grads(state.params, batch, run, n_shards)
+        res = tac.sync_grads(grads, comm, ring=ring, ef=state.ef)
+        # the loss epilogue after the sync emission, as in the reference
+        dist.all_reduce(loss, group=ring.group)
+        new_params, new_opt, metrics = backend.apply_update(
+            state.params, state.opt, res, run, uctx)
+        return TrainState(new_params, new_opt, state.step + 1,
+                          res.ef), dict(metrics, loss=loss)
+
+    return step_fn
+
+
+def make_train_step_gspmd(run: RunConfig, ring: Ring):
+    """Local gradients and a tree AdamW, no exchange: one peer only."""
+    if ring.world_size != 1:
+        raise NotImplementedError(
+            f"gspmd training over a ring of {ring.world_size} peers needs "
+            "FSDP2/DTensor, which is not ported yet (ROADMAP.md Queue 1 "
+            "item 8); use a TAC mode such as hadronio")
+
+    def step_fn(state: TrainState, batch: dict):
+        loss, grads = _loss_and_grads(state.params, batch, run, 1)
+        new_params, new_opt, metrics = adamw.update(
+            grads, state.opt, state.params, run)
+        return TrainState(new_params, new_opt, state.step + 1,
+                          state.ef), dict(metrics, loss=loss)
+
+    return step_fn
+
+
+def make_train_step(run: RunConfig, ring: Ring):
+    """Dispatch on the registered backend's step family (callers never
+    change, and no mode names appear here)."""
+    backend = get_backend(run.comm.mode)
+    backend.validate(run.comm)
+    if backend.manual:
+        return make_train_step_tac(run, ring)
+    return make_train_step_gspmd(run, ring)

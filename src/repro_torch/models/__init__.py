@@ -1,6 +1,6 @@
 from repro_torch.models import api
 from repro_torch.models.api import (decode_step, grow_cache, init,
-                                    init_cache, prefill, specs)
+                                    init_cache, loss, prefill, specs)
 
-__all__ = ["api", "decode_step", "grow_cache", "init", "init_cache",
+__all__ = ["api", "decode_step", "grow_cache", "init", "init_cache", "loss",
            "prefill", "specs"]

@@ -2,11 +2,13 @@
 
   specs(cfg)                                   -> ParamSpec tree
   init(gen, cfg, device=)                      -> params
+  loss(params, batch, cfg)                     -> (loss, aux)
   prefill(params, batch, cfg, ...)             -> (last-token logits, cache)
   decode_step(params, cache, batch, cfg, ...)  -> (logits, cache)
   init_cache / grow_cache
 
-Counterpart of ``repro/models/api.py``. ``batch`` is a dict: prefill
+Counterpart of ``repro/models/api.py``. ``batch`` is a dict: train
+{"tokens", "labels": (B,S) int, "loss_mask"?: (B,S)}; prefill
 {"tokens": (B,S) int, "last_pos"?: (B,)}; decode {"token": (B,),
 "pos": () or (B,)}. Other families raise ``NotImplementedError`` naming
 the ROADMAP queue entry that brings them.
@@ -22,8 +24,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params
-from repro_torch.models.layers import (apply_norm, embedding_specs,
-                                       embed_tokens, lm_logits, norm_specs)
+from repro_torch.models.layers import (apply_norm, cross_entropy,
+                                       embedding_specs, embed_tokens,
+                                       lm_logits, norm_specs)
 
 Tree = Any
 
@@ -50,6 +53,22 @@ def init(gen: torch.Generator, cfg: ModelConfig,
     """Random params from ``gen`` on ``device`` (the card unless "cpu")."""
     return init_params(gen, specs(cfg), cfg.param_dtype,
                        resolve_device(device))
+
+
+def loss(params: Tree, batch: dict, cfg: ModelConfig):
+    """Token-mean cross entropy of next-token prediction, and the aux
+    dict {"xent", "aux"} of the reference (``aux`` is the MoE balance
+    loss, zero for the dense family). Attention is the plain
+    ``attend_chunked``, which autograd differentiates."""
+    _check_family(cfg)
+    x = embed_tokens(params["embed"], batch["tokens"],
+                     torch_dtype(cfg.compute_dtype))
+    x, _ = tfm.apply_stack(params["layers"], x, cfg, mode="train")
+    x = apply_norm(params["ln_f"], x, cfg.norm_kind)
+    logits = lm_logits(params["embed"], x)
+    xent = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 def prefill(params: Tree, batch: dict, cfg: ModelConfig,

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/models/attention.py``. Regimes:
 
-* prefill/train attention runs the hand-written CUDA kernel through
+* prefill attention runs the hand-written CUDA kernel through
   ``kernels/ops.flash_attention`` (the call is in ``transformer.py``);
   ``attend_chunked`` here is its plain chunked online-softmax version,
+  which train mode runs (autograd differentiates it), and
   ``attend_direct`` the one-block version both rest on.
 * ``decode_attend`` — one new token against the KV cache, plain PyTorch
   (the reference's decode is jnp too, not a Pallas kernel). It groups

@@ -1,8 +1,11 @@
-"""Parameters from numpy arrays (the port's own; no ``repro`` counterpart).
+"""Parameters and train state from numpy arrays (the port's own; no
+``repro`` counterpart).
 
 ``from_numpy_params`` turns a nested dict of numpy arrays — for example
 the reference's JAX param pytree after ``np.asarray`` on every leaf —
-into the port's params with the same dotted paths. bfloat16 arrives as
+into the port's params with the same dotted paths.
+``from_numpy_train_state`` does the same for a whole JAX ``TrainState``
+(params, Adam moments and count, step, error feedback). bfloat16 arrives as
 the ml_dtypes ``bfloat16`` numpy dtype, which ``torch.from_numpy``
 rejects: it crosses as its 16-bit pattern (``int16``) and is
 reinterpreted as ``torch.bfloat16``. The dtype is recognised by name, so
@@ -33,3 +36,25 @@ def from_numpy_params(tree: Any, device: DeviceLike = None) -> Any:
     (the card unless "cpu")."""
     dev = resolve_device(device)
     return tree_map(lambda a: from_numpy(np.asarray(a), dev), tree)
+
+
+def from_numpy_train_state(state: Any, device: DeviceLike = None, *,
+                           rank: int = 0):
+    """The reference's ``TrainState`` after ``np.asarray`` on every leaf
+    -> the port's ``launch.steps.TrainState`` on ``device``: params,
+    Adam ``mu``/``nu``/``count``, ``step``, and this peer's row
+    ``ef[rank]`` of the error feedback (the reference's global EF
+    carries a leading ring dim; a port process holds its own row).
+    Fields are read by name, so the JAX types need not be importable."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import AdamState
+    dev = resolve_device(device)
+    ef = None if state.ef is None else from_numpy(np.asarray(state.ef)[rank],
+                                                  dev)
+    return TrainState(
+        params=from_numpy_params(state.params, dev),
+        opt=AdamState(mu=from_numpy_params(state.opt.mu, dev),
+                      nu=from_numpy_params(state.opt.nu, dev),
+                      count=int(np.asarray(state.opt.count))),
+        step=int(np.asarray(state.step)),
+        ef=ef)

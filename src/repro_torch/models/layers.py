@@ -1,4 +1,5 @@
-"""Shared layers: RMS norm, RoPE, embeddings, LM head, SwiGLU MLP.
+"""Shared layers: RMS norm, RoPE, embeddings, LM head, cross entropy,
+SwiGLU MLP.
 
 Counterpart of ``repro/models/layers.py`` for the dense path. Functions
 are pure and take their parameters as dict subtrees built from the
@@ -8,6 +9,8 @@ Other norm and MLP kinds raise ``NotImplementedError`` until the
 families that use them are ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +90,20 @@ def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
     if w is None:
         w = p["tok"].T
     return torch.matmul(x, w.to(x.dtype))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy with f32 reductions (the reference's
+    formulation: logsumexp minus the gold logit)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

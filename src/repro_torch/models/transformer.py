@@ -9,12 +9,15 @@ the layers replaces ``lax.scan``.
   prefill — full sequence, returns the per-layer KV cache.
   decode  — one token per call against the cache (written in place).
 
-Train/prefill attention is the hand-written CUDA flash-attention kernel
+Prefill attention is the hand-written CUDA flash-attention kernel
 (``kernels.ops.flash_attention``; on CPU tensors its plain version),
-where the reference calls its jnp ``attend_chunked``. ``attend``
-overrides it with another function of the same signature, such as the
-plain ``attention.attend_chunked``, to hold the kernel path against the
-plain one on the same inputs.
+where the reference calls its jnp ``attend_chunked``. Train attention is
+the plain ``attention.attend_chunked``, as in the reference: the kernel
+has no backward (neither has the reference's Pallas kernel), and
+autograd differentiates the plain version. ``attend`` overrides the
+attention of either mode with another function of the same signature,
+for example to hold the prefill kernel against the plain path on the
+same inputs.
 """
 from __future__ import annotations
 
@@ -96,7 +99,9 @@ def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     (the given cache, updated in place); None in train mode."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    attend = attend or ops.flash_attention
+    if attend is None:
+        attend = att.attend_chunked if mode == "train" \
+            else ops.flash_attention
     ks, vs = [], []
     for layer in range(cfg.num_layers):
         p = tree_map(lambda t: t[layer], params)

@@ -15,7 +15,7 @@ Counterpart of ``repro/serving/event_loop.py`` (single-tenant form):
   ``run()`` drains every loop, one OS thread per loop under
   ``threads=True``.
 * :func:`channel_affinity` — disjoint contiguous runs of the channel
-  pool, balanced to within one (``selector.ready_groups``, copied here).
+  pool, balanced to within one (``core.selector.ready_groups``).
 
 Tenants, the chaos seams, restarts and the telemetry plane come in later
 slices (ROADMAP.md).
@@ -30,21 +30,9 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.core.selector import ready_groups
+
 POLLS = ("busy", "park", "adaptive")
-
-
-def ready_groups(n_items: int, n_groups: int) -> tuple:
-    """Partition ``0..n_items-1`` into at most ``n_groups`` CONTIGUOUS
-    runs, sizes balanced to within one with the smaller runs first
-    (``repro.core.selector.ready_groups`` with ``reverse=False``)."""
-    n_groups = max(1, min(n_groups, n_items))
-    base, rem = divmod(n_items, n_groups)
-    groups, off = [], 0
-    for c in range(n_groups):
-        size = base + (1 if c >= n_groups - rem else 0)
-        groups.append(tuple(range(off, off + size)))
-        off += size
-    return tuple(groups)
 
 
 def channel_affinity(n_channels: int, n_loops: int) -> tuple:

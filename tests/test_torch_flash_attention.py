@@ -147,3 +147,17 @@ def test_kernel_rejects_unsupported_head_dim(cuda):
     q = torch.zeros((1, 8, 1, 48), device=cuda)
     with pytest.raises(ValueError, match="Dh"):
         ops.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_autograd(cuda):
+    """The kernel has no backward: under autograd with an input that
+    requires grad it raises instead of handing back an output with no
+    graph (which would zero every attention gradient). Without grad it
+    runs."""
+    q = torch.randn((1, 8, 2, 64), device=cuda, requires_grad=True)
+    k, v = (torch.randn((1, 8, 2, 64), device=cuda) for _ in range(2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).shape == q.shape
