@@ -13,8 +13,9 @@ non-zero (no phase's failure is caught):
    seconds and ptxas' register report;
 3. hold each kernel against its plain PyTorch version on the card at
    the stated tolerances (flash attention at 3e-2/5e-2 in bf16 and
-   2e-4/2e-3 in f32; ring pack and unpack bit for bit, ``torch.equal``
-   on the bit patterns), then time kernel, plain version and the one
+   2e-4/2e-3 in f32, head dims 16..256; ring pack and unpack bit for bit,
+   ``torch.equal`` on the bit patterns; WKV6 at 2e-3, 5e-3 at extreme
+   decays; RG-LRU at 2e-4), then time kernel, plain version and the one
    PyTorch library call that computes the same function, at the shapes
    the main paths give them, beside the roofline bound;
 4. serve qwen2-0.5b at full width (random weights from a seed) through
@@ -40,7 +41,24 @@ non-zero (no phase's failure is caught):
    and checks each pair bitwise equal; times steps 2-5 for
    ``hadronio/bf16/pallas``, ``hadronio/bf16/jnp`` and ``gspmd`` from
    one start state; profiles one hadronio step; reports peak memory;
-6. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+6. serve rwkv6-7b (WKV6 kernel) and recurrentgemma-9b (RG-LRU kernel,
+   flash at head_dim 256) at full width, bf16, random weights from the
+   card's generator, through the same path: 8 requests in four pairs of
+   equal prompt length (one pair per loop, so the recurrent engine's
+   equal-length buckets form B=2 waves), 16 new tokens each, greedy,
+   ``--batch 2``, 2 event loops, busy polling, ``gspmd`` at ring size 1.
+   rwkv6 prompts are 1024, 640, 384 and 128 tokens (``--max-len 2048``);
+   recurrentgemma's 2040, 1024, 384 and 128 (``--max-len 4096``), so
+   decode crosses the 2048-slot local window. Checks every request's
+   token count; that every WKV scan (32 per prefill call and per decode
+   step), every multi-step RG-LRU scan (26 per prefill call) and every
+   local-attention prefill (12 per call) went through its kernel (launch
+   counters); that served first tokens replay from the kernel path's
+   logits; and that at f32, full width and 4 layers, the kernel path's
+   prefill logits are within 1e-4 relative L2 of the plain path's.
+   Reports prefill (B=2, S=1024) and decode (B=2) times, host and device,
+   and peak memory;
+7. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -159,6 +177,164 @@ def check_close(name, got, want, atol, rtol) -> float:
     return max_err
 
 
+def scan_bound_ms(nbytes: float, flops: float):
+    """Least time of an f32 scan: bytes over the HBM rate or FLOPs over
+    the f32 rate (the scans use no tensor cores), whichever is larger."""
+    t_bytes, t_ops = nbytes / H100_BYTES_S, flops / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def wkv6_inputs(gen, b, t, h, hs, extreme=False):
+    """r, k, v, w, u, s0 as the reference's kernel tests draw them
+    (s0 != 0; extreme: half the decays 1e-6, half 1 - 1e-6, s0 = 0)."""
+    dev = torch.device("cuda")
+    n = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+    r, k, v = n(b, t, h, hs), n(b, t, h, hs), n(b, t, h, hs)
+    if extreme:
+        w = torch.full((b, t, h, hs), 1 - 1e-6, device=dev)
+        w[:, : t // 2] = 1e-6
+        s0 = torch.zeros((b, h, hs, hs), device=dev)
+    else:
+        w = torch.sigmoid(n(b, t, h, hs)) * 0.85 + 0.1
+        s0 = n(b, h, hs, hs) * 0.1
+    return r, k, v, w, n(h, hs) * 0.1, s0
+
+
+def rglru_inputs(gen, b, t, w):
+    dev = torch.device("cuda")
+    n = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+    return torch.sigmoid(n(b, t, w)) * 0.95, n(b, t, w), n(b, w)
+
+
+def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
+    """Phase 6 for one model: serve ``arch`` at full width through the
+    event-loop group on the card; ``expect`` maps a wrapper to its
+    launches per prefill call and per decode step; ``plain`` is the
+    prefill keywords of the plain path. Returns the launches by
+    wrapper."""
+    from repro_torch.configs.base import CommConfig, ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serving import Request, make_engine_group
+    dev = gen.device
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = api.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"[init] {cfg.name}: {cfg.param_count() / 1e9:.3f}B params "
+          f"{cfg.param_dtype} in {time.perf_counter() - t0:.2f}s")
+    serve = ServeConfig(event_loops=2, poll="busy", max_batch=2,
+                        max_len=max_len, comm=CommConfig(mode="gspmd",
+                                                         channels=4))
+    group = make_engine_group(cfg, params, serve, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    # pairs of equal length, one pair per loop (round-robin by uid)
+    order = [lens[0], lens[1], lens[0], lens[1],
+             lens[2], lens[3], lens[2], lens[3]]
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new=16) for i, n in enumerate(order)]
+    wrappers = (ops.wkv6, ops.rglru, ops.flash_attention)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in wrappers:
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    group.submit(reqs)
+    results = sorted(group.run(threads=True), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {w.__name__: w.launches for w in wrappers}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    engines = [l.engine for l in group.loops]
+    prefills = sum(e.prefills for e in engines)
+    decodes = sum(e.decode_steps for e in engines)
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[serve] {cfg.name}: {len(results)} requests (prompts "
+          f"{order}), {n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} "
+          f"tok/s | prefill calls {prefills}, decode steps {decodes}, "
+          f"launches {got} | peak memory {peak_gb:.2f} GB ({base_gb:.2f} "
+          f"GB allocated before the run) | {smi}")
+    assert [r.uid for r in results] == list(range(len(reqs)))
+    assert all(len(r.tokens) == 16 for r in results), \
+        [len(r.tokens) for r in results]
+    assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
+    assert prefills == 4 and sum(e.admit_prefills for e in engines) == 0
+    want = {w.__name__: 0 for w in wrappers}
+    for name, (per_prefill, per_decode) in expect.items():
+        want[name] = per_prefill * prefills + per_decode * decodes
+    assert got == want, (got, want)
+
+    # device time of the serve step at B=2, S=1024, and of a decode
+    # step at B=2 against that prefill's state
+    step = group.loops[0].engine.step
+    big = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, 1024)), device=dev)}
+    ms_prefill = time_ms(lambda: step.prefill(params, big), iters=3,
+                         warmup=1)
+    _, cache = step.prefill(params, big)
+    dec = {"token": torch.zeros(2, dtype=torch.long, device=dev),
+           "pos": torch.tensor([1024, 1024], device=dev)}
+    ms_decode = time_ms(lambda: step.decode(params, cache, dec),
+                        iters=10)
+    print(f"[serve-time] {cfg.name}: prefill B=2 S=1024 "
+          f"{ms_prefill:.3f} ms | decode step B=2 {ms_decode:.3f} ms | "
+          f"{smi}")
+    for what, fn, wall in (
+            ("prefill", lambda: step.prefill(params, big), ms_prefill),
+            ("decode", lambda: step.decode(params, cache, dec),
+             ms_decode)):
+        busy, n_k, ranked, _ = profile_device(fn)
+        if busy is None:
+            print(f"[profile] {cfg.name} {what}: device time not "
+                  "measured (the profiler recorded no device events)")
+            continue
+        print(f"[profile] {cfg.name} {what}: {n_k} kernels, {busy:.3f} "
+              f"ms on the device of {wall:.3f} ms per step "
+              f"({busy / wall:.1%} busy); top: "
+              + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in ranked))
+    del cache
+
+    # loop 0's longest wave (uids 0 and 2) replays its served first
+    # tokens from the kernel path's prefill logits
+    batch = {"tokens": torch.as_tensor(
+        np.stack([reqs[0].prompt, reqs[2].prompt]), device=dev)}
+    lk, _ = step.prefill(params, batch)
+    first = lk.argmax(-1).tolist()
+    assert first == [int(results[0].tokens[0]),
+                     int(results[2].tokens[0])], \
+        (first, results[0].tokens[:1], results[2].tokens[:1])
+    assert lk.shape == (2, cfg.vocab_size) \
+        and bool(torch.isfinite(lk).all())
+    del group, step, params, lk
+    torch.cuda.empty_cache()
+
+    # f32, full width, 4 layers: the kernel path against the plain
+    # path on the same weights and prompts. They differ only in the
+    # order of sums (1e-6 relative per layer), so the bound is 1e-4
+    # relative L2; a wrong kernel misses it by O(1)
+    cfg4 = dataclasses.replace(cfg, num_layers=4, param_dtype="float32",
+                               compute_dtype="float32")
+    p4 = api.init(gen, cfg4, device=dev)
+    lk4, _ = api.prefill(p4, batch, cfg4)
+    lp4, _ = api.prefill(p4, batch, cfg4, **plain)
+    torch.cuda.synchronize()
+    e4 = float((lk4 - lp4).norm() / lp4.norm())
+    print(f"[check] {cfg.name} f32 4 layers, prefill logits of "
+          f"{tuple(batch['tokens'].shape)}: kernel vs plain rel_l2="
+          f"{e4:.3e} (bound 1e-4), max_abs_err="
+          f"{float((lk4 - lp4).abs().max()):.3e} "
+          f"{'ok' if e4 <= 1e-4 else 'FAIL'}")
+    if not e4 <= 1e-4:
+        raise AssertionError(f"{cfg.name}: kernel path disagrees with "
+                             "the plain path")
+    del p4, lk4, lp4
+    torch.cuda.empty_cache()
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -197,7 +373,7 @@ def main() -> int:
 
     # -- 2. build (one nvcc per source, started together) -------------------
     t0 = time.perf_counter()
-    names = ("flash_attention", "ring_pack")
+    names = ("flash_attention", "ring_pack", "rwkv6_scan", "rglru")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.load, names))
     print(f"[build] {', '.join(names)}: {time.perf_counter() - t0:.2f}s")
@@ -335,6 +511,113 @@ def main() -> int:
               f"library {lib}, bound {t['bound_ms']:.4f} ms (bytes; "
               f"{t['bound_ms'] / t['ms']:.1%} of the HBM rate) | {smi}")
     del flat, ef, wire_k, ef_k
+    torch.cuda.empty_cache()
+
+    # WKV6: ragged shapes of every head size, the decode step, rwkv6-7b's
+    # prefill shape with s0 != 0 and with extreme decays
+    for b, t, h, hs in ((2, 37, 3, 16), (1, 100, 2, 32), (2, 33, 4, 64),
+                        (2, 1, 64, 64)):
+        args = wkv6_inputs(gen, b, t, h, hs)
+        got = ops.wkv6(*args)
+        torch.cuda.synchronize()
+        want = ref.wkv6(*args)
+        check_close(f"wkv6 ({b}, {t}, {h}, {hs}) y", got[0], want[0], 2e-3,
+                    2e-3)
+        check_close(f"wkv6 ({b}, {t}, {h}, {hs}) s_final", got[1], want[1],
+                    2e-3, 2e-3)
+    wshape = (2, 1024, 64, 64)
+    wkv_err = 0.0
+    for extreme, tol in ((False, 2e-3), (True, 5e-3)):
+        args = wkv6_inputs(gen, *wshape, extreme=extreme)
+        got = ops.wkv6(*args)
+        torch.cuda.synchronize()
+        want = ref.wkv6(*args)
+        for i, part in enumerate(("y", "s_final")):
+            err = check_close(f"wkv6 {wshape} {part}"
+                              + (" extreme decays" if extreme else
+                                 " (timed shape)"), got[i], want[i], tol, tol)
+            if not extreme:
+                wkv_err = max(wkv_err, err)
+    args = wkv6_inputs(gen, *wshape)
+    b, t, h, hs = wshape
+    n_el = b * t * h * hs
+    wkv_bound, wkv_bound_by = scan_bound_ms(
+        (5 * n_el + 2 * b * h * hs * hs + h * hs) * 4.0, 5.0 * n_el * hs)
+    wkv = {"ms": time_ms(lambda: ops.wkv6(*args), iters=10),
+           "plain_ms": time_ms(lambda: ref.wkv6(*args), iters=2, warmup=1)}
+    wkv["ms_again"] = time_ms(lambda: ops.wkv6(*args), iters=10)
+    dec_args = wkv6_inputs(gen, b, 1, h, hs)
+    wkv_dec_ms = time_ms(lambda: ops.wkv6(*dec_args), iters=50)
+    wkv_dec_bound, _ = scan_bound_ms(
+        (5 * b * h * hs + 2 * b * h * hs * hs + h * hs) * 4.0,
+        5.0 * b * h * hs * hs)
+    print(f"[time] wkv6 B={b} T={t} H={h} hs={hs} f32: kernel "
+          f"{wkv['ms']:.4f} / {wkv['ms_again']:.4f} ms, plain "
+          f"{wkv['plain_ms']:.4f} ms, library none (no single call), bound "
+          f"{wkv_bound:.4f} ms ({wkv_bound_by}) | decode T=1: kernel "
+          f"{wkv_dec_ms:.4f} ms, bound {wkv_dec_bound:.4f} ms | {smi}")
+    del args, dec_args, got, want
+
+    # RG-LRU: ragged shapes and recurrentgemma-9b's prefill shape
+    for b, t, w in ((3, 100, 65), (2, 9, 4099), (1, 1, 7)):
+        args = rglru_inputs(gen, b, t, w)
+        got = ops.rglru(*args)
+        torch.cuda.synchronize()
+        want = ref.rglru(*args)
+        check_close(f"rglru ({b}, {t}, {w}) h_seq", got[0], want[0], 2e-4,
+                    2e-4)
+        check_close(f"rglru ({b}, {t}, {w}) h_final", got[1], want[1], 2e-4,
+                    2e-4)
+    b, t, w = 2, 1024, 4096
+    args = rglru_inputs(gen, b, t, w)
+    got = ops.rglru(*args)
+    torch.cuda.synchronize()
+    want = ref.rglru(*args)
+    lru_err = max(check_close(f"rglru ({b}, {t}, {w}) {part} (timed shape)",
+                              got[i], want[i], 2e-4, 2e-4)
+                  for i, part in enumerate(("h_seq", "h_final")))
+    lru_bound, lru_bound_by = scan_bound_ms((3 * b * t * w + 2 * b * w) * 4.0,
+                                            2.0 * b * t * w)
+    lru = {"ms": time_ms(lambda: ops.rglru(*args), iters=20),
+           "plain_ms": time_ms(lambda: ref.rglru(*args), iters=2, warmup=1)}
+    lru["ms_again"] = time_ms(lambda: ops.rglru(*args), iters=20)
+    print(f"[time] rglru B={b} T={t} W={w} f32: kernel {lru['ms']:.4f} / "
+          f"{lru['ms_again']:.4f} ms, plain {lru['plain_ms']:.4f} ms, "
+          f"library none (no single call), bound {lru_bound:.4f} ms "
+          f"({lru_bound_by}) | {smi}")
+    del args, got, want
+
+    # flash attention at recurrentgemma's head_dim 256 (16 heads)
+    for name, dt, s_, window, atol, rtol in (
+            ("f32 Dh=256 window=48 S=257", f32, 257, 48, 2e-4, 2e-3),
+            ("bf16 Dh=256 S=300", bf16, 300, 0, 3e-2, 5e-2)):
+        q, k, v = qkv(2, s_, 16, 256, dt)
+        got = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        check_close(name, got, ref.flash_attention(q, k, v, window=window),
+                    atol, rtol)
+    b, s_, h, dh = 2, 1024, 16, 256
+    q, k, v = qkv(b, s_, h, dh, bf16)
+    fa256_err = check_close(
+        "bf16 Dh=256 window=2048 B=2 S=1024 (timed shape)",
+        ops.flash_attention(q, k, v, window=2048),
+        ref.flash_attention(q, k, v, window=2048), 3e-2, 5e-2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    fa256 = {"ms": time_ms(lambda: ops.flash_attention(q, k, v, window=2048),
+                           iters=10),
+             "plain_ms": time_ms(lambda: ref.flash_attention(
+                 q, k, v, window=2048), iters=5),
+             "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))}
+    fa256["ms_again"] = time_ms(
+        lambda: ops.flash_attention(q, k, v, window=2048), iters=10)
+    fa256["bound_ms"], fa256["bound_by"] = attn_bound_ms(
+        b, s_, h, dh, True, 2048, 2, H100_BF16_FLOPS)
+    print(f"[time] flash_attention B={b} S={s_} H={h} Dh={dh} bf16 causal "
+          f"window 2048 (= causal at S=1024): kernel {fa256['ms']:.4f} / "
+          f"{fa256['ms_again']:.4f} ms, plain {fa256['plain_ms']:.4f} ms, "
+          f"sdpa {fa256['library_ms']:.4f} ms, bound {fa256['bound_ms']:.4f} "
+          f"ms ({fa256['bound_by']}) | {smi}")
+    del q, k, v, qt, kt, vt, got
     torch.cuda.empty_cache()
 
     # -- 4. serve qwen2-0.5b at full width -----------------------------------
@@ -588,13 +871,26 @@ def main() -> int:
     del state, out, start, trainer
     dist.destroy_process_group()
 
-    # -- 6. result lines ------------------------------------------------------
+    # -- 6. serve rwkv6-7b and recurrentgemma-9b at full width ---------------
+    rwkv_launches = serve_recurrent(
+        gen, smi, "rwkv6-7b", (1024, 640, 384, 128), 2048,
+        {"wkv6": (32, 32)}, {"scan": ref.wkv6})
+    rg_cfg = get_config("recurrentgemma-9b")
+    rg_lens = (2040, 1024, 384, 128)
+    assert rg_lens[0] + 15 > rg_cfg.local_window   # decode wraps the window
+    rg_launches = serve_recurrent(
+        gen, smi, "recurrentgemma-9b", rg_lens, 4096,
+        {"rglru": (26, 0), "flash_attention": (12, 0)},
+        {"scan": ref.rglru, "attend": ref.flash_attention})
+
+    # -- 7. result lines ------------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
-         "launches": launches, "max_abs_err": fa_err,
+         "launches": launches + rg_launches["flash_attention"],
+         "max_abs_err": fa_err,
          "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound,
          "bound_by": bound_by, "library_ms": ms_lib},
         {"name": "pack_slices", "route": "cuda", "source": ring_src,
@@ -609,7 +905,19 @@ def main() -> int:
          "max_abs_err": unpack_err,
          "ms": rp["unpack"]["ms"], "plain_ms": rp["unpack"]["plain_ms"],
          "bound_ms": rp["unpack"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": rp["unpack"]["library_ms"]}]}))
+         "library_ms": rp["unpack"]["library_ms"]},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:89",
+         "launches": rwkv_launches["wkv6"], "max_abs_err": wkv_err,
+         "ms": wkv["ms"], "plain_ms": wkv["plain_ms"], "bound_ms": wkv_bound,
+         "bound_by": wkv_bound_by, "library_ms": None},
+        {"name": "rglru", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru.cu",
+         "replaces": "src/repro/kernels/rglru.py:62",
+         "launches": rg_launches["rglru"], "max_abs_err": lru_err,
+         "ms": lru["ms"], "plain_ms": lru["plain_ms"], "bound_ms": lru_bound,
+         "bound_by": lru_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,12 +3,13 @@
 Counterpart of ``repro/configs/base.py``: the port keeps its own copy
 (it imports nothing of ``repro``) with the fields the serving and
 training slices read. ``reduced()`` derives the CPU-sized variant of a
-config with the same rule as the reference, so ``qwen2-0.5b-reduced``
-has the same shapes in both packages.
+config with the same rule as the reference, so every ``-reduced`` id has
+the same shapes in both packages.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -16,7 +17,7 @@ class ModelConfig:
     """Architecture hyperparameters (per-arch modules hold the numbers)."""
 
     name: str
-    family: str               # dense (the only family ported so far)
+    family: str               # dense | ssm | hybrid are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,10 +28,21 @@ class ModelConfig:
     head_dim: int = 0         # 0 -> d_model // num_heads
     qkv_bias: bool = False
     mlp_kind: str = "swiglu"
-    norm_kind: str = "rmsnorm"
+    norm_kind: str = "rmsnorm"  # rmsnorm | layernorm
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     sliding_window: int = 0   # 0 -> full attention; >0 -> SWA window
+
+    # hybrid (recurrentgemma): block pattern cycled over layers
+    block_pattern: Tuple[str, ...] = ()   # e.g. ("rglru", "rglru", "local_attn")
+    local_window: int = 2048
+    lru_width: int = 0        # 0 -> d_model
+    conv1d_width: int = 4     # temporal conv in the recurrent block
+
+    # ssm (rwkv6)
+    rwkv_head_size: int = 64
+    rwkv_decay_lora: int = 64
+    rwkv_mix_lora: int = 32
 
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -46,17 +58,35 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the dense family (the reference's
-        formula: final norm not counted)."""
+        """Analytic parameter count, the reference's formula term for term
+        (final norm not counted; the hybrid's gate term is the
+        reference's estimate, not the block-diagonal shapes)."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         hd = self.head_dim
+        n = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            per = 5 * d * d                          # r,k,v,g,o projections
+            per += d * self.rwkv_decay_lora * 2      # decay lora
+            per += 5 * (d * self.rwkv_mix_lora * 2)  # token-shift mix loras
+            per += 7 * d                             # mix biases, decay, bonus
+            per += 2 * d * f + d * d                 # channel mix k, v, r
+            per += 2 * d                             # norms
+            return n + L * per
         att = d * (self.num_heads * hd) + d * (self.num_kv_heads * hd) * 2 \
             + (self.num_heads * hd) * d
         if self.qkv_bias:
             att += self.num_heads * hd + 2 * self.num_kv_heads * hd
         mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * f
-        return v * d * (1 if self.tie_embeddings else 2) \
-            + L * (att + mlp + 2 * d)
+        if self.family == "hybrid":
+            lw = self.lru_width or d
+            rec = 2 * d * lw + lw * d + self.conv1d_width * lw + 3 * lw \
+                + 2 * (lw * max(lw // 8, 1))
+            pat = self.block_pattern or ("rglru",)
+            n_attn = sum(1 for i in range(L)
+                         if pat[i % len(pat)] == "local_attn")
+            return n + n_attn * (att + mlp + 2 * d) \
+                + (L - n_attn) * (rec + mlp + 2 * d)
+        return n + L * (att + mlp + 2 * d)
 
 
 @dataclass(frozen=True)
@@ -211,15 +241,21 @@ class RunConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """The CPU-sized variant: same family and topology, tiny dims, f32 —
-    the same rule as ``repro.configs.base.reduced`` for dense configs."""
-    num_heads = min(cfg.num_heads, 4)
+    the rule of ``repro.configs.base.reduced`` for the ported families
+    (a hybrid keeps two full block-pattern groups and no tail)."""
+    num_heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
     return replace(
         cfg, name=cfg.name + "-reduced",
-        num_layers=min(cfg.num_layers, 4), d_model=64,
-        num_heads=num_heads,
-        num_kv_heads=max(1, min(cfg.num_kv_heads, num_heads)),
-        head_dim=16, d_ff=128, vocab_size=256,
+        num_layers=min(cfg.num_layers, 2 * len(cfg.block_pattern)
+                       if cfg.block_pattern else 4),
+        d_model=64, num_heads=num_heads,
+        num_kv_heads=max(1, min(cfg.num_kv_heads, num_heads))
+        if num_heads else 0,
+        head_dim=16 if num_heads else 0, d_ff=128, vocab_size=256,
+        lru_width=64 if cfg.family == "hybrid" else 0,
+        rwkv_head_size=16, rwkv_decay_lora=8, rwkv_mix_lora=8,
         sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window
         else 0,
+        local_window=16,
         param_dtype="float32", compute_dtype="float32")
 

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Counterpart of ``repro/configs/registry.py``. Only the dense
-``qwen2-0.5b`` is ported so far; the reference's other ids are known
-here and raise ``NotImplementedError`` naming the ROADMAP queue entry
-that brings their family.
+Counterpart of ``repro/configs/registry.py``. Ported so far: the dense
+``qwen2-0.5b``, the ssm ``rwkv6-7b`` and the hybrid
+``recurrentgemma-9b``; the reference's other ids are known here and
+raise ``NotImplementedError`` naming the ROADMAP queue entry that brings
+their family or config.
 """
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ from repro_torch.configs.base import ModelConfig, reduced
 
 _ARCH_MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
+    "rwkv6-7b": "rwkv6_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # reference ids whose family (or config module) is not ported yet
 _NOT_PORTED = ("qwen1.5-4b", "starcoder2-3b", "qwen1.5-110b", "whisper-tiny",
-               "dbrx-132b", "mixtral-8x7b", "llava-next-mistral-7b",
-               "rwkv6-7b", "recurrentgemma-9b")
+               "dbrx-132b", "mixtral-8x7b", "llava-next-mistral-7b")
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
 

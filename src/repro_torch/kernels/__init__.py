@@ -9,9 +9,13 @@ PyTorch version (``ref``) and reached through ``ops``:
   back) passes of the gradient exchange (CUDA C++, ``csrc/ring_pack.cu``),
   replacing the Pallas ``repro/kernels/ring_pack.py::pack_slices_kernel``
   and ``unpack_slices_kernel``.
+* wkv6 — the RWKV-6 time-mix recurrence (CUDA C++,
+  ``csrc/rwkv6_scan.cu``), replacing the Pallas
+  ``repro/kernels/rwkv6_scan.py::wkv6_kernel``.
+* rglru — the RG-LRU linear recurrence (CUDA C++, ``csrc/rglru.cu``),
+  replacing the Pallas ``repro/kernels/rglru.py::rglru_kernel``.
 
-The reference's other Pallas kernels (rwkv6_scan, rglru) are listed in
-ROADMAP.md, Queue 2.
+Every Pallas kernel of the reference now has its counterpart here.
 """
 from repro_torch.kernels import ops, ref
 

@@ -32,6 +32,14 @@
 // 4*B*S*H*Dh*2 = 14.7 MB (4.38 us at 3.35 TB/s): bound by bytes, 4.38 us.
 // This FMA version is bound instead by the f32 FMA rate (67 TFLOP/s, 56 us)
 // and by shared-memory bandwidth (one shared load per two FMAs).
+//
+// Head dims 16, 32, 64, 128 and 256. At Dh=256 (recurrentgemma's local
+// attention) the tiles take 214,272 bytes of shared memory, under the
+// 232,448 a block may opt in to, so one block runs per SM; each thread's
+// numerator is acc[4][16] (128 registers, no spills). Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W at B=2, S=1024, H=16,
+// Dh=256: 1.93-2.17 ms, slower than the plain version (1.47 ms); a
+// tensor-core redesign is owed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -244,6 +252,7 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, causal, window, s_valid, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, causal, window, s_valid, scale, st);
     case 128: return launch<T, 128>(q, k, v, o, B, S, H, causal, window, s_valid, scale, st);
+    case 256: return launch<T, 256>(q, k, v, o, B, S, H, causal, window, s_valid, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import ring_pack as _rp
+from repro_torch.kernels import rwkv6_scan as _wk
 
 _COUNT_LOCK = threading.Lock()
 
@@ -25,6 +27,17 @@ _COUNT_LOCK = threading.Lock()
 def _count(wrapper) -> None:
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+def _no_autograd(name: str, *tensors) -> None:
+    """A CUDA kernel of the port has no backward: under autograd with an
+    input that requires grad its output would carry no gradient, so the
+    wrapper raises instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, so its output would "
+            "carry no gradient; train through the plain version (as train "
+            "mode does) or call the kernel under torch.no_grad()")
 
 
 def _device_of(*tensors) -> str:
@@ -132,13 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention: the CUDA kernel has no backward, so its "
-            "output would carry no gradient; train through the plain "
-            "attention.attend_chunked (as transformer.apply_stack does in "
-            "train mode) or call the kernel under torch.no_grad()")
+    _no_autograd("flash_attention", q, k, v)
     if q.shape[-1] not in _fa.HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes Dh in "
                          f"{_fa.HEAD_DIMS}, got {q.shape[-1]}")
@@ -151,3 +158,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# WKV6
+# ---------------------------------------------------------------------------
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, s0: torch.Tensor):
+    """The RWKV-6 recurrence — see ``csrc/rwkv6_scan.cu``. r/k/v/w:
+    (B, T, H, hs) f32 (w the decay in (0, 1)); u: (H, hs) f32; s0:
+    (B, H, hs, hs) f32. Returns (y (B, T, H, hs), s_final (B, H, hs, hs)),
+    f32 — ``models.rwkv6._wkv_scan``'s function. Unlike the reference
+    wrapper nothing is transposed or padded: the kernel reads
+    (B, T, H, hs) in place."""
+    if r.dim() != 4 or any(x.shape != r.shape for x in (k, v, w)):
+        raise ValueError(f"wkv6 wants r/k/v/w of one (B,T,H,hs) shape, got "
+                         f"{[tuple(x.shape) for x in (r, k, v, w)]}")
+    b, t, h, hs = r.shape
+    if t < 1:
+        raise ValueError("wkv6 needs T >= 1")
+    if u.shape != (h, hs) or s0.shape != (b, h, hs, hs):
+        raise ValueError(f"wkv6 wants u ({h}, {hs}) and s0 ({b}, {h}, {hs}, "
+                         f"{hs}), got {tuple(u.shape)}, {tuple(s0.shape)}")
+    if any(x.dtype != torch.float32 for x in (r, k, v, w, u, s0)):
+        raise ValueError("wkv6 takes float32 r/k/v/w/u/s0 (the model casts "
+                         "before the scan)")
+    if _device_of(r, k, v, w, u, s0) == "cpu":
+        return ref.wkv6(r, k, v, w, u, s0)
+    _no_autograd("wkv6", r, k, v, w, u, s0)
+    if hs not in _wk.HEAD_SIZES:
+        raise ValueError(f"wkv6 kernel takes hs in {_wk.HEAD_SIZES}, got "
+                         f"{hs}")
+    if not all(x.is_contiguous() for x in (r, k, v, w, u, s0)):
+        raise ValueError("wkv6 kernel needs contiguous r/k/v/w/u/s0")
+    out = _wk.wkv6_kernel(r, k, v, w, u, s0)
+    _count(wkv6)
+    return out
+
+
+wkv6.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """The linear recurrence ``h_t = a_t * h_{t-1} + b_t`` — see
+    ``csrc/rglru.cu``. a/b: (B, T, W) f32; h0: (B, W) f32. Returns
+    (h_seq (B, T, W), h_final (B, W)) — the scan core of
+    ``models.hybrid._rglru``. Any T and W: nothing is padded."""
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"rglru wants a/b of one (B,T,W) shape, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if a.shape[1] < 1:
+        raise ValueError("rglru needs T >= 1")
+    if h0.shape != (a.shape[0], a.shape[2]):
+        raise ValueError(f"rglru wants h0 ({a.shape[0]}, {a.shape[2]}), got "
+                         f"{tuple(h0.shape)}")
+    if any(x.dtype != torch.float32 for x in (a, b, h0)):
+        raise ValueError("rglru takes float32 a/b/h0")
+    if _device_of(a, b, h0) == "cpu":
+        return ref.rglru(a, b, h0)
+    _no_autograd("rglru", a, b, h0)
+    if not all(x.is_contiguous() for x in (a, b, h0)):
+        raise ValueError("rglru kernel needs contiguous a/b/h0")
+    out = _rg.rglru_kernel(a, b, h0)
+    _count(rglru)
+    return out
+
+
+rglru.launches = 0

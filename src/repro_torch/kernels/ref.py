@@ -48,3 +48,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions 0..S-1."""
     pos = torch.arange(q.shape[1], device=q.device)
     return att.attend_direct(q, k, v, pos, pos, causal=causal, window=window)
+
+
+# -- WKV6 --------------------------------------------------------------------
+
+
+def wkv6(r, k, v, w, u, s0):
+    """The model's own step loop, ``models.rwkv6._wkv_scan``, in f32."""
+    from repro_torch.models.rwkv6 import _wkv_scan
+    f32 = lambda x: x.float()
+    return _wkv_scan(f32(r), f32(k), f32(v), f32(w), f32(u), f32(s0))
+
+
+# -- RG-LRU ------------------------------------------------------------------
+
+
+def rglru(a, b, h0):
+    """``h_t = a_t * h_{t-1} + b_t`` one step at a time, in f32."""
+    a, b, h = a.float(), b.float(), h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, 1), h

@@ -12,9 +12,16 @@ CLI::
   python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8 \
       --batch 2 --max-len 2048 --event-loops 2 --poll busy
 
-  # CPU-sized smoke run
+  # CPU-sized smoke runs (any registry id, with -reduced)
   python -m repro_torch.launch.serve --arch qwen2-0.5b-reduced \
       --device cpu --requests 6 --max-new 4
+  python -m repro_torch.launch.serve --arch rwkv6-7b-reduced \
+      --device cpu --requests 4 --max-new 4 --batch 2
+  python -m repro_torch.launch.serve --arch recurrentgemma-9b-reduced \
+      --device cpu --requests 4 --max-new 4 --batch 2
+
+The recurrent families (rwkv6, recurrentgemma) serve equal-length
+buckets of prompts, so requests of distinct lengths run one per wave.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 
 from repro_torch.compat import resolve_device
 from repro_torch.configs.base import CommConfig, ServeConfig
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.backends import available_modes
 from repro_torch.models import api
 from repro_torch.serving import Request, make_engine_group
@@ -46,7 +53,9 @@ def make_requests(cfg, n: int, *, max_new: int, temperature: float,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", required=True, help="registry id")
+    p.add_argument("--arch", required=True,
+                   help=f"registry id: {', '.join(ARCH_IDS)}, each also "
+                        "with -reduced")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--max-new", type=int, default=16)

@@ -1,4 +1,4 @@
-"""Model API of the port (dense family):
+"""Model API of the port (dense, ssm and hybrid families):
 
   specs(cfg)                                   -> ParamSpec tree
   init(gen, cfg, device=)                      -> params
@@ -10,8 +10,11 @@
 Counterpart of ``repro/models/api.py``. ``batch`` is a dict: train
 {"tokens", "labels": (B,S) int, "loss_mask"?: (B,S)}; prefill
 {"tokens": (B,S) int, "last_pos"?: (B,)}; decode {"token": (B,),
-"pos": () or (B,)}. Other families raise ``NotImplementedError`` naming
-the ROADMAP queue entry that brings them.
+"pos": () or (B,)}. The ssm family (rwkv6) and the hybrid family
+(recurrentgemma) serve: their cache is a recurrent state (plus rolling
+local-attention pages for the hybrid), fixed in size, and ``loss`` is
+dense-only until training them is ported. Other families raise
+``NotImplementedError`` naming the ROADMAP queue entry that brings them.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import torch
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
+from repro_torch.models import hybrid as hyb
+from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_params
 from repro_torch.models.layers import (apply_norm, cross_entropy,
@@ -31,21 +36,31 @@ from repro_torch.models.layers import (apply_norm, cross_entropy,
 Tree = Any
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _check_family(cfg: ModelConfig,
+                  families: tuple = SERVED_FAMILIES) -> None:
+    if cfg.family not in families:
+        what = "" if families == SERVED_FAMILIES else " for training"
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet "
+            f"family {cfg.family!r} is not ported to repro_torch{what} yet "
             "(ROADMAP.md, Queue 1: 'The other model families')")
 
 
 def specs(cfg: ModelConfig) -> Tree:
     _check_family(cfg)
-    return {
-        "embed": embedding_specs(cfg.vocab_size, cfg.d_model,
-                                 cfg.tie_embeddings),
-        "ln_f": norm_specs(cfg.d_model, cfg.norm_kind),
-        "layers": tfm.stack_specs(cfg),
-    }
+    out = {"embed": embedding_specs(cfg.vocab_size, cfg.d_model,
+                                    cfg.tie_embeddings),
+           "ln_f": norm_specs(cfg.d_model, cfg.norm_kind)}
+    if cfg.family == "ssm":
+        out["layers"] = rwkv.rwkv_stack_specs(cfg)
+        out["ln_in"] = norm_specs(cfg.d_model, "layernorm")
+    elif cfg.family == "hybrid":
+        out["layers"] = hyb.hybrid_stack_specs(cfg)
+    else:
+        out["layers"] = tfm.stack_specs(cfg)
+    return out
 
 
 def init(gen: torch.Generator, cfg: ModelConfig,
@@ -59,8 +74,9 @@ def loss(params: Tree, batch: dict, cfg: ModelConfig):
     """Token-mean cross entropy of next-token prediction, and the aux
     dict {"xent", "aux"} of the reference (``aux`` is the MoE balance
     loss, zero for the dense family). Attention is the plain
-    ``attend_chunked``, which autograd differentiates."""
-    _check_family(cfg)
+    ``attend_chunked``, which autograd differentiates. Dense only: the
+    ssm and hybrid families serve but do not train yet."""
+    _check_family(cfg, ("dense",))
     x = embed_tokens(params["embed"], batch["tokens"],
                      torch_dtype(cfg.compute_dtype))
     x, _ = tfm.apply_stack(params["layers"], x, cfg, mode="train")
@@ -71,20 +87,38 @@ def loss(params: Tree, batch: dict, cfg: ModelConfig):
     return xent + aux, {"xent": xent, "aux": aux}
 
 
+def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+           cache=None, pos=None, attend=None, scan=None):
+    """The family stack. Returns (x, cache)."""
+    if cfg.family == "ssm":
+        x = apply_norm(params["ln_in"], x, "layernorm")
+        return rwkv.apply_rwkv_stack(params["layers"], x, cfg, state=cache,
+                                     scan=scan)
+    if cfg.family == "hybrid":
+        return hyb.apply_hybrid_stack(params["layers"], x, cfg, mode=mode,
+                                      cache=cache, pos=pos, attend=attend,
+                                      scan=scan)
+    return tfm.apply_stack(params["layers"], x, cfg, mode=mode, cache=cache,
+                           pos=pos, attend=attend)
+
+
 def prefill(params: Tree, batch: dict, cfg: ModelConfig,
             logits_fn: Optional[Callable] = None,
-            attend: Optional[Callable] = None):
-    """Last-token logits (B, V) and the KV cache. ``logits_fn`` replaces
+            attend: Optional[Callable] = None,
+            scan: Optional[Callable] = None):
+    """Last-token logits (B, V) and the cache. ``logits_fn`` replaces
     the LM head (signature of :func:`layers.lm_logits`; the serving
     dispatch passes its tensor-parallel head). ``attend`` replaces the
     prefill attention (default: the CUDA kernel via
-    ``kernels.ops.flash_attention``)."""
+    ``kernels.ops.flash_attention``) and ``scan`` the family's recurrence
+    (default: ``kernels.ops.wkv6`` for ssm, ``ops.rglru`` for hybrid);
+    the plain versions in ``kernels.ref`` give the plain path."""
     _check_family(cfg)
     head = logits_fn or lm_logits
     x = embed_tokens(params["embed"], batch["tokens"],
                      torch_dtype(cfg.compute_dtype))
-    x, cache = tfm.apply_stack(params["layers"], x, cfg, mode="prefill",
-                               attend=attend)
+    x, cache = _trunk(params, x, cfg, mode="prefill", attend=attend,
+                      scan=scan)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     if "last_pos" in batch:     # per-request prompt end (serving engine)
         rows = torch.arange(x.shape[0], device=x.device)
@@ -96,14 +130,16 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig,
 
 def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
                 logits_fn: Optional[Callable] = None):
-    """One token for the whole batch against ``cache`` (updated in
-    place). batch: {"token": (B,), "pos": () or (B,)}."""
+    """One token for the whole batch against ``cache``. batch: {"token":
+    (B,), "pos": () or (B,)}. Attention pages are written in place;
+    recurrent states come back as new tensors (rwkv6's decode runs the
+    WKV6 kernel at T=1; the hybrid's is the one-line RG-LRU update)."""
     _check_family(cfg)
     head = logits_fn or lm_logits
     x = embed_tokens(params["embed"], batch["token"][:, None],
                      torch_dtype(cfg.compute_dtype))
-    x, cache = tfm.apply_stack(params["layers"], x, cfg, mode="decode",
-                               cache=cache, pos=batch["pos"])
+    x, cache = _trunk(params, x, cfg, mode="decode", cache=cache,
+                      pos=batch["pos"])
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     return head(params["embed"], x)[:, 0], cache
 
@@ -116,16 +152,22 @@ def _cache_len(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Tree:
     _check_family(cfg)
+    dt, dev = torch_dtype(cfg.compute_dtype), resolve_device(device)
+    if cfg.family == "ssm":
+        return rwkv.init_state(cfg, batch, dt, dev)
+    if cfg.family == "hybrid":
+        return hyb.init_hybrid_cache(cfg, batch, dt, dev)
     return att.init_kv_cache(cfg.num_layers, batch, _cache_len(cfg, max_len),
-                             cfg.num_kv_heads, cfg.head_dim,
-                             torch_dtype(cfg.compute_dtype),
-                             resolve_device(device))
+                             cfg.num_kv_heads, cfg.head_dim, dt, dev)
 
 
 def grow_cache(cfg: ModelConfig, cache: Tree, max_len: int) -> Tree:
     """Pad prefill KV caches (sized to the prompt) to ``max_len`` decode
-    slots; rolling-window caches are already fixed-size."""
+    slots; rolling-window caches and recurrent states are already
+    fixed-size."""
     _check_family(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return cache
     tgt = _cache_len(cfg, max_len)
 
     def grow(x: torch.Tensor) -> torch.Tensor:      # (L, B, S, KV, Dh)

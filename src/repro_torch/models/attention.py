@@ -76,9 +76,11 @@ def expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, s, kv, dh = k.shape
     g = num_heads // kv
     if g == 1:
-        return k
+        return k.contiguous()
+    # with one KV head (MQA) the reshape of the expanded view is itself a
+    # view with stride 0 over the heads; the kernel needs dense rows
     return k[:, :, :, None, :].expand(b, s, kv, g, dh).reshape(
-        b, s, num_heads, dh)
+        b, s, num_heads, dh).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Shared layers: RMS norm, RoPE, embeddings, LM head, cross entropy,
-SwiGLU MLP.
+"""Shared layers: RMS norm and layer norm, RoPE, embeddings, LM head,
+cross entropy, SwiGLU MLP.
 
-Counterpart of ``repro/models/layers.py`` for the dense path. Functions
+Counterpart of ``repro/models/layers.py``. Functions
 are pure and take their parameters as dict subtrees built from the
 matching ``*_specs`` helpers. The reference's activation-sharding hook
 (``shard_fn``) has no counterpart: a single card holds every tensor.
@@ -29,21 +29,34 @@ def _unported(what: str):
 # ---------------------------------------------------------------------------
 
 
+NORM_KINDS = ("rmsnorm", "layernorm")
+
+
 def norm_specs(d: int, kind: str) -> dict:
-    if kind != "rmsnorm":
+    if kind not in NORM_KINDS:
         raise _unported(f"norm kind {kind!r}")
-    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+    out = {"scale": ParamSpec((d,), ("embed",), init="ones")}
+    if kind == "layernorm":
+        out["bias"] = ParamSpec((d,), ("embed",), init="zeros")
+    return out
 
 
 def apply_norm(p: dict, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm computed in f32, returned in ``x``'s dtype."""
-    if kind != "rmsnorm":
+    """RMS norm, or layer norm with scale and bias (population variance,
+    the reference's ``eps=1e-6`` default, not PyTorch's 1e-5), computed
+    in f32 and returned in ``x``'s dtype."""
+    if kind not in NORM_KINDS:
         raise _unported(f"norm kind {kind!r}")
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * p["scale"].float()).to(x.dtype)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,183 @@
+"""RWKV-6 "Finch" (arXiv:2404.05892): attention-free time mix with
+data-dependent decay + squared-ReLU channel mix.
+
+Counterpart of ``repro/models/rwkv6.py``. Recurrence (per head, head
+size hs), state S in R^{hs x hs}::
+
+    S_t = diag(w_t) S_{t-1} + k_t (x) v_t
+    y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t)
+
+with w_t = exp(-exp(w0 + lora_w(x_t))) in (0, 1). Every scan, in prefill
+(T = S) and in decode (T = 1), goes through ``kernels.ops.wkv6`` — the
+hand-written CUDA kernel on a card, the plain :func:`_wkv_scan` on CPU
+tensors — where the reference runs its ``lax.scan`` and names the Pallas
+kernel as the production path. ``scan`` replaces it with another
+function of the same signature (``kernels.ref.wkv6`` holds the kernel
+against the plain path). A Python loop over the layers replaces
+``scan_or_unroll``; there is no train mode here (training the family
+comes later: ROADMAP.md, Queue 1).
+
+Casts follow the reference exactly, since in bf16 another order of
+casts is another model: the decay log ``w0 + lora`` is summed in f32
+from a compute-dtype product, r/k/v are cast to f32 before the scan,
+the WKV state stays f32 while ``tm_x``/``cm_x`` are in the compute dtype,
+and ``ln_x`` uses ``eps=1e-5`` (the other layer norms 1e-6).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import ParamSpec, stacked, tree_map
+from repro_torch.models.layers import apply_norm, norm_specs
+
+N_MIX = 5  # r, k, v, g, w token-shift interpolations
+
+
+def rwkv_block_specs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    lw, lm = cfg.rwkv_decay_lora, cfg.rwkv_mix_lora
+    return {
+        "ln1": norm_specs(d, "layernorm"),
+        "ln2": norm_specs(d, "layernorm"),
+        "tm": {
+            "mu_x": ParamSpec((d,), ("embed",), init="zeros"),
+            "mu": ParamSpec((N_MIX, d), (None, "embed"), init="zeros"),
+            "mix_a": ParamSpec((d, N_MIX * lm), ("embed", None)),
+            "mix_b": ParamSpec((N_MIX, lm, d), (None, None, "embed")),
+            "w0": ParamSpec((d,), ("embed",), init="zeros"),
+            "w_a": ParamSpec((d, lw), ("embed", None)),
+            "w_b": ParamSpec((lw, d), (None, "embed")),
+            "u": ParamSpec((d,), ("embed",), init="zeros"),
+            "wr": ParamSpec((d, d), ("embed", "heads")),
+            "wk": ParamSpec((d, d), ("embed", "heads")),
+            "wv": ParamSpec((d, d), ("embed", "heads")),
+            "wg": ParamSpec((d, d), ("embed", "heads")),
+            "wo": ParamSpec((d, d), ("heads", "embed")),
+            "ln_x": norm_specs(d, "layernorm"),
+        },
+        "cm": {
+            "mu_k": ParamSpec((d,), ("embed",), init="zeros"),
+            "mu_r": ParamSpec((d,), ("embed",), init="zeros"),
+            "wk": ParamSpec((d, f), ("embed", "mlp")),
+            "wv": ParamSpec((f, d), ("mlp", "embed")),
+            "wr": ParamSpec((d, d), ("embed", "heads")),
+        },
+    }
+
+
+def rwkv_stack_specs(cfg: ModelConfig) -> dict:
+    return tree_map(lambda s: stacked(s, cfg.num_layers),
+                    rwkv_block_specs(cfg))
+
+
+def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Token shift: x_{t-1}, with ``prev`` (B,1,D) for position -1."""
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p: dict, x: torch.Tensor, xx: torch.Tensor) -> torch.Tensor:
+    """Data-dependent interpolations for the 5 branches: (B,T,5,D)."""
+    dt = x.dtype
+    base = x + xx * p["mu_x"].to(dt)
+    lo = torch.tanh(torch.matmul(base, p["mix_a"].to(dt)))
+    lo = lo.reshape(*lo.shape[:-1], N_MIX, -1)
+    delta = torch.einsum("btnm,nmd->btnd", lo, p["mix_b"].to(dt))
+    mix = p["mu"].to(dt) + delta
+    return x[:, :, None, :] + xx[:, :, None, :] * mix
+
+
+def _wkv_scan(r, k, v, w, u, state):
+    """The plain step loop. r,k,v: (B,T,H,hs); w: (B,T,H,hs) decay in
+    (0,1); u: (H,hs); state: (B,H,hs,hs). Returns (out (B,T,H,hs),
+    new_state). f32 math."""
+    s = state
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]   # (B,H,hs)
+        kv = kt[..., :, None] * vt[..., None, :]             # (B,H,hs,hs)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt,
+                               s + u[None, :, :, None] * kv))
+        s = wt[..., :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+def apply_rwkv_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     state: dict, scan: Callable):
+    """state: {"wkv": (B,H,hs,hs) f32, "tm_x": (B,1,D), "cm_x": (B,1,D)}.
+    Any T (prefill: T=S; decode: T=1). Returns (x, new_state)."""
+    b, t, d = x.shape
+    hs = cfg.rwkv_head_size
+    h = d // hs
+    dt = x.dtype
+    tm = p["tm"]
+
+    # ---- time mix ----
+    xin = apply_norm(p["ln1"], x, "layernorm")
+    xx = _shift(xin, state["tm_x"].to(dt)) - xin
+    xb = _ddlerp(tm, xin, xx)                              # (B,T,5,D)
+    xr, xk, xv, xg, xw = xb.unbind(dim=2)
+    r = torch.matmul(xr, tm["wr"].to(dt))
+    k = torch.matmul(xk, tm["wk"].to(dt))
+    v = torch.matmul(xv, tm["wv"].to(dt))
+    g = F.silu(torch.matmul(xg, tm["wg"].to(dt)))
+    wl = torch.tanh(torch.matmul(xw, tm["w_a"].to(dt)))
+    wlog = tm["w0"].float() + torch.matmul(wl, tm["w_b"].to(dt)).float()
+    w = torch.exp(-torch.exp(wlog))                        # (B,T,D) in (0,1)
+
+    shp = (b, t, h, hs)
+    u = tm["u"].float().reshape(h, hs)
+    y, new_wkv = scan(r.reshape(shp).float(), k.reshape(shp).float(),
+                      v.reshape(shp).float(), w.reshape(shp), u,
+                      state["wkv"].float())
+
+    y = apply_norm(tm["ln_x"], y.reshape(b, t, d).to(dt), "layernorm",
+                   eps=1e-5)
+    x = x + torch.matmul(y * g, tm["wo"].to(dt))
+    new_tm_x = xin[:, -1:, :]
+
+    # ---- channel mix ----
+    cm = p["cm"]
+    xin = apply_norm(p["ln2"], x, "layernorm")
+    xx = _shift(xin, state["cm_x"].to(dt)) - xin
+    kk = torch.matmul(xin + xx * cm["mu_k"].to(dt), cm["wk"].to(dt))
+    vv = torch.matmul(torch.square(F.relu(kk)), cm["wv"].to(dt))
+    rr = torch.sigmoid(torch.matmul(xin + xx * cm["mu_r"].to(dt),
+                                    cm["wr"].to(dt)))
+    x = x + rr * vv
+    return x, {"wkv": new_wkv, "tm_x": new_tm_x, "cm_x": xin[:, -1:, :]}
+
+
+def init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+               device: torch.device) -> dict:
+    """Zero decode state: {"wkv": (L,B,H,hs,hs) f32, "tm_x"/"cm_x":
+    (L,B,1,D) in ``dtype``}."""
+    d, hs, L = cfg.d_model, cfg.rwkv_head_size, cfg.num_layers
+    return {
+        "wkv": torch.zeros((L, batch, d // hs, hs, hs), dtype=torch.float32,
+                           device=device),
+        "tm_x": torch.zeros((L, batch, 1, d), dtype=dtype, device=device),
+        "cm_x": torch.zeros((L, batch, 1, d), dtype=dtype, device=device),
+    }
+
+
+def apply_rwkv_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     state: Optional[dict] = None,
+                     scan: Optional[Callable] = None):
+    """Run the blocks over the stacked params, threading each layer's
+    state (zeros when ``state`` is None, as for a prefill). Returns
+    (x, new_state) with the layout of :func:`init_state`."""
+    if state is None:
+        state = init_state(cfg, x.shape[0], x.dtype, x.device)
+    scan = scan or ops.wkv6
+    new = []
+    for layer in range(cfg.num_layers):
+        p = tree_map(lambda a: a[layer], params)
+        st = {k: v[layer] for k, v in state.items()}
+        x, ns = apply_rwkv_block(p, x, cfg, state=st, scan=scan)
+        new.append(ns)
+    return x, {k: torch.stack([ns[k] for ns in new]) for k in state}

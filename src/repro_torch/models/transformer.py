@@ -17,7 +17,9 @@ has no backward (neither has the reference's Pallas kernel), and
 autograd differentiates the plain version. ``attend`` overrides the
 attention of either mode with another function of the same signature,
 for example to hold the prefill kernel against the plain path on the
-same inputs.
+same inputs. ``block_specs``/``apply_block`` take the window
+explicitly, so the hybrid stack (``models/hybrid.py``) runs them as its
+local-attention blocks with ``window=cfg.local_window``.
 """
 from __future__ import annotations
 

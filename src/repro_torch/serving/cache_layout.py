@@ -5,10 +5,21 @@ Counterpart of ``repro/serving/cache_layout.py``. The prefill gathering
 write in ``serving/dispatch.py`` coalesces every cache leaf plus the
 last-token logits into one flat payload and carves it back with the
 batch rows re-merged peer-major; the one family-specific fact it needs
-is each leaf's batch axis, declared here. Only the dense family is
-ported: its KV pages ``{"k","v"}: (L, B, S, KV, Dh)`` carry batch at
-axis 1. The other families' layouts come with them (ROADMAP.md,
-Queue 1).
+is each leaf's batch axis, declared here:
+
+============  ==============================================  =========
+family        cache leaves                                    batch axis
+============  ==============================================  =========
+dense         KV pages ``{"k","v"}: (L, B, S, KV, Dh)``       1
+ssm           rwkv6 state ``wkv (L, B, H, hs, hs)``,          1
+              ``tm_x`` / ``cm_x (L, B, 1, D)``
+hybrid        MIXED: the ``groups`` subtree stacks each       1
+              pattern entry ``(n_groups, B, ...)``; the
+              unstacked ``tail*`` entries lead with batch     0
+              ``(B, ...)``
+============  ==============================================  =========
+
+The other families' layouts come with them (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -21,12 +32,20 @@ LayoutFn = Callable[[Tuple[str, ...], Any], int]
 
 
 def _stacked_axis1(path: Tuple[str, ...], leaf: Any) -> int:
-    """Layer-stacked KV pages (L, B, S, KV, Dh): batch at axis 1."""
+    """Layer-stacked state (KV pages, rwkv6 state): batch at axis 1."""
     return 1
+
+
+def _hybrid_mixed(path: Tuple[str, ...], leaf: Any) -> int:
+    """recurrentgemma: batch at axis 1 under ``groups`` (stacked over the
+    groups), axis 0 in the unstacked ``tail*`` entries."""
+    return 1 if "groups" in path else 0
 
 
 CACHE_LAYOUTS: dict[str, LayoutFn] = {
     "dense": _stacked_axis1,
+    "ssm": _stacked_axis1,
+    "hybrid": _hybrid_mixed,
 }
 
 

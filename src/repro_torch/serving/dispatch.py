@@ -10,7 +10,8 @@ their collectives through ``CommBackend.serve_emit``:
   logits are coalesced into ONE flat f32 payload and all-gathered (the
   serving gathering write), carved back per leaf with the batch rows
   re-merged peer-major at the family's declared batch axis
-  (``serving/cache_layout.py``).
+  (``serving/cache_layout.py``: KV pages, rwkv6's recurrent state and
+  recurrentgemma's mixed tree alike).
 * **decode** — tensor-parallel LM head: each peer computes partial
   logits from its contiguous ``d_model`` shard and the partial sums are
   all-reduced through the wire.

@@ -1,12 +1,18 @@
 """Batched decode engine: KV-cache manager + request batcher + sampler.
 
-Counterpart of ``repro/serving/engine.py`` for attention families.
+Counterpart of ``repro/serving/engine.py``.
 
-* Prompts are **right-padded** to the batch maximum and tracked with
-  per-request ``pos`` vectors: pad slots are never attended (validity
-  mask ``j <= pos``) and the first generated token overwrites the first
-  pad slot, so mixed-length batches are exact per row.
-* **Continuous batching**: the engine runs ``max_batch`` decode SLOTS.
+* Attention families: prompts are **right-padded** to the batch maximum
+  and tracked with per-request ``pos`` vectors: pad slots are never
+  attended (validity mask ``j <= pos``) and the first generated token
+  overwrites the first pad slot, so mixed-length batches are exact per
+  row.
+* Recurrent families (ssm, hybrid): the recurrence would absorb pad
+  tokens, so requests are grouped into **equal-length buckets** of at
+  most ``max_batch`` (exact, no pads, no ``last_pos``), one wave per
+  bucket, with no mid-flight admission — as in the reference.
+* **Continuous batching** (attention families): the engine runs
+  ``max_batch`` decode SLOTS.
   When requests finish, the freed slots are refilled from the run queue
   at the flush boundary (the decode-step boundary) with ONE batched
   prefill over every freed slot (prompts padded to ``ADMIT_PAD``), whose
@@ -25,7 +31,7 @@ come with later slices (ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
-from collections import deque
+from collections import defaultdict, deque
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -73,8 +79,9 @@ class _Slot:
 class DecodeEngine:
     """Synchronous batched engine around prefill/decode_step on
     ``device`` (the card unless "cpu"). ``params`` must already live
-    there. ``prefills`` counts prefill calls (first wave + one per
-    admission round); ``admit_prefills`` the admission rounds alone."""
+    there. ``prefills`` counts prefill calls (one per wave + one per
+    admission round), ``admit_prefills`` the admission rounds alone and
+    ``decode_steps`` the decode calls."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *,
                  max_batch: int = 8, max_len: int = 256,
@@ -93,8 +100,10 @@ class DecodeEngine:
         self.poller = poller or Poller(
             serve.poll if serve else "park",
             serve.spin_us * 1e-6 if serve else 50e-6)
+        self._recurrent = cfg.family in ("ssm", "hybrid")
         self.prefills = 0
         self.admit_prefills = 0
+        self.decode_steps = 0
         if serve is not None:
             self.step = dispatch.make_serve_step(
                 cfg, serve.comm, channel_indices=channel_indices)
@@ -106,6 +115,18 @@ class DecodeEngine:
             self.n_shards = 1
             self._prefill = lambda p, b: api.prefill(p, b, cfg)
             self._decode = lambda p, c, b: api.decode_step(p, c, b, cfg)
+
+    # -- batching ------------------------------------------------------
+
+    def _buckets(self, reqs: Sequence[Request]) -> list:
+        """Recurrent families: buckets of equal prompt length (no pads),
+        at most ``max_batch`` each, shortest length first."""
+        groups = defaultdict(list)
+        for r in reqs:
+            groups[len(r.prompt)].append(r)
+        return [rs[i:i + self.max_batch]
+                for _, rs in sorted(groups.items())
+                for i in range(0, len(rs), self.max_batch)]
 
     # -- sampling ------------------------------------------------------
 
@@ -125,7 +146,12 @@ class DecodeEngine:
     def generate(self, reqs: Sequence[Request]) -> list:
         reqs = list(reqs)
         results: list = []
-        if reqs:
+        if self._recurrent:
+            # one wave per equal-length bucket, no mid-flight admission
+            # (the recurrence has no pad-exactness to admit against)
+            for bucket in self._buckets(reqs):
+                results.extend(self._run_wave(bucket, deque()))
+        elif reqs:
             pending = deque(reqs[self.max_batch:])   # the run queue
             results.extend(self._run_wave(reqs[: self.max_batch], pending))
         results.sort(key=lambda r: r.uid)
@@ -133,9 +159,12 @@ class DecodeEngine:
 
     def _prefill_batch(self, toks: np.ndarray, lens: np.ndarray) -> dict:
         dev = self.device
-        return {"tokens": torch.as_tensor(toks, dtype=torch.long, device=dev),
-                "last_pos": torch.as_tensor(np.maximum(lens - 1, 0),
-                                            dtype=torch.long, device=dev)}
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.long,
+                                           device=dev)}
+        if not self._recurrent:
+            batch["last_pos"] = torch.as_tensor(np.maximum(lens - 1, 0),
+                                                dtype=torch.long, device=dev)
+        return batch
 
     def _check_fits(self, req: Request) -> None:
         if len(req.prompt) + req.max_new > self.max_len:
@@ -204,6 +233,7 @@ class DecodeEngine:
                                      device=self.device)
             logits, cache = self._decode(self.params, cache,
                                          {"token": tok, "pos": pos})
+            self.decode_steps += 1
             tok = self._sample(logits, temps)
             pos = torch.where(active, pos + 1, pos)
         return results
@@ -230,7 +260,8 @@ class DecodeEngine:
     def _admit_batch(self, free: list, reqs: list, cache: dict,
                      pos: torch.Tensor, temps: np.ndarray, tok: torch.Tensor,
                      steps: int, slots: list, results: list):
-        """Admit ``reqs[j]`` into freed slot ``free[j]`` with ONE prefill
+        """Attention families only. Admit ``reqs[j]`` into freed slot
+        ``free[j]`` with ONE prefill
         (rows padded to the ring size, prompts right-padded to the batch
         max rounded up to ``ADMIT_PAD``). Each request's first token is
         sampled from its own prefill logits and recorded at once; a

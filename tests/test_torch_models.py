@@ -185,7 +185,7 @@ def test_configs_resolve_and_unported_raise():
         assert getattr(full, f) == getattr(ref, f), f
         assert getattr(red, f) == getattr(jax_config(ARCH), f), f
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rwkv6-7b")
+        get_config("mixtral-8x7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
