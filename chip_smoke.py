@@ -54,8 +54,12 @@ non-zero (no phase's failure is caught):
    step), every multi-step RG-LRU scan (26 per prefill call) and every
    local-attention prefill (12 per call) went through its kernel (launch
    counters); that served first tokens replay from the kernel path's
-   logits; and that at f32, full width and 4 layers, the kernel path's
-   prefill logits are within 1e-4 relative L2 of the plain path's.
+   logits; for recurrentgemma, that the bf16 kernel path's prefill
+   logits at full width land no farther from the f32 plain path's than
+   twice the bf16 plain path, plus 5e-3, and that its prefill trace names
+   the tensor-core flash kernel; and that at f32, full width and 4
+   layers, the kernel path's prefill logits are within 1e-4 relative L2
+   of the plain path's.
    Reports prefill (B=2, S=1024) and decode (B=2) times, host and device,
    and peak memory;
 7. the ``kernels`` JSON line, then the final ``ok`` JSON line.
@@ -67,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -84,13 +89,21 @@ H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 H100_BYTES_S = 3.35e12       # HBM3
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.
+    ``queued``: the calls are queued behind a device-side spin of ~10 ms,
+    so a call whose host side (Python, the wrapper's checks, the launch)
+    takes longer than its kernel does not leave the card idle between
+    kernels: the events time the card's work, not the host's launch rate
+    (for kernels of tens of microseconds)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -124,10 +137,13 @@ def profile_device(fn, top: int = 6):
     return sum(by_name.values()), n, ranked, by_name
 
 
-def attn_bound_ms(b, s, h, dh, causal, window, elem_bytes, peak_flops):
+def attn_bound_ms(b, s, h, dh, causal, window, elem_bytes, peak_flops,
+                  kv_heads=None):
     """Least time for one attention call: the larger of its FLOPs (two
     products over the (q, k) pairs the masks keep) over the peak rate and
-    its bytes (q, k, v read once, o written once) over the memory rate."""
+    its bytes (q read once and o written once at ``h`` heads, k and v read
+    once at ``kv_heads``, default ``h``) over the memory rate."""
+    kv = h if kv_heads is None else kv_heads
     q = np.arange(s)[:, None]
     k = np.arange(s)[None, :]
     keep = np.ones((s, s), bool)
@@ -136,7 +152,7 @@ def attn_bound_ms(b, s, h, dh, causal, window, elem_bytes, peak_flops):
     if window > 0:
         keep &= (q - k) < window
     flops = 4.0 * b * h * dh * int(keep.sum())
-    nbytes = 4.0 * b * s * h * dh * elem_bytes
+    nbytes = 2.0 * b * s * (h + kv) * dh * elem_bytes
     t_ops, t_bytes = flops / peak_flops, nbytes / H100_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -164,17 +180,69 @@ def check_bitwise(name, pairs) -> float:
     return max_err
 
 
-def check_close(name, got, want, atol, rtol) -> float:
+def check_close(name, got, want, atol, rtol, verbose=True) -> float:
+    """|got - want| <= atol + rtol |want| everywhere and got finite;
+    prints one line (only on failure when not ``verbose``), raises on
+    failure, returns the largest |got - want|."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     worst = float((err - rtol * want.abs()).max())
     max_err = float(err.max())
     ok = bool(torch.isfinite(got).all()) and worst <= atol
-    print(f"[check] {name}: max_abs_err={max_err:.3e} "
-          f"(atol={atol}, rtol={rtol}) {'ok' if ok else 'FAIL'}")
+    if verbose or not ok:
+        print(f"[check] {name}: max_abs_err={max_err:.3e} "
+              f"(atol={atol}, rtol={rtol}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     return max_err
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_prefill_flash(label: str, by_name: dict) -> None:
+    """A prefill trace's flash kernels: the tensor-core kernel runs, and
+    no FMA flash kernel (the f32 one) appears."""
+    tc = {n: ms for n, ms in by_name.items() if "flash_fwd_tc" in n}
+    fma = [n for n in by_name if "flash_fwd_f32" in n]
+    print(f"[profile] {label} prefill flash kernels: "
+          + "; ".join(f"{n[:72]} {ms:.3f} ms" for n, ms in tc.items())
+          + f" | FMA flash kernels: {len(fma)}")
+    if not tc or fma:
+        raise AssertionError(f"{label}: prefill did not run the tensor-core "
+                             f"flash kernel alone ({sorted(by_name)[:8]})")
+
+
+def spill_lines(ptxas_log: str) -> list:
+    """The lines of a ptxas report that count spilled bytes."""
+    return [line.strip() for line in ptxas_log.splitlines()
+            if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+
+
+def sass_counts(path: str) -> dict:
+    """{kernel function: {instruction: count}} of the HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in a built library, from cuobjdump;
+    None when the toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", path], check=True,
+                         capture_output=True, text=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                if op in line:
+                    word = next(w for w in line.replace(";", " ").split()
+                                if w.startswith(op))
+                    counts[fn][word] = counts[fn].get(word, 0) + 1
+    return counts
 
 
 def scan_bound_ms(nbytes: float, flops: float):
@@ -217,6 +285,7 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import api
+    from repro_torch.models.common import tree_map
     from repro_torch.serving import Request, make_engine_group
     dev = gen.device
     cfg = get_config(arch)
@@ -286,7 +355,7 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
             ("prefill", lambda: step.prefill(params, big), ms_prefill),
             ("decode", lambda: step.decode(params, cache, dec),
              ms_decode)):
-        busy, n_k, ranked, _ = profile_device(fn)
+        busy, n_k, ranked, by_name = profile_device(fn)
         if busy is None:
             print(f"[profile] {cfg.name} {what}: device time not "
                   "measured (the profiler recorded no device events)")
@@ -295,6 +364,8 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
               f"ms on the device of {wall:.3f} ms per step "
               f"({busy / wall:.1%} busy); top: "
               + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in ranked))
+        if what == "prefill" and "attend" in plain:
+            check_prefill_flash(cfg.name, by_name)
     del cache
 
     # loop 0's longest wave (uids 0 and 2) replays its served first
@@ -308,6 +379,29 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
         (first, results[0].tokens[:1], results[2].tokens[:1])
     assert lk.shape == (2, cfg.vocab_size) \
         and bool(torch.isfinite(lk).all())
+    if "attend" in plain:
+        # bf16 prefill logits at full width against the same weights run in
+        # f32 through the plain path, as qwen2-0.5b's check: the kernel
+        # path must land no farther than twice the bf16 plain path, plus
+        # 5e-3. A wrong attention kernel misses it by O(1)
+        lp, _ = api.prefill(params, batch, cfg, **plain)
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        l32, _ = api.prefill(p32, batch, cfg32, **plain)
+        del p32
+        ek, ep = rel_l2(lk, l32), rel_l2(lp, l32)
+        ok = ek <= 2 * ep + 5e-3
+        print(f"[check] {cfg.name} bf16 prefill logits of "
+              f"{tuple(batch['tokens'].shape)}: vs f32 rel_l2 kernel="
+              f"{ek:.3e} plain={ep:.3e} (bound 2x plain + 5e-3); bf16 "
+              f"kernel vs plain max_abs_err="
+              f"{float((lk.float() - lp.float()).abs().max()):.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{cfg.name}: bf16 prefill logits of the "
+                                 "kernel path disagree with the plain path")
+        del lp, l32
     del group, step, params, lk
     torch.cuda.empty_cache()
 
@@ -351,7 +445,8 @@ def main() -> int:
     from repro_torch.launch.train import Trainer
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import api
-    from repro_torch.models.attention import attend_chunked
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.models.attention import attend_chunked, expand_kv
     from repro_torch.models.common import tree_map
     from repro_torch.serving import make_engine_group
 
@@ -382,52 +477,125 @@ def main() -> int:
         print(f"[build] {name}: nvcc {info['seconds']:.2f}s -> "
               f"{info['path']}")
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "arning")):
                 print(f"[ptxas] {name}: {line.strip()}")
+        spills = spill_lines(info["ptxas"])
+        assert not spills, f"{name}: ptxas reports spills: {spills}"
+    # the bf16 flash kernels issue wgmma for both products and load K/V by
+    # TMA: read off the compiled code
+    sass = sass_counts(build.BUILD_INFO["flash_attention"]["path"])
+    if sass is None:
+        print("[sass] flash_attention: cuobjdump not found; not read")
+    else:
+        tc_fns = {fn: c for fn, c in sass.items() if "flash_fwd_tc" in fn}
+        for fn, c in sorted(tc_fns.items()):
+            print(f"[sass] flash_attention {fn[-60:]}: {c}")
+        assert len(tc_fns) == 5 and all(
+            sum(n for op, n in c.items() if op.startswith("HGMMA")) >= 2
+            and any(op.startswith("UTMALDG") for op in c)
+            for c in tc_fns.values()), tc_fns
 
     # -- 3. kernel vs plain version ----------------------------------------
-    def qkv(b, s, h, dh, dtype):
-        return [torch.randn((b, s, h, dh), generator=gen, device=dev)
-                .to(dtype) for _ in range(3)]
+    # flash attention: bf16 runs the tensor-core kernel, f32 the FMA
+    # kernel; k/v at their KV heads, read in place
+    def qkv(b, s, h, dh, dtype, kv=None):
+        kv = h if kv is None else kv
+        return [torch.randn(sh, generator=gen, device=dev).to(dtype)
+                for sh in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh))]
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # name, dtype, B, S, H, Dh, causal, window, atol, rtol
-        ("bf16 causal S=32", bf16, 4, 32, 14, 64, True, 0, 3e-2, 5e-2),
-        ("bf16 causal S=257", bf16, 4, 257, 14, 64, True, 0, 3e-2, 5e-2),
-        ("bf16 causal S=1024", bf16, 4, 1024, 14, 64, True, 0, 3e-2, 5e-2),
-        ("bf16 window=48 S=257", bf16, 4, 257, 14, 64, True, 48, 3e-2, 5e-2),
-        ("bf16 non-causal S=257", bf16, 4, 257, 14, 64, False, 0, 3e-2, 5e-2),
-        ("f32 Dh=16 S=257", f32, 2, 257, 3, 16, True, 0, 2e-4, 2e-3),
-        ("f32 Dh=128 S=257", f32, 2, 257, 3, 128, True, 0, 2e-4, 2e-3),
-        ("f32 Dh=32 window=48 S=200", f32, 2, 200, 3, 32, True, 48, 2e-4, 2e-3),
-        ("f32 Dh=64 non-causal S=100", f32, 1, 100, 2, 64, False, 0, 2e-4,
+    modes = (("causal", True, 0), ("window 48", True, 48),
+             ("non-causal", False, 0))
+    ragged = (1, 63, 65, 257)
+    for dh in HEAD_DIMS:
+        worst, n_case = 0.0, 0
+        for kv in (1, 2, 4):
+            for s_ in ragged:
+                for mode, causal, window in modes:
+                    q, k, v = qkv(2, s_, 4, dh, bf16, kv)
+                    got = ops.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+                    torch.cuda.synchronize()
+                    worst = max(worst, check_close(
+                        f"flash bf16 Dh={dh} KV={kv} of H=4 S={s_} {mode}",
+                        got, ref.flash_attention(q, k, v, causal=causal,
+                                                 window=window),
+                        3e-2, 5e-2, verbose=False))
+                    n_case += 1
+        print(f"[check] flash bf16 Dh={dh}: {n_case} cases (B=2, H=4, KV "
+              f"1/2/4, S {ragged}, causal / window 48 / non-causal): "
+              f"max_abs_err={worst:.3e} (atol=3e-2, rtol=5e-2) ok")
+    cases = [  # name, dtype, B, S, H, KV, Dh, causal, window, atol, rtol
+        ("bf16 causal S=1024", bf16, 4, 1024, 14, 2, 64, True, 0, 3e-2, 5e-2),
+        ("bf16 window=48 S=257", bf16, 4, 257, 14, 14, 64, True, 48, 3e-2,
+         5e-2),
+        ("bf16 Dh=256 MQA S=300", bf16, 2, 300, 16, 1, 256, True, 0, 3e-2,
+         5e-2),
+        ("f32 Dh=16 S=257", f32, 2, 257, 3, 3, 16, True, 0, 2e-4, 2e-3),
+        ("f32 Dh=128 S=257", f32, 2, 257, 3, 3, 128, True, 0, 2e-4, 2e-3),
+        ("f32 Dh=32 window=48 S=200", f32, 2, 200, 3, 3, 32, True, 48, 2e-4,
          2e-3),
+        ("f32 Dh=64 non-causal S=100", f32, 1, 100, 2, 2, 64, False, 0, 2e-4,
+         2e-3),
+        ("f32 Dh=64 KV=2 of 14 S=257", f32, 2, 257, 14, 2, 64, True, 0, 2e-4,
+         2e-3),
+        ("f32 Dh=256 KV=1 of 16 window=48 S=257", f32, 2, 257, 16, 1, 256,
+         True, 48, 2e-4, 2e-3),
     ]
-    for name, dt, b, s, h, dh, causal, window, atol, rtol in cases:
-        q, k, v = qkv(b, s, h, dh, dt)
+    for name, dt, b, s, h, kv, dh, causal, window, atol, rtol in cases:
+        q, k, v = qkv(b, s, h, dh, dt, kv)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         check_close(name, got, ref.flash_attention(q, k, v, causal=causal,
                                                    window=window), atol, rtol)
 
-    # timing at the serving path's largest prefill: 2 rows x 1024 tokens
-    b, s, h, dh = 2, 1024, 14, 64
-    q, k, v = qkv(b, s, h, dh, bf16)
-    fa_err = check_close("bf16 causal B=2 S=1024 (timed shape)",
-                         ops.flash_attention(q, k, v),
-                         ref.flash_attention(q, k, v), 3e-2, 5e-2)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    # timing at the main paths' prefill shapes: K/V at their KV heads as
+    # the models pass them, and expanded to H heads as they were passed
+    # before (SDPA, the library yardstick, runs on expanded heads)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms_kernel = time_ms(lambda: ops.flash_attention(q, k, v))
-    ms_plain = time_ms(lambda: ref.flash_attention(q, k, v), iters=5)
-    ms_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    ms_kernel2 = time_ms(lambda: ops.flash_attention(q, k, v))
-    bound, bound_by = attn_bound_ms(b, s, h, dh, True, 0, 2, H100_BF16_FLOPS)
-    fma_bound, _ = attn_bound_ms(b, s, h, dh, True, 0, 2, H100_F32_FLOPS)
-    print(f"[time] flash_attention B={b} S={s} H={h} Dh={dh} bf16 causal: "
-          f"kernel {ms_kernel:.4f} / {ms_kernel2:.4f} ms, plain "
-          f"{ms_plain:.4f} ms, sdpa {ms_lib:.4f} ms, bound {bound:.4f} ms "
-          f"({bound_by}; f32-FMA bound {fma_bound:.4f} ms) | {smi}")
+
+    def flash_times(b, s, h, kv, dh, window):
+        q, k, v = qkv(b, s, h, dh, bf16, kv)
+        ke, ve = expand_kv(k, h), expand_kv(v, h)
+        shape = f"B={b} S={s} H={h} Dh={dh}"
+        t = {"err": check_close(
+            f"bf16 {shape} KV={kv} window={window} (timed shape)",
+            ops.flash_attention(q, k, v, window=window),
+            ref.flash_attention(q, k, v, window=window), 3e-2, 5e-2)}
+        check_close(f"bf16 {shape} expanded window={window} (timed shape)",
+                    ops.flash_attention(q, ke, ve, window=window),
+                    ref.flash_attention(q, ke, ve, window=window), 3e-2, 5e-2)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ke, ve))
+        run = {"ms": lambda: ops.flash_attention(q, k, v, window=window),
+               "expanded_ms": lambda: ops.flash_attention(q, ke, ve,
+                                                          window=window),
+               "plain_ms": lambda: ref.flash_attention(q, k, v,
+                                                       window=window),
+               "library_ms": lambda: sdpa(qt, kt, vt, is_causal=True),
+               "copies_ms": lambda: (expand_kv(k, h), expand_kv(v, h))}
+        for key in ("ms", "expanded_ms", "plain_ms", "library_ms",
+                    "copies_ms"):
+            t[key] = time_ms(run[key], iters=5 if key == "plain_ms" else 20,
+                             queued=True)
+        t["ms_again"] = time_ms(run["ms"], queued=True)
+        t["expanded_ms_again"] = time_ms(run["expanded_ms"], queued=True)
+        t["bound_ms"], t["bound_by"] = attn_bound_ms(
+            b, s, h, dh, True, window, 2, H100_BF16_FLOPS, kv_heads=kv)
+        t["bound_expanded_ms"], t["bound_expanded_by"] = attn_bound_ms(
+            b, s, h, dh, True, window, 2, H100_BF16_FLOPS)
+        print(f"[time] flash_attention {shape} bf16 causal window {window}: "
+              f"KV={kv} in place {t['ms']:.4f} / {t['ms_again']:.4f} ms "
+              f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}); expanded "
+              f"{t['expanded_ms']:.4f} / {t['expanded_ms_again']:.4f} ms "
+              f"(bound {t['bound_expanded_ms']:.4f} ms, "
+              f"{t['bound_expanded_by']}); plain {t['plain_ms']:.4f} ms; sdpa "
+              f"(expanded) {t['library_ms']:.4f} ms; the two expand_kv "
+              f"copies saved {t['copies_ms']:.4f} ms | {smi}")
+        return t
+
+    fa64 = flash_times(2, 1024, 14, 2, 64, 0)
+    fa256 = flash_times(2, 1024, 16, 1, 256, 2048)
 
     # ring pack / unpack: bitwise against the plain version, every shape
     # of the reference's tests plus a ragged one, both wires, EF on, off
@@ -587,37 +755,6 @@ def main() -> int:
           f"({lru_bound_by}) | {smi}")
     del args, got, want
 
-    # flash attention at recurrentgemma's head_dim 256 (16 heads)
-    for name, dt, s_, window, atol, rtol in (
-            ("f32 Dh=256 window=48 S=257", f32, 257, 48, 2e-4, 2e-3),
-            ("bf16 Dh=256 S=300", bf16, 300, 0, 3e-2, 5e-2)):
-        q, k, v = qkv(2, s_, 16, 256, dt)
-        got = ops.flash_attention(q, k, v, window=window)
-        torch.cuda.synchronize()
-        check_close(name, got, ref.flash_attention(q, k, v, window=window),
-                    atol, rtol)
-    b, s_, h, dh = 2, 1024, 16, 256
-    q, k, v = qkv(b, s_, h, dh, bf16)
-    fa256_err = check_close(
-        "bf16 Dh=256 window=2048 B=2 S=1024 (timed shape)",
-        ops.flash_attention(q, k, v, window=2048),
-        ref.flash_attention(q, k, v, window=2048), 3e-2, 5e-2)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    fa256 = {"ms": time_ms(lambda: ops.flash_attention(q, k, v, window=2048),
-                           iters=10),
-             "plain_ms": time_ms(lambda: ref.flash_attention(
-                 q, k, v, window=2048), iters=5),
-             "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))}
-    fa256["ms_again"] = time_ms(
-        lambda: ops.flash_attention(q, k, v, window=2048), iters=10)
-    fa256["bound_ms"], fa256["bound_by"] = attn_bound_ms(
-        b, s_, h, dh, True, 2048, 2, H100_BF16_FLOPS)
-    print(f"[time] flash_attention B={b} S={s_} H={h} Dh={dh} bf16 causal "
-          f"window 2048 (= causal at S=1024): kernel {fa256['ms']:.4f} / "
-          f"{fa256['ms_again']:.4f} ms, plain {fa256['plain_ms']:.4f} ms, "
-          f"sdpa {fa256['library_ms']:.4f} ms, bound {fa256['bound_ms']:.4f} "
-          f"ms ({fa256['bound_by']}) | {smi}")
-    del q, k, v, qt, kt, vt, got
     torch.cuda.empty_cache()
 
     # -- 4. serve qwen2-0.5b at full width -----------------------------------
@@ -676,7 +813,7 @@ def main() -> int:
                             ms_prefill),
                            ("decode", lambda: step.decode(params, cache, dec),
                             ms_decode)):
-        busy, n, ranked, _ = profile_device(fn)
+        busy, n, ranked, by_name = profile_device(fn)
         if busy is None:
             print(f"[profile] {what}: device time not measured (the "
                   "profiler recorded no device events)")
@@ -684,6 +821,8 @@ def main() -> int:
         print(f"[profile] {what}: {n} kernels, {busy:.3f} ms on the device "
               f"of {wall:.3f} ms per step ({busy / wall:.1%} busy); top: "
               + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in ranked))
+        if what == "prefill":
+            check_prefill_flash(cfg.name, by_name)
 
     # diagnostic beside the main path: the same requests on ONE loop,
     # drained in line with parking waits (no second thread holding the
@@ -730,10 +869,7 @@ def main() -> int:
     lp, _ = api.prefill(params, batch, cfg, attend=attend_chunked)
     del p32
 
-    def rel(a, b):
-        return float((a.float() - b.float()).norm() / b.float().norm())
-
-    e32, ek, ep = rel(lk32, l32), rel(lk, l32), rel(lp, l32)
+    e32, ek, ep = rel_l2(lk32, l32), rel_l2(lk, l32), rel_l2(lp, l32)
     logit_err = float((lk.float() - lp.float()).abs().max())
     ok = e32 <= 1e-3 and ek <= 2 * ep + 5e-3
     print(f"[check] prefill logits: f32 kernel vs plain rel_l2={e32:.3e} "
@@ -890,9 +1026,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches + rg_launches["flash_attention"],
-         "max_abs_err": fa_err,
-         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound,
-         "bound_by": bound_by, "library_ms": ms_lib},
+         "max_abs_err": fa64["err"],
+         "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
+         "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
+         "library_ms": fa64["library_ms"]},
         {"name": "pack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:61",
          "launches": train_launches["pack_slices"], "max_abs_err": pack_err,

@@ -2,7 +2,9 @@
 PyTorch version (``ref``) and reached through ``ops``:
 
 * flash_attention — online-softmax prefill attention (CUDA C++,
-  ``csrc/flash_attention.cu``), replacing the Pallas
+  ``csrc/flash_attention.cu``: bf16 on the tensor cores with ``wgmma``
+  and TMA loads, f32 on an exact FMA kernel; GQA/MQA K/V read at their
+  KV heads), replacing the Pallas
   ``repro/kernels/flash_attention.py::flash_attention_kernel``.
 * pack_slices / unpack_slices — the ring-buffer pack (add error
   feedback, cast to the wire, capture the residual) and unpack (cast

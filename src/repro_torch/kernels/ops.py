@@ -126,14 +126,26 @@ unpack_slices.launches = 0
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q/k/v: (B, S, H, Dh) with k/v already GQA-expanded to H heads.
-    Returns (B, S, H, Dh) in q's dtype. Self-attention positions 0..S-1.
-    Unlike the reference wrapper nothing is transposed or padded: the
-    kernel reads (B, S, H, Dh) in place and masks the ragged edge."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention wants q/k/v of one (B,S,H,Dh) "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    """q: (B, S, H, Dh); k/v: (B, S, KV, Dh) with H % KV == 0, KV = H
+    included: query head h reads KV head h // (H // KV), as
+    ``attention.expand_kv`` lays it out, but nothing is expanded. Returns
+    (B, S, H, Dh) in q's dtype. Self-attention positions 0..S-1. Unlike
+    the reference wrapper nothing is transposed or padded: the kernel
+    reads the tensors in place and masks the ragged edge.
+
+    On the card bf16 runs the tensor-core kernel and f32 the exact FMA
+    kernel (chosen by dtype, not a fallback: a failed launch raises).
+    The bf16 kernel loads through TMA, which needs 16-byte-aligned
+    bases: a misaligned view raises; nothing is copied."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or (k.shape[0], k.shape[1], k.shape[3]) \
+            != (q.shape[0], q.shape[1], q.shape[3]):
+        raise ValueError(f"flash_attention wants q (B,S,H,Dh) and k/v of "
+                         f"one (B,S,KV,Dh) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_attention: H % KV must be 0, got H="
+                         f"{q.shape[2]} KV={k.shape[2]}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _fa.DTYPES:
         raise ValueError(f"flash_attention takes one dtype of {_fa.DTYPES}, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -151,6 +163,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{_fa.HEAD_DIMS}, got {q.shape[-1]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q/k/v")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % _fa.ALIGN for t in (q, k, v)):
+        raise ValueError(f"flash_attention kernel needs {_fa.ALIGN}-byte-"
+                         f"aligned bf16 q/k/v (TMA), got base addresses "
+                         f"{[hex(t.data_ptr()) for t in (q, k, v)]}")
     out = _fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
                                      s_valid=q.shape[1])
     _count(flash_attention)

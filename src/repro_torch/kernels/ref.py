@@ -44,8 +44,10 @@ def unpack_slices(wire: torch.Tensor, out_dtype: str = "float32"):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q/k/v: (B, S, H, Dh), k/v already GQA-expanded; self-attention
-    positions 0..S-1."""
+    """q: (B, S, H, Dh); k/v: (B, S, KV, Dh) with H % KV == 0, expanded
+    here to H heads when KV < H; self-attention positions 0..S-1."""
+    h = q.shape[2]
+    k, v = att.expand_kv(k, h), att.expand_kv(v, h)
     pos = torch.arange(q.shape[1], device=q.device)
     return att.attend_direct(q, k, v, pos, pos, causal=causal, window=window)
 

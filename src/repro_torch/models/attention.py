@@ -3,7 +3,8 @@
 Counterpart of ``repro/models/attention.py``. Regimes:
 
 * prefill attention runs the hand-written CUDA kernel through
-  ``kernels/ops.flash_attention`` (the call is in ``transformer.py``);
+  ``kernels/ops.flash_attention`` (the call is in ``transformer.py``),
+  which reads K/V at their KV heads in place;
   ``attend_chunked`` here is its plain chunked online-softmax version,
   which train mode runs (autograd differentiates it), and
   ``attend_direct`` the one-block version both rest on.
@@ -72,7 +73,8 @@ def out_project(p: dict, attn: torch.Tensor) -> torch.Tensor:
 
 def expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B,S,KV,Dh) -> contiguous (B,S,H,Dh): query head h reads KV head
-    h // (H // KV), as in the reference."""
+    h // (H // KV), as in the reference. The plain versions use it; the
+    kernel reads the KV heads in place."""
     b, s, kv, dh = k.shape
     g = num_heads // kv
     if g == 1:
@@ -134,14 +136,19 @@ def _online_block(state, q, kc, vc, qpos, kpos, causal, window, valid_len):
 def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
                    q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
-    """Flash-style chunked attention over already-expanded k/v, the
-    reference's ``attend_chunked`` step for step: q: (B,S,H,Dh),
-    k/v: (B,S,H,Dh), positions 0..S-1. Query chunk i reads only the KV
-    prefix (causal) or band (windowed) it can see."""
+    """Flash-style chunked attention, the reference's ``attend_chunked``
+    step for step: q: (B,S,H,Dh), k/v: (B,S,KV,Dh) with H % KV == 0,
+    positions 0..S-1. Given fewer heads than q, k/v are expanded here
+    first (``expand_kv``), so it computes what it computes on expanded
+    k/v. Query chunk i reads only the KV prefix (causal) or band
+    (windowed) it can see."""
     b, s_valid, h, dh = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
+    if k.shape != v.shape or k.shape[2] < 1 or h % k.shape[2] \
+            or (k.shape[0], k.shape[1], k.shape[3]) != (b, s_valid, dh):
         raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)} / "
                          f"v {tuple(v.shape)}")
+    if k.shape[2] != h:
+        k, v = expand_kv(k, h), expand_kv(v, h)
     dev = q.device
     if s_valid <= q_chunk:
         pos = torch.arange(s_valid, device=dev)

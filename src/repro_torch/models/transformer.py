@@ -15,9 +15,10 @@ where the reference calls its jnp ``attend_chunked``. Train attention is
 the plain ``attention.attend_chunked``, as in the reference: the kernel
 has no backward (neither has the reference's Pallas kernel), and
 autograd differentiates the plain version. ``attend`` overrides the
-attention of either mode with another function of the same signature,
-for example to hold the prefill kernel against the plain path on the
-same inputs. ``block_specs``/``apply_block`` take the window
+attention of either mode with another function of the same signature
+(q at H heads, k/v at their KV heads, as projected), for example to
+hold the prefill kernel against the plain path on the same inputs.
+``block_specs``/``apply_block`` take the window
 explicitly, so the hybrid stack (``models/hybrid.py``) runs them as its
 local-attention blocks with ``window=cfg.local_window``.
 """
@@ -77,9 +78,9 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
             q, cache_k, cache_v, k, v, pos, num_heads=cfg.num_heads,
             window=window)
     else:
-        out = attend(q, att.expand_kv(k, cfg.num_heads),
-                     att.expand_kv(v, cfg.num_heads), causal=True,
-                     window=window)
+        # k/v at their KV heads: the kernel reads GQA/MQA in place, the
+        # plain versions expand them themselves
+        out = attend(q, k, v, causal=True, window=window)
         if mode == "prefill":
             if window > 0:     # rolling layout for windowed decode caches
                 new_k, new_v = att.to_rolling(k, window), att.to_rolling(

@@ -1,8 +1,11 @@
 """repro_torch flash attention: the port's ``kernels.ops.flash_attention``
 held against the JAX reference (the Pallas kernel in interpret mode, as
 tests/test_kernels.py runs it) and against the port's plain version, on
-the same numpy inputs; plus the CUDA kernel against the plain version on
-the card (``cuda`` marker: skipped with a reason where there is none).
+the same numpy inputs; plus the CUDA kernels against the plain version
+on the card (``cuda`` marker: skipped with a reason where there is none):
+bf16 runs the tensor-core kernel, f32 the FMA kernel. K/V go to the port
+at their KV heads (GQA/MQA read in place); the JAX reference is fed the
+same K/V expanded by its own ``expand_kv``.
 
 Tolerances are the reference's own (tests/test_kernels.py): f32
 2e-4/2e-3 (sums in another order), bf16 3e-2/5e-2 (p rounded to bf16
@@ -33,6 +36,16 @@ SHAPES = [(2, 128, 2, 64), (1, 257, 3, 32), (1, 64, 1, 128), (2, 96, 4, 16)]
 MODES = [(True, 0), (True, 48), (False, 0)]
 
 
+def _kv_options(h):
+    """KV heads to test beside H: MQA (1) and, where it divides H, 2."""
+    return sorted({h, 1} | ({2} if h % 2 == 0 else set()))
+
+
+# (shape, kv heads): every shape at KV = H, 1 and (where it divides) 2
+SHAPES_KV = [(shape, kv) for shape in SHAPES + [(4, 1024, 14, 64)]
+             for kv in _kv_options(shape[2])]
+
+
 @pytest.fixture
 def jax_ref():
     if jops is None:
@@ -47,9 +60,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(shape, seed):
+def _qkv(shape, seed, kv=None):
+    """q at ``shape``; k/v at ``kv`` heads (default: as many as q)."""
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+    b, s, h, dh = shape
+    kv_shape = (b, s, h if kv is None else kv, dh)
+    return [rng.standard_normal(sh).astype(np.float32)
+            for sh in (shape, kv_shape, kv_shape)]
 
 
 def _close(a, b, tol):
@@ -102,6 +119,57 @@ def test_attend_chunked_matches_jax(s, window, jax_ref):
     _close(got.numpy(), want, F32_TOL)
 
 
+@pytest.mark.parametrize("shape,causal,window",
+                         [((2, 130, 4, 32), True, 0),
+                          ((1, 257, 4, 16), True, 48),
+                          ((2, 64, 4, 64), False, 0)])
+@pytest.mark.parametrize("kv", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_ops_kv_heads_match_jax_kernel_expanded(shape, causal, window, kv,
+                                                    dtype, jax_ref):
+    """``ops.flash_attention`` given K/V at KV heads against the JAX
+    kernel given the same K/V expanded by the reference's ``expand_kv``."""
+    q, k, v = _qkv(shape, 6, kv=kv)
+    h = shape[2]
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(x).astype(jdt) for x in (q, k, v))
+    want = jops.flash_attention(jq, jatt.expand_kv(jk, h),
+                                jatt.expand_kv(jv, h), causal=causal,
+                                window=window, bq=64, bk=64)
+    dt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(dt) for x in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == dt and got.shape == tq.shape
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("kv", [1, 2, 4])
+@pytest.mark.parametrize("s,window", [(40, 0), (160, 0), (200, 48)])
+def test_attend_chunked_kv_heads_equals_expanded(kv, s, window):
+    """Given fewer heads than q, ``attend_chunked`` (train mode's and the
+    plain path's attention) computes exactly what it computes on K/V
+    expanded by ``expand_kv``: bit for bit."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((1, s, 4, 16), 7, kv=kv))
+    got = tatt.attend_chunked(q, k, v, causal=True, window=window,
+                              q_chunk=64, kv_chunk=64)
+    want = tatt.attend_chunked(q, tatt.expand_kv(k, 4), tatt.expand_kv(v, 4),
+                               causal=True, window=window, q_chunk=64,
+                               kv_chunk=64)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kv", [1, 2])
+def test_ref_kv_heads_equals_expanded(kv):
+    """The plain version expands KV heads itself: bit for bit the same as
+    given expanded K/V."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((2, 33, 4, 32), 8, kv=kv))
+    got = ref.flash_attention(q, k, v, window=8)
+    want = ref.flash_attention(q, tatt.expand_kv(k, 4), tatt.expand_kv(v, 4),
+                               window=8)
+    assert torch.equal(got, want)
+
+
 def test_cpu_path_launches_no_kernel():
     """A CPU tensor goes to the plain version: nothing is built, the
     launch counter does not move."""
@@ -122,16 +190,28 @@ def test_ops_rejects_bad_inputs():
         ops.flash_attention(q, k, v, window=-1)
 
 
+@pytest.mark.parametrize("h,kv", [(4, 3), (3, 2), (14, 4)])
+def test_ops_rejects_kv_heads_not_dividing_h(h, kv):
+    """H % KV != 0 has no head mapping: the wrapper raises."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((1, 8, h, 16), 9, kv=kv))
+    with pytest.raises(ValueError, match="H % KV"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError):
+        tatt.attend_chunked(q, k, v)
+
+
 # -- the CUDA kernel on the card ---------------------------------------------
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(4, 1024, 14, 64)])
+@pytest.mark.parametrize("shape,kv_heads", SHAPES_KV)
 @pytest.mark.parametrize("causal,window", MODES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(shape, causal, window, dtype, cuda):
+def test_kernel_matches_plain_on_card(shape, kv_heads, causal, window, dtype,
+                                      cuda):
     dt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(x).to(cuda, dt) for x in _qkv(shape, 5))
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in _qkv(shape, 5, kv=kv_heads))
     before = ops.flash_attention.launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -140,6 +220,54 @@ def test_kernel_matches_plain_on_card(shape, causal, window, dtype, cuda):
     want = ref.flash_attention(q, k, v, causal=causal, window=window)
     _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
            F32_TOL if dt == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 256])
+@pytest.mark.parametrize("kv_heads", [1, 2])
+def test_kernel_v_layout_on_card(dh, kv_heads, cuda):
+    """The PV product reads V (kv rows, Dh) as an MN-major operand (the
+    transpose bit of the bf16 wgmma). V whose every element differs by
+    row and column, and one-hot attention (a large diagonal score), make
+    the output rows copies of V's rows: a transposed or shuffled read
+    shows as a wrong copy, not as rounding."""
+    b, s, h = 1, 200, 4
+    pos = torch.arange(s, device=cuda, dtype=torch.float32)
+    col = torch.arange(dh, device=cuda, dtype=torch.float32)
+    v = ((pos[:, None] % 61) / 61 - (col[None, :] % 37) / 37)
+    v = v[None, :, None, :].expand(b, s, kv_heads, dh).contiguous()
+    k = torch.randn((b, s, kv_heads, dh), device=cuda) * 0.05
+    k[..., 0] = 40.0                          # every key scores its query
+    q = torch.zeros((b, s, h, dh), device=cuda)
+    q[..., 0] = 40.0
+    # only the diagonal: causal with window 1
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True, window=1)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=True, window=1)
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(), BF16_TOL)
+    expect = v.float()[:, :, [hh // (h // kv_heads) for hh in range(h)]]
+    _close(got.float().cpu().numpy(), expect.cpu().numpy(), BF16_TOL)
+    # and with every key live (non-causal), against the plain version
+    q2, k2, v2 = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                  for x in _qkv((b, s, h, dh), 10, kv=kv_heads))
+    _close(ops.flash_attention(q2, k2, v2, causal=False).float().cpu().numpy(),
+           ref.flash_attention(q2, k2, v2, causal=False).float().cpu().numpy(),
+           BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_misaligned_bf16(cuda):
+    """The bf16 kernel's TMA maps need 16-byte-aligned bases: a contiguous
+    view 2 bytes into its storage raises, nothing is copied."""
+    shape = (1, 64, 2, 64)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, device=cuda, dtype=torch.bfloat16)
+    k = buf[1:1 + n].view(shape)
+    assert k.is_contiguous() and k.data_ptr() % 16
+    q = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, k, q)
 
 
 @pytest.mark.cuda
