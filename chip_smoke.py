@@ -9,15 +9,25 @@ non-zero (no phase's failure is caught):
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    TF32 switched off for f32 products;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a, one nvcc per source, all started together) and report the
-   seconds and ptxas' register report;
+   sm_90a, one nvcc per source, all started together), report the
+   seconds and ptxas' register report per kernel function, and check
+   that no kernel spills and that the compiled code issues
+   the asynchronous copies each design names (cuobjdump: HGMMA and
+   UTMALDG in the bf16 flash kernels, UTMALDG in the chunked WKV6
+   kernels and the RG-LRU TMA instance, LDGSTS in the RG-LRU cp.async
+   instance);
 3. hold each kernel against its plain PyTorch version on the card at
    the stated tolerances (flash attention at 3e-2/5e-2 in bf16 and
    2e-4/2e-3 in f32, head dims 16..256; ring pack and unpack bit for bit,
    ``torch.equal`` on the bit patterns; WKV6 at 2e-3, 5e-3 at extreme
-   decays; RG-LRU at 2e-4), then time kernel, plain version and the one
-   PyTorch library call that computes the same function, at the shapes
-   the main paths give them, beside the roofline bound;
+   decays, every head size on both sides of the chunk and the
+   decode-kernel threshold, chained calls; RG-LRU at 2e-4 on both load
+   paths, ragged W, a misaligned base, chained calls), then time kernel,
+   plain version and the one PyTorch library call that computes the same
+   function, at the shapes the main paths give them, beside the roofline
+   bound. Every timing is queued behind a device-side spin, so it times
+   the card, not the host's launch rate (the WKV6 decode step, ~3 us, over
+   500 calls);
 4. serve qwen2-0.5b at full width (random weights from a seed) through
    ``make_engine_group`` -> ``EventLoopGroup`` -> ``DecodeEngine`` ->
    ``dispatch.ServeStep``: 8 requests, prompts of 16..1024 tokens, 16
@@ -89,26 +99,47 @@ H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 H100_BYTES_S = 3.35e12       # HBM3
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3,
-            queued: bool = False) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False,
+            label: str = "") -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls.
-    ``queued``: the calls are queued behind a device-side spin of ~10 ms,
-    so a call whose host side (Python, the wrapper's checks, the launch)
-    takes longer than its kernel does not leave the card idle between
-    kernels: the events time the card's work, not the host's launch rate
-    (for kernels of tens of microseconds)."""
+    ``queued``: the calls are queued behind a device-side spin that
+    outlasts their host side (Python, the wrapper's checks, the launch),
+    sized from one call's host time, so the card does not idle between
+    kernels: the events time the card's work, not the host's launch rate.
+    If the spin had already ended when the last call was queued, the
+    timing is taken again behind a spin four times as long (twice at
+    most, and not past a 0.5 s spin, which the launch queue would not
+    outlast); a timing the host still outran is named (``label``) on a
+    ``[time-queue]`` line."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    spin_s = 0.0
     if queued:
-        torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(iters):
+        t0 = time.perf_counter()
         fn()
-    end.record()
-    end.synchronize()
+        spin_s = max(0.01, 2.5 * iters * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    for _ in range(3):
+        if queued:
+            # cycles at the card's top clock (1.98 GHz); slower clocks
+            # only lengthen the spin
+            torch.cuda._sleep(int(spin_s * 1.98e9))
+        start.record()
+        for _ in range(iters):
+            fn()
+        outran = queued and start.query()
+        end.record()
+        end.synchronize()
+        if not outran or spin_s >= 0.5:
+            break    # a longer spin would not outlast the launch queue
+        spin_s *= 4
+    if outran:
+        print(f"[time-queue] {label or getattr(fn, '__name__', 'fn')}: "
+              f"the host outran a {spin_s:.3f} s spin; this time includes "
+              "host pace")
     return start.elapsed_time(end) / iters
 
 
@@ -220,10 +251,23 @@ def spill_lines(ptxas_log: str) -> list:
             if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
 
 
+def ptxas_report(ptxas_log: str) -> list:
+    """(kernel function, line) for the lines of a ptxas report that give
+    registers, spills, wgmma notes or warnings."""
+    fn, out = "?", []
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        if any(w in line for w in ("registers", "spill", "wgmma", "arning")):
+            out.append((fn, line.strip()))
+    return out
+
+
 def sass_counts(path: str) -> dict:
-    """{kernel function: {instruction: count}} of the HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions in a built library, from cuobjdump;
-    None when the toolkit has no cuobjdump."""
+    """{kernel function: {instruction: count}} of the HGMMA (wgmma),
+    UTMALDG (TMA load) and LDGSTS (cp.async) instructions in a built
+    library, from cuobjdump; None when the toolkit has no cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                         "cuobjdump")
     if not os.path.exists(tool):
@@ -237,7 +281,7 @@ def sass_counts(path: str) -> dict:
             fn = line.split("Function :")[1].strip()
             counts[fn] = {}
         elif fn is not None:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ("HGMMA", "UTMALDG", "LDGSTS"):
                 if op in line:
                     word = next(w for w in line.replace(";", " ").split()
                                 if w.startswith(op))
@@ -253,19 +297,25 @@ def scan_bound_ms(nbytes: float, flops: float):
                                        else "operations")
 
 
-def wkv6_inputs(gen, b, t, h, hs, extreme=False):
-    """r, k, v, w, u, s0 as the reference's kernel tests draw them
-    (s0 != 0; extreme: half the decays 1e-6, half 1 - 1e-6, s0 = 0)."""
+def wkv6_inputs(gen, b, t, h, hs, extreme=None):
+    """r, k, v, w, u, s0 as the reference's kernel tests draw them: s0 != 0,
+    decays in (0.1, 0.95); ``extreme="steps"``: the first half of the
+    steps decay at 1e-6, the rest at 1 - 1e-6, s0 = 0 (the reference's
+    case); ``extreme="channels"``: channels alternate 1e-6 / 1 - 1e-6 at
+    every step, s0 != 0 (extreme decays at any T, the decode step's 1)."""
     dev = torch.device("cuda")
     n = lambda *sh: torch.randn(sh, generator=gen, device=dev)
     r, k, v = n(b, t, h, hs), n(b, t, h, hs), n(b, t, h, hs)
-    if extreme:
+    s0 = n(b, h, hs, hs) * 0.1
+    if extreme == "steps":
         w = torch.full((b, t, h, hs), 1 - 1e-6, device=dev)
         w[:, : t // 2] = 1e-6
-        s0 = torch.zeros((b, h, hs, hs), device=dev)
+        s0 = torch.zeros_like(s0)
+    elif extreme == "channels":
+        w = torch.full((b, t, h, hs), 1 - 1e-6, device=dev)
+        w[..., ::2] = 1e-6
     else:
         w = torch.sigmoid(n(b, t, h, hs)) * 0.85 + 0.1
-        s0 = n(b, h, hs, hs) * 0.1
     return r, k, v, w, n(h, hs) * 0.1, s0
 
 
@@ -360,10 +410,15 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
             print(f"[profile] {cfg.name} {what}: device time not "
                   "measured (the profiler recorded no device events)")
             continue
+        scans = {name: ms for name, ms in by_name.items()
+                 if "wkv6_" in name or "rglru_fwd" in name}
         print(f"[profile] {cfg.name} {what}: {n_k} kernels, {busy:.3f} "
               f"ms on the device of {wall:.3f} ms per step "
               f"({busy / wall:.1%} busy); top: "
-              + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in ranked))
+              + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in ranked)
+              + " | scan kernels: " + ("; ".join(
+                  f"{name[:60]} {ms:.3f}" for name, ms in scans.items())
+                  or "none"))
         if what == "prefill" and "attend" in plain:
             check_prefill_flash(cfg.name, by_name)
     del cache
@@ -441,6 +496,8 @@ def main() -> int:
     from repro_torch.core import aggregation as agg
     from repro_torch.core import tac
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import rglru as _rg
+    from repro_torch.kernels import rwkv6_scan as _wk
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.train import Trainer
     from repro_torch.launch.serve import make_requests
@@ -476,10 +533,8 @@ def main() -> int:
         info = build.BUILD_INFO[name]
         print(f"[build] {name}: nvcc {info['seconds']:.2f}s -> "
               f"{info['path']}")
-        for line in info["ptxas"].splitlines():
-            if any(w in line for w in ("registers", "spill", "wgmma",
-                                       "arning")):
-                print(f"[ptxas] {name}: {line.strip()}")
+        for fn, line in ptxas_report(info["ptxas"]):
+            print(f"[ptxas] {name} {fn[-48:]}: {line}")
         spills = spill_lines(info["ptxas"])
         assert not spills, f"{name}: ptxas reports spills: {spills}"
     # the bf16 flash kernels issue wgmma for both products and load K/V by
@@ -495,6 +550,22 @@ def main() -> int:
             sum(n for op, n in c.items() if op.startswith("HGMMA")) >= 2
             and any(op.startswith("UTMALDG") for op in c)
             for c in tc_fns.values()), tc_fns
+    # the scans' asynchronous copies: the chunked WKV6 kernels and the
+    # RG-LRU TMA instance load by TMA, the RG-LRU instance for other W by
+    # cp.async (LDGSTS)
+    for name, want in (("rwkv6_scan", {"wkv6_chunked": "UTMALDG"}),
+                       ("rglru", {"rglru_fwdILb1": "UTMALDG",
+                                  "rglru_fwdILb0": "LDGSTS"})):
+        sass = sass_counts(build.BUILD_INFO[name]["path"])
+        if sass is None:
+            print(f"[sass] {name}: cuobjdump not found; not read")
+            continue
+        for fn, c in sorted(sass.items()):
+            print(f"[sass] {name} {fn[-48:]}: {c}")
+        for key, op in want.items():
+            fns = {fn: c for fn, c in sass.items() if key in fn}
+            assert fns and all(any(o.startswith(op) for o in c)
+                               for c in fns.values()), (name, key, op, sass)
 
     # -- 3. kernel vs plain version ----------------------------------------
     # flash attention: bf16 runs the tensor-core kernel, f32 the FMA
@@ -651,10 +722,11 @@ def main() -> int:
     def ring_times(kernel, plain, library, bytes_per_elem):
         """kernel, plain, library (or None), kernel again; the bound is
         the bytes over the HBM rate."""
-        k1 = time_ms(kernel, iters=10)
-        p_ms = time_ms(plain, iters=5)
-        lib = None if library is None else time_ms(library, iters=10)
-        k2 = time_ms(kernel, iters=10)
+        k1 = time_ms(kernel, iters=10, queued=True)
+        p_ms = time_ms(plain, iters=5, queued=True)
+        lib = None if library is None else time_ms(library, iters=10,
+                                                   queued=True)
+        k2 = time_ms(kernel, iters=10, queued=True)
         return {"ms": k1, "ms_again": k2, "plain_ms": p_ms,
                 "library_ms": lib,
                 "bound_ms": bytes_per_elem * elems / H100_BYTES_S * 1e3}
@@ -681,8 +753,12 @@ def main() -> int:
     del flat, ef, wire_k, ef_k
     torch.cuda.empty_cache()
 
-    # WKV6: ragged shapes of every head size, the decode step, rwkv6-7b's
-    # prefill shape with s0 != 0 and with extreme decays
+    # WKV6: ragged shapes of every head size and rwkv6-7b's decode step;
+    # every head size at ragged T and on both sides of the chunk and
+    # decode-kernel boundaries (T <= DECODE_MAX_T runs the decode kernel,
+    # longer T the chunked one), B*H = 6; chaining (T, then T=1 from its
+    # final state, against T+1); the decode step with extreme decays, s0
+    # != 0; the prefill shape with s0 != 0 and with extreme decays
     for b, t, h, hs in ((2, 37, 3, 16), (1, 100, 2, 32), (2, 33, 4, 64),
                         (2, 1, 64, 64)):
         args = wkv6_inputs(gen, b, t, h, hs)
@@ -693,40 +769,82 @@ def main() -> int:
                     2e-3)
         check_close(f"wkv6 ({b}, {t}, {h}, {hs}) s_final", got[1], want[1],
                     2e-3, 2e-3)
+    ch, dmax = _wk.CHUNK, _wk.DECODE_MAX_T
+    wkv_ts = sorted({1, 2, dmax, dmax + 1, ch - 1, ch, ch + 1, 2 * ch + 3,
+                     33, 37, 100})
+    for hs in _wk.HEAD_SIZES:
+        worst = 0.0
+        for t in wkv_ts:
+            args = wkv6_inputs(gen, 2, t, 3, hs)
+            got = ops.wkv6(*args)
+            torch.cuda.synchronize()
+            want = ref.wkv6(*args)
+            for i, part in enumerate(("y", "s_final")):
+                worst = max(worst, check_close(
+                    f"wkv6 (2, {t}, 3, {hs}) {part}", got[i], want[i], 2e-3,
+                    2e-3, verbose=False))
+        print(f"[check] wkv6 hs={hs}: B=2 H=3, T {wkv_ts}, y and s_final: "
+              f"max_abs_err={worst:.3e} (atol=rtol=2e-3) ok")
+    for t in (dmax, 2 * ch + 3):
+        r, k, v, w, u, s0 = wkv6_inputs(gen, 2, t + 1, 64, 64)
+        y1, s1 = ops.wkv6(*(x[:, :t].contiguous() for x in (r, k, v, w)), u,
+                          s0)
+        y2, s2 = ops.wkv6(*(x[:, t:].contiguous() for x in (r, k, v, w)), u,
+                          s1)
+        yw, sw = ops.wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        check_close(f"wkv6 chained T={t} then 1 vs T={t + 1} y",
+                    torch.cat([y1, y2], 1), yw, 2e-3, 2e-3)
+        check_close(f"wkv6 chained T={t} then 1 vs T={t + 1} s_final", s2,
+                    sw, 2e-3, 2e-3)
     wshape = (2, 1024, 64, 64)
+    b, t, h, hs = wshape
     wkv_err = 0.0
-    for extreme, tol in ((False, 2e-3), (True, 5e-3)):
-        args = wkv6_inputs(gen, *wshape, extreme=extreme)
+    for shape, extreme, tol in (((b, 1, h, hs), "channels", 5e-3),
+                                (wshape, None, 2e-3),
+                                (wshape, "steps", 5e-3)):
+        args = wkv6_inputs(gen, *shape, extreme=extreme)
         got = ops.wkv6(*args)
         torch.cuda.synchronize()
         want = ref.wkv6(*args)
         for i, part in enumerate(("y", "s_final")):
-            err = check_close(f"wkv6 {wshape} {part}"
-                              + (" extreme decays" if extreme else
-                                 " (timed shape)"), got[i], want[i], tol, tol)
-            if not extreme:
+            err = check_close(f"wkv6 {shape} {part}"
+                              + (f" extreme decays over {extreme}" if extreme
+                                 else " (timed shape)"), got[i], want[i],
+                              tol, tol)
+            if shape == wshape and not extreme:
                 wkv_err = max(wkv_err, err)
     args = wkv6_inputs(gen, *wshape)
-    b, t, h, hs = wshape
     n_el = b * t * h * hs
     wkv_bound, wkv_bound_by = scan_bound_ms(
         (5 * n_el + 2 * b * h * hs * hs + h * hs) * 4.0, 5.0 * n_el * hs)
-    wkv = {"ms": time_ms(lambda: ops.wkv6(*args), iters=10),
-           "plain_ms": time_ms(lambda: ref.wkv6(*args), iters=2, warmup=1)}
-    wkv["ms_again"] = time_ms(lambda: ops.wkv6(*args), iters=10)
+    wkv = {"ms": time_ms(lambda: ops.wkv6(*args), iters=20, queued=True),
+           "plain_ms": time_ms(lambda: ref.wkv6(*args), iters=2, warmup=1,
+                               queued=True, label="plain wkv6")}
+    wkv["ms_again"] = time_ms(lambda: ops.wkv6(*args), iters=20, queued=True)
     dec_args = wkv6_inputs(gen, b, 1, h, hs)
-    wkv_dec_ms = time_ms(lambda: ops.wkv6(*dec_args), iters=50)
-    wkv_dec_bound, _ = scan_bound_ms(
+    wkv["decode_ms"] = time_ms(lambda: ops.wkv6(*dec_args), iters=500,
+                               queued=True)
+    wkv["decode_plain_ms"] = time_ms(lambda: ref.wkv6(*dec_args), iters=100,
+                                     queued=True)
+    wkv["decode_ms_again"] = time_ms(lambda: ops.wkv6(*dec_args), iters=500,
+                                     queued=True)
+    wkv["decode_bound_ms"], _ = scan_bound_ms(
         (5 * b * h * hs + 2 * b * h * hs * hs + h * hs) * 4.0,
         5.0 * b * h * hs * hs)
     print(f"[time] wkv6 B={b} T={t} H={h} hs={hs} f32: kernel "
           f"{wkv['ms']:.4f} / {wkv['ms_again']:.4f} ms, plain "
           f"{wkv['plain_ms']:.4f} ms, library none (no single call), bound "
           f"{wkv_bound:.4f} ms ({wkv_bound_by}) | decode T=1: kernel "
-          f"{wkv_dec_ms:.4f} ms, bound {wkv_dec_bound:.4f} ms | {smi}")
+          f"{wkv['decode_ms']:.5f} / {wkv['decode_ms_again']:.5f} ms, plain "
+          f"{wkv['decode_plain_ms']:.4f} ms, bound "
+          f"{wkv['decode_bound_ms']:.5f} ms | {smi}")
     del args, dec_args, got, want
 
-    # RG-LRU: ragged shapes and recurrentgemma-9b's prefill shape
+    # RG-LRU: ragged shapes; both load paths (W % 4 == 0 and a
+    # 16-byte-aligned base: TMA; any other W, or a misaligned base: 4-byte
+    # cp.async) at T on both sides of the chunk; chaining (T, then T',
+    # against T + T'); recurrentgemma-9b's prefill shape
     for b, t, w in ((3, 100, 65), (2, 9, 4099), (1, 1, 7)):
         args = rglru_inputs(gen, b, t, w)
         got = ops.rglru(*args)
@@ -736,6 +854,46 @@ def main() -> int:
                     2e-4)
         check_close(f"rglru ({b}, {t}, {w}) h_final", got[1], want[1], 2e-4,
                     2e-4)
+    lch = _rg.CHUNK
+    lru_ts, lru_ws = (1, 9, lch, lch + 1, 1024), (4096, 4099, 65, 7, 4 * 1025)
+    worst = 0.0
+    for t in lru_ts:
+        for w in lru_ws:
+            args = rglru_inputs(gen, 2, t, w)
+            got = ops.rglru(*args)
+            torch.cuda.synchronize()
+            want = ref.rglru(*args)
+            for i, part in enumerate(("h_seq", "h_final")):
+                worst = max(worst, check_close(
+                    f"rglru (2, {t}, {w}) {part}", got[i], want[i], 2e-4,
+                    2e-4, verbose=False))
+    print(f"[check] rglru: B=2, T {lru_ts} x W {lru_ws}, h_seq and h_final: "
+          f"max_abs_err={worst:.3e} (atol=rtol=2e-4) ok")
+    a_, b_, h0 = rglru_inputs(gen, 2, lch + 1, 4096)
+    buf = torch.empty(2 * a_.numel() + 1, device=dev)
+    a_off = buf[1:1 + a_.numel()].view_as(a_)      # 4 bytes past alignment
+    b_off = buf[1 + a_.numel():].view_as(b_)
+    a_off.copy_(a_)
+    b_off.copy_(b_)
+    got = ops.rglru(a_off, b_off, h0)
+    torch.cuda.synchronize()
+    want = ref.rglru(a_, b_, h0)
+    for i, part in enumerate(("h_seq", "h_final")):
+        check_close(f"rglru (2, {lch + 1}, 4096) misaligned base {part}",
+                    got[i], want[i], 2e-4, 2e-4)
+    for t1, t2, w in ((lch, lch + 1, 4096), (9, 1, 65)):
+        a_, b_, h0 = rglru_inputs(gen, 2, t1 + t2, w)
+        y1, h1 = ops.rglru(a_[:, :t1].contiguous(), b_[:, :t1].contiguous(),
+                           h0)
+        y2, h2 = ops.rglru(a_[:, t1:].contiguous(), b_[:, t1:].contiguous(),
+                           h1)
+        yw, hw = ops.rglru(a_, b_, h0)
+        torch.cuda.synchronize()
+        check_close(f"rglru chained T={t1} then {t2} vs {t1 + t2} W={w} "
+                    "h_seq", torch.cat([y1, y2], 1), yw, 2e-4, 2e-4)
+        check_close(f"rglru chained T={t1} then {t2} vs {t1 + t2} W={w} "
+                    "h_final", h2, hw, 2e-4, 2e-4)
+    del buf, a_off, b_off
     b, t, w = 2, 1024, 4096
     args = rglru_inputs(gen, b, t, w)
     got = ops.rglru(*args)
@@ -746,14 +904,30 @@ def main() -> int:
                   for i, part in enumerate(("h_seq", "h_final")))
     lru_bound, lru_bound_by = scan_bound_ms((3 * b * t * w + 2 * b * w) * 4.0,
                                             2.0 * b * t * w)
-    lru = {"ms": time_ms(lambda: ops.rglru(*args), iters=20),
-           "plain_ms": time_ms(lambda: ref.rglru(*args), iters=2, warmup=1)}
-    lru["ms_again"] = time_ms(lambda: ops.rglru(*args), iters=20)
+    lru = {"ms": time_ms(lambda: ops.rglru(*args), iters=50, queued=True),
+           "plain_ms": time_ms(lambda: ref.rglru(*args), iters=2, warmup=1,
+                               queued=True, label="plain rglru")}
+    lru["ms_again"] = time_ms(lambda: ops.rglru(*args), iters=50, queued=True)
+    # the same shape through the cp.async path: a and b 4 bytes past a
+    # 16-byte boundary, which no tensor map can describe
+    n_ab = args[0].numel()
+    buf = torch.empty(2 * n_ab + 1, device=dev)
+    a_off, b_off = (buf[1 + i * n_ab:1 + (i + 1) * n_ab].view_as(args[0])
+                    for i in range(2))
+    a_off.copy_(args[0])
+    b_off.copy_(args[1])
+    assert _rg.load_path(a_off, b_off) == "cp.async" \
+        and _rg.load_path(*args[:2]) == "tma"
+    check_close(f"rglru ({b}, {t}, {w}) h_seq, cp.async path (timed shape)",
+                ops.rglru(a_off, b_off, args[2])[0], want[0], 2e-4, 2e-4)
+    lru["cp_async_ms"] = time_ms(lambda: ops.rglru(a_off, b_off, args[2]),
+                                 iters=50, queued=True)
     print(f"[time] rglru B={b} T={t} W={w} f32: kernel {lru['ms']:.4f} / "
-          f"{lru['ms_again']:.4f} ms, plain {lru['plain_ms']:.4f} ms, "
+          f"{lru['ms_again']:.4f} ms (TMA path; the cp.async path "
+          f"{lru['cp_async_ms']:.4f} ms), plain {lru['plain_ms']:.4f} ms, "
           f"library none (no single call), bound {lru_bound:.4f} ms "
           f"({lru_bound_by}) | {smi}")
-    del args, got, want
+    del args, got, want, buf, a_off, b_off
 
     torch.cuda.empty_cache()
 
@@ -1048,7 +1222,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/rwkv6_scan.py:89",
          "launches": rwkv_launches["wkv6"], "max_abs_err": wkv_err,
          "ms": wkv["ms"], "plain_ms": wkv["plain_ms"], "bound_ms": wkv_bound,
-         "bound_by": wkv_bound_by, "library_ms": None},
+         "bound_by": wkv_bound_by, "library_ms": None,
+         "decode_ms": wkv["decode_ms"],
+         "decode_bound_ms": wkv["decode_bound_ms"]},
         {"name": "rglru", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru.cu",
          "replaces": "src/repro/kernels/rglru.py:62",

@@ -2,9 +2,10 @@
 
 Each ``kernels/csrc/<name>.cu`` has a plain C interface and is compiled
 on first use with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the
-root of the checkout, keyed by a hash of the source and the flags, then
-loaded with ``ctypes``. Importing this module builds nothing: the CPU
-tests import every module, and a CPU tensor never reaches a kernel.
+root of the checkout, keyed by a hash of the source, the ``csrc/*.cuh``
+headers and the flags, then loaded with ``ctypes``. Importing this
+module builds nothing: the CPU tests import every module, and a CPU
+tensor never reaches a kernel.
 The port has no counterpart module in ``repro`` (Pallas compiles in
 process).
 """
@@ -55,7 +56,9 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
+        # the headers a source may include are hashed with it
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(src.read_bytes() + headers
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         out = BUILD_DIR / f"{name}-{digest[:16]}.so"
         t0 = time.perf_counter()

@@ -828,8 +828,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       || !make_map(encode, &mk, k, B, S, KV, DH, L::BK)
       || !make_map(encode, &mv, v, B, S, KV, DH, L::BK))
     return static_cast<cudaError_t>(ERR_TENSOR_MAP);
-  // once per head dim (thread-safe static initialisation)
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // set on every launch: the attribute belongs to the current device
+  const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (attr != cudaSuccess) return attr;
   const long long blocks = (long long)((S + L::BQ - 1) / L::BQ) * H * B;

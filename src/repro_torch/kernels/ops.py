@@ -210,6 +210,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          f"{hs}")
     if not all(x.is_contiguous() for x in (r, k, v, w, u, s0)):
         raise ValueError("wkv6 kernel needs contiguous r/k/v/w/u/s0")
+    if any(x.data_ptr() % _wk.ALIGN for x in (r, k, v, w, s0)):
+        raise ValueError(f"wkv6 kernel needs {_wk.ALIGN}-byte-aligned "
+                         f"r/k/v/w/s0 (TMA), got base addresses "
+                         f"{[hex(x.data_ptr()) for x in (r, k, v, w, s0)]}")
     out = _wk.wkv6_kernel(r, k, v, w, u, s0)
     _count(wkv6)
     return out

@@ -31,6 +31,7 @@ from torch_parity import (TOL, assert_trees_close, close, model_pair,
 from repro_torch.configs.base import CommConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import rglru as _rg
 from repro_torch.models import api
 from repro_torch.models import hybrid as thyb
 from repro_torch.models.common import tree_map, tree_paths
@@ -287,12 +288,18 @@ def test_gate_gelu_swap_is_caught(swap, jax_ref, monkeypatch):
 # -- (g) the CUDA kernels on the card ----------------------------------------
 
 
+LCH = _rg.CHUNK
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 7, 8, 9, 100])
-@pytest.mark.parametrize("w", [1, 65, 4096 + 3])
+@pytest.mark.parametrize("t", sorted({1, 7, 8, 9, 100, LCH, LCH + 1, 1024}))
+@pytest.mark.parametrize("w", [1, 65, 4096 + 3, 4096, 7, 4 * 1025])
 def test_kernel_matches_plain_on_card(t, w, cuda):
+    """Both load paths: W % 4 == 0 loads by TMA, any other W by cp.async;
+    T on both sides of the tile length; one launch per call."""
     args = [torch.from_numpy(a).to(cuda)
             for a in scan_inputs(3, t, w, seed=t * w)]
+    assert _rg.load_path(*args[:2]) == ("tma" if w % 4 == 0 else "cp.async")
     before = ops.rglru.launches
     y, hf = ops.rglru(*args)
     torch.cuda.synchronize()
@@ -339,3 +346,60 @@ def test_flash_head_dim_256_on_card(dtype, tol, s, window, cuda):
     torch.cuda.synchronize()
     want = ref.flash_attention(q, k, v, causal=True, window=window)
     close(got.float().cpu(), want.float().cpu(), *tol)
+
+
+def chained_rglru(device, t1, t2, w, seed):
+    """rglru over T, then over T' from its last state: (h_seq, h_final)
+    over the T + T' steps, and the numpy inputs of all of them."""
+    args = scan_inputs(2, t1 + t2, w, seed=seed)
+    a, b, h0 = (torch.from_numpy(x).to(device) for x in args)
+    part = lambda x, sl: x[:, sl].contiguous()
+    y1, h1 = ops.rglru(part(a, slice(0, t1)), part(b, slice(0, t1)), h0)
+    y2, h2 = ops.rglru(part(a, slice(t1, None)), part(b, slice(t1, None)),
+                       h1)
+    return (torch.cat([y1, y2], 1), h2), args
+
+
+@pytest.mark.parametrize("t1,t2,w", [(LCH, LCH + 1, 64), (9, 1, 65)])
+def test_chained_rglru_matches_one_call(t1, t2, w, jax_ref):
+    """The plain path (CPU tensors), resumed from its last state, against
+    the JAX oracle over all T + T' steps in one call."""
+    (y, h), args = chained_rglru("cpu", t1, t2, w, seed=t1 * w)
+    jy, jhf = jref.rglru(*(jnp.asarray(a) for a in args))
+    close(y, jy, *SCAN_TOL)
+    close(h, jhf, *SCAN_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_chunk_matches_launcher(cuda):
+    assert _rg.kernel_chunk() == _rg.CHUNK
+
+
+@pytest.mark.cuda
+def test_kernel_misaligned_base_takes_cp_async_on_card(cuda):
+    """W = 4096 but a and b 4 bytes past a 16-byte boundary: no tensor map
+    can describe them, so the same call loads by cp.async."""
+    a, b, h0 = (torch.from_numpy(x).to(cuda)
+                for x in scan_inputs(2, LCH + 1, 4096, seed=5))
+    buf = torch.empty(2 * a.numel() + 1, device=cuda)
+    a_off = buf[1:1 + a.numel()].view_as(a)
+    b_off = buf[1 + a.numel():].view_as(b)
+    a_off.copy_(a)
+    b_off.copy_(b)
+    assert _rg.load_path(a_off, b_off) == "cp.async"
+    y, hf = ops.rglru(a_off, b_off, h0)
+    torch.cuda.synchronize()
+    ry, rhf = ref.rglru(a, b, h0)
+    close(y.cpu(), ry.cpu(), *SCAN_TOL)
+    close(hf.cpu(), rhf.cpu(), *SCAN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t1,t2,w", [(LCH, LCH + 1, 4096), (9, 1, 65),
+                                     (1024, 9, 4099)])
+def test_kernel_chained_rglru_matches_one_call_on_card(t1, t2, w, cuda):
+    (y, h), args = chained_rglru(cuda, t1, t2, w, seed=t1 * w)
+    yw, hw = ops.rglru(*(torch.from_numpy(a).to(cuda) for a in args))
+    torch.cuda.synchronize()
+    close(y.cpu(), yw.cpu(), *SCAN_TOL)
+    close(h.cpu(), hw.cpu(), *SCAN_TOL)

@@ -28,6 +28,7 @@ from torch_parity import (TOL, assert_trees_close, close, model_pair,
 
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import rwkv6_scan as _wk
 from repro_torch.models import api
 from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models.common import tree_map, tree_paths
@@ -260,10 +261,19 @@ def test_block_eps_swaps_are_caught(swap, rwkv, monkeypatch):
 # -- (g) the CUDA kernel on the card -----------------------------------------
 
 
+# the chunked kernel's chunk boundaries and the decode kernel's threshold,
+# each side (T <= DECODE_MAX_T runs the decode kernel)
+CH, DMAX = _wk.CHUNK, _wk.DECODE_MAX_T
+BOUNDARY_TS = sorted({1, 2, DMAX, DMAX + 1, CH - 1, CH, CH + 1, 2 * CH + 3})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hs", [16, 32, 64])
-@pytest.mark.parametrize("t", [1, 5, 31, 32, 33, 100])
+@pytest.mark.parametrize("t", sorted({5, 31, 32, 33, 100, *BOUNDARY_TS}))
 def test_kernel_matches_plain_on_card(hs, t, cuda):
+    """B*H = 6 (no multiple of 4), s0 != 0, ragged T and both sides of the
+    chunk length and of the decode kernel's threshold, one launch per
+    call."""
     args = [torch.from_numpy(a).to(cuda)
             for a in scan_inputs(2, t, 3, hs, seed=hs + t)]
     before = ops.wkv6.launches
@@ -304,3 +314,70 @@ def test_kernel_rejects_what_it_cannot_run(cuda):
     args[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         ops.wkv6(*args)
+
+
+def chained(device, t, seed):
+    """wkv6 over T, then over one more step from its final state: (y,
+    s_final) over the T + 1 steps, and the numpy inputs of all of them."""
+    args = scan_inputs(2, t + 1, 3, 64, seed=seed)
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(device) for a in args)
+    part = lambda x, sl: x[:, sl].contiguous()
+    y1, s1 = ops.wkv6(*(part(x, slice(0, t)) for x in (r, k, v, w)), u, s0)
+    y2, s2 = ops.wkv6(*(part(x, slice(t, None)) for x in (r, k, v, w)), u,
+                      s1)
+    return (torch.cat([y1, y2], 1), s2), args
+
+
+@pytest.mark.parametrize("t", [DMAX, CH, 2 * CH + 3])
+def test_chained_scan_matches_one_call(t, jax_ref):
+    """The plain path (CPU tensors), resumed from its final state for one
+    step, against the JAX oracle over all T + 1 steps in one call."""
+    (y, s), args = chained("cpu", t, seed=t)
+    jy, jsf = jref.wkv6(*(jnp.asarray(a) for a in args))
+    close(y, jy, 2e-3, 2e-3)
+    close(s, jsf, 2e-3, 2e-3)
+
+
+@pytest.mark.cuda
+def test_kernel_constants_match_launcher(cuda):
+    assert _wk.kernel_constants() == (_wk.CHUNK, _wk.DECODE_MAX_T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [DMAX, CH, 2 * CH + 3])
+def test_kernel_chained_scan_matches_one_call_on_card(t, cuda):
+    """T steps, then T = 1 from their final state (the decode kernel),
+    against T + 1 steps in one call."""
+    (y, s), args = chained(cuda, t, seed=t)
+    yw, sw = ops.wkv6(*(torch.from_numpy(a).to(cuda) for a in args))
+    torch.cuda.synchronize()
+    close(y.cpu(), yw.cpu(), 2e-3, 2e-3)
+    close(s.cpu(), sw.cpu(), 2e-3, 2e-3)
+
+
+@pytest.mark.cuda
+def test_kernel_extreme_decays_at_the_decode_shape_on_card(cuda):
+    """rwkv6-7b's decode step (B=2, T=1, H=64, hs=64) with half the
+    channels decaying at 1e-6 and half at 1 - 1e-6, s0 != 0, at 5e-3."""
+    r, k, v, w, u, s0 = scan_inputs(2, 1, 64, 64, seed=21)
+    w = np.where(np.arange(64) % 2 == 0, 1e-6, 1 - 1e-6).astype(
+        np.float32) * np.ones_like(w)
+    args = [torch.from_numpy(a).to(cuda) for a in (r, k, v, w, u, s0)]
+    y, sf = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    ry, rsf = ref.wkv6(*args)
+    close(y.cpu(), ry.cpu(), 5e-3, 5e-3)
+    close(sf.cpu(), rsf.cpu(), 5e-3, 5e-3)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_a_misaligned_base_on_card(cuda):
+    """The tensor maps need 16-byte-aligned bases: a contiguous view 4
+    bytes past one is refused, never sent to the plain version."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in scan_inputs(1, 8, 2, 16, seed=4)]
+    buf = torch.empty(args[0].numel() + 1, device=cuda)
+    r_off = buf[1:].view_as(args[0])
+    r_off.copy_(args[0])
+    with pytest.raises(ValueError, match="aligned"):
+        ops.wkv6(r_off, *args[1:])
