@@ -36,21 +36,38 @@ non-zero (no phase's failure is caught):
    token count, that every prefill went through the kernel (launch
    counter), that served first tokens replay from the kernel-path
    logits, and that those logits match the plain-attention path;
+4b. serve the same requests over a ring of peers: a one-peer NCCL group
+   (``HashStore``), one ``Ring`` of 4 channel communicators, shared by
+   phases 4b-6. ``hadronio`` through the sliced serving wire
+   (``pipeline.emit_flat``: the prefill's gathering write and the decode
+   logit reduction carved into 4 MiB ring slices, each an NCCL
+   collective on its loop's own channel), 2 threaded loops, busy polling,
+   first ``aggregate=slice, flush=step``, then ``channel, ready``.
+   Checks that the tokens equal phase 4's exactly, that every decode
+   step issued ``logit_payload_slices`` all-reduces (counted by wrapping
+   the ``torch.distributed`` functions here) and that every prefill ran
+   the flash kernel per layer; times prefill (B=2, S=1024) and decode
+   (B=2), wall and device (profiler), for ``gspmd`` (the pure local
+   path), ``sockets``, ``vma`` and ``hadronio`` at 4 MiB and 256 KiB
+   slices;
 5. train qwen2-0.5b at full width (random weights from seed 0) through
    ``launch.train.Trainer`` -> ``steps.make_train_step`` ->
    ``tac.sync_grads`` -> ``HadronioBackend.sync`` ->
    ``pipeline.reduce_slices`` (ring-pack kernel -> one NCCL all-reduce
    per slice through 4 channel communicators -> unpack kernel) ->
-   AdamW, on a one-peer NCCL group: synthetic data from seed 0,
+   AdamW, on the one-peer NCCL group: synthetic data from seed 0,
    ``seq_len`` 1024, ``global_batch`` 4, 5 steps, ``hadronio`` with
    ``compress=bf16``, ``pack=pallas``, ``aggregate=slice``,
    ``flush=step``. Checks finite and falling loss, one pack and one
    unpack launch per step and no flash launch; then syncs one real
    full-width gradient with ``pack=pallas`` and ``pack=jnp``, as it is
    (bf16, exact on the wire, zero EF) and in f32 with a nonzero EF,
-   and checks each pair bitwise equal; times steps 2-5 for
-   ``hadronio/bf16/pallas``, ``hadronio/bf16/jnp`` and ``gspmd`` from
-   one start state; profiles one hadronio step; reports peak memory;
+   and checks each pair bitwise equal; trains ``vma/bf16/pallas`` (one
+   all-reduce of the packed bf16 wire a step) and checks one pack and one
+   unpack launch per step; times steps 2-5 for ``hadronio/bf16/pallas``,
+   ``hadronio/bf16/jnp``, ``vma/bf16/pallas``, ``sockets`` (one
+   all-reduce per gradient tensor) and ``gspmd`` from one start state;
+   profiles one step of each; reports peak memory;
 6. serve rwkv6-7b (WKV6 kernel) and recurrentgemma-9b (RG-LRU kernel,
    flash at head_dim 256) at full width, bf16, random weights from the
    card's generator, through the same path: 8 requests in four pairs of
@@ -69,9 +86,10 @@ non-zero (no phase's failure is caught):
    twice the bf16 plain path, plus 5e-3, and that its prefill trace names
    the tensor-core flash kernel; and that at f32, full width and 4
    layers, the kernel path's prefill logits are within 1e-4 relative L2
-   of the plain path's.
-   Reports prefill (B=2, S=1024) and decode (B=2) times, host and device,
-   and peak memory;
+   of the plain path's. Then serves the longest pair again through
+   ``hadronio`` over the ring and checks the same tokens and launch
+   counts. Reports prefill (B=2, S=1024) and decode (B=2) times, host
+   and device, and peak memory;
 7. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
@@ -325,12 +343,13 @@ def rglru_inputs(gen, b, t, w):
     return torch.sigmoid(n(b, t, w)) * 0.95, n(b, t, w), n(b, w)
 
 
-def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
+def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain, ring):
     """Phase 6 for one model: serve ``arch`` at full width through the
-    event-loop group on the card; ``expect`` maps a wrapper to its
+    event-loop group on the card, then its longest pair again through
+    the hadronio wire over ``ring``; ``expect`` maps a wrapper to its
     launches per prefill call and per decode step; ``plain`` is the
     prefill keywords of the plain path. Returns the launches by
-    wrapper."""
+    wrapper, both runs together."""
     from repro_torch.configs.base import CommConfig, ServeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
@@ -381,10 +400,41 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
         [len(r.tokens) for r in results]
     assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
     assert prefills == 4 and sum(e.admit_prefills for e in engines) == 0
-    want = {w.__name__: 0 for w in wrappers}
-    for name, (per_prefill, per_decode) in expect.items():
-        want[name] = per_prefill * prefills + per_decode * decodes
-    assert got == want, (got, want)
+    def expected(prefills, decodes):
+        want = {w.__name__: 0 for w in wrappers}
+        for name, (per_prefill, per_decode) in expect.items():
+            want[name] = per_prefill * prefills + per_decode * decodes
+        return want
+    assert got == expected(prefills, decodes), (got, expected(prefills,
+                                                              decodes))
+
+    # the longest pair (uids 0 and 2, one B=2 wave on loop 0 above)
+    # through the sliced hadronio wire over the ring: the same tokens,
+    # every scan and attention still through its kernel
+    wired = make_engine_group(cfg, params, ServeConfig(
+        event_loops=1, poll="busy", max_batch=2, max_len=max_len,
+        comm=CommConfig(mode="hadronio", channels=4)), seed=0, device=dev,
+        ring=ring)
+    for wrapper in wrappers:
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    wired.submit([reqs[0], reqs[2]])
+    wired_res = sorted(wired.run(threads=False), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    dt_w = time.perf_counter() - t0
+    got_w = {w.__name__: w.launches for w in wrappers}
+    eng = wired.loops[0].engine
+    print(f"[serve-ring] {cfg.name} hadronio over a ring of "
+          f"{ring.world_size}: uids 0, 2 (prompts {order[0]}) in "
+          f"{dt_w:.3f}s, prefill calls {eng.prefills}, decode steps "
+          f"{eng.decode_steps}, launches {got_w} | {smi}")
+    assert [r.tokens.tolist() for r in wired_res] == \
+        [results[0].tokens.tolist(), results[2].tokens.tolist()], \
+        "hadronio-served tokens differ from gspmd's"
+    assert eng.prefills == 1 and got_w == expected(1, eng.decode_steps), \
+        (got_w, expected(1, eng.decode_steps))
+    got = {name: n + got_w[name] for name, n in got.items()}
+    del wired, eng
 
     # device time of the serve step at B=2, S=1024, and of a decode
     # step at B=2 against that prefill's state
@@ -484,6 +534,145 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain):
     return got
 
 
+class CollectiveCount:
+    """Counts the ``torch.distributed`` collectives the serving wire
+    issues (``all_reduce``, ``all_gather_into_tensor``), by wrapping the
+    module's functions, which the port calls through the module at call
+    time. Thread-safe: the threaded event loops count together."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor")
+
+    def __init__(self):
+        import threading
+        import torch.distributed as dist
+        self.lock = threading.Lock()
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self.saved = {name: getattr(dist, name) for name in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(dist, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kwargs):
+            with self.lock:
+                self.counts[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def reset(self) -> None:
+        with self.lock:
+            self.counts = dict.fromkeys(self.NAMES, 0)
+
+    def restore(self) -> None:
+        import torch.distributed as dist
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+
+def serve_over_ring(smi, cfg, params, reqs, want_tokens, ring, big, cache,
+                    dec):
+    """Phase 4b: serve phase 4's requests through the sliced hadronio
+    wire over ``ring`` (2 threaded loops, each on its own 2 channel
+    communicators), under two schedules; the tokens must be phase 4's
+    (``want_tokens``, by uid), every decode step must issue
+    ``logit_payload_slices`` all-reduces per loop's channel budget, and
+    every prefill must launch the flash kernel once per layer. Then time
+    prefill (``big``) and decode (``cache``, ``dec``) of every mode at two
+    slice sizes, wall and device. Returns the flash launches of the
+    served runs."""
+    from repro_torch.configs.base import CommConfig, ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving import dispatch, make_engine_group
+    dev = big["tokens"].device
+    count = CollectiveCount()
+    flash = 0
+    try:
+        for aggregate, flush in (("slice", "step"), ("channel", "ready")):
+            serve = ServeConfig(event_loops=2, poll="busy", max_batch=2,
+                                max_len=2048, comm=CommConfig(
+                                    mode="hadronio", channels=4,
+                                    aggregate=aggregate, flush=flush))
+            group = make_engine_group(cfg, params, serve, seed=0,
+                                      device=dev, ring=ring)
+            ops.flash_attention.launches = 0
+            count.reset()
+            t0 = time.perf_counter()
+            group.submit(reqs)
+            results = sorted(group.run(threads=True), key=lambda r: r.uid)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = ops.flash_attention.launches
+            counts = dict(count.counts)
+            flash += launches
+            engines = [l.engine for l in group.loops]
+            prefills = sum(e.prefills for e in engines)
+            decodes = sum(e.decode_steps for e in engines)
+            n_slices = dispatch.logit_payload_slices(cfg, serve.max_batch,
+                                                     serve.comm)
+            per_step = n_slices if aggregate == "slice" else min(
+                len(group.loops[0].channels), n_slices)
+            n_tok = sum(len(r.tokens) for r in results)
+            print(f"[serve-ring] hadronio {aggregate}/{flush} over a ring "
+                  f"of {ring.world_size} (4 channels, 2 loops): "
+                  f"{n_tok} tokens in {dt:.3f}s = {n_tok / dt:.1f} tok/s | "
+                  f"prefill calls {prefills}, decode steps {decodes}, "
+                  f"collectives {counts} ({counts['all_reduce'] / decodes:g}"
+                  f" all-reduces per decode step, logit_payload_slices "
+                  f"{n_slices}), flash launches {launches} | {smi}")
+            assert [tuple(r.tokens.tolist()) for r in results] == \
+                want_tokens, "hadronio-served tokens differ from gspmd's"
+            assert counts["all_reduce"] == per_step * decodes, \
+                (counts, per_step, decodes)
+            assert counts["all_gather_into_tensor"] >= prefills, counts
+            assert launches == cfg.num_layers * prefills, \
+                (launches, prefills)
+            del group
+
+        # prefill B=2 S=1024 and decode B=2 of every mode: wall time on
+        # the host clock, and device time from the profiler. A step of
+        # ~2,000 launches cannot be timed queued behind a device spin:
+        # the launch queue fills and blocks the host before the spin ends.
+        # gspmd at ring size 1 with no affinity is the pure local path
+        # (no wire at all)
+        for slice_bytes in (4 * 1024 * 1024, 256 * 1024):
+            for mode in ("gspmd", "sockets", "vma", "hadronio"):
+                comm = CommConfig(mode=mode, channels=4,
+                                  slice_bytes=slice_bytes)
+                step = dispatch.make_serve_step(cfg, comm, ring=ring)
+                parts = []
+                for what, fn in (
+                        ("prefill B=2 S=1024",
+                         lambda: step.prefill(params, big)),
+                        ("decode step B=2",
+                         lambda: step.decode(params, cache, dec))):
+                    count.reset()
+                    fn()
+                    torch.cuda.synchronize()
+                    calls = sum(count.counts.values())
+                    wall = time_ms(fn, iters=3, warmup=1)
+                    busy, n_k, ranked, by_name = profile_device(fn, top=8)
+                    if busy is None:
+                        parts.append(f"{what} {wall:.3f} ms wall, device "
+                                     f"not measured ({calls} collectives)")
+                        continue
+                    nccl = sum(ms for name, ms in by_name.items()
+                               if "nccl" in name.lower())
+                    parts.append(f"{what} {wall:.3f} ms wall, {busy:.3f} ms "
+                                 f"device ({n_k} kernels, nccl {nccl:.3f} "
+                                 f"ms, {calls} collectives)")
+                    if mode == "hadronio" and what.startswith("prefill") \
+                            and slice_bytes == 4 * 1024 * 1024:
+                        print("[profile] hadronio prefill (4 MiB slices) "
+                              "top: " + "; ".join(
+                                  f"{name[:60]} {ms:.3f}"
+                                  for name, ms in ranked))
+                print(f"[serve-ring-time] {mode} slice_bytes "
+                      f"{slice_bytes >> 10} KiB: " + " | ".join(parts)
+                      + f" | {smi}")
+    finally:
+        count.restore()
+    return flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -495,6 +684,8 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.core import aggregation as agg
     from repro_torch.core import tac
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.channels import Ring
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import rglru as _rg
     from repro_torch.kernels import rwkv6_scan as _wk
@@ -1054,12 +1245,20 @@ def main() -> int:
         raise AssertionError("prefill logits: kernel path disagrees with "
                              "the plain attention path")
 
+    # -- 4b. serve qwen2-0.5b over a ring (one peer, NCCL) -------------------
+    # one group for phases 4b-6: the serve ring here, the Trainers' rings
+    # in phase 5 and the recurrent families' hadronio runs in phase 6
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    ring = Ring(channels=4)
+    ring_flash = serve_over_ring(
+        smi, cfg, params, reqs, [tuple(r.tokens.tolist()) for r in results],
+        ring, big, cache, dec)
+
     # -- 5. train qwen2-0.5b at full width ---------------------------------
     from repro_torch.models.common import tree_paths
     del group, solo, step, cache, params, lk, lp, l32, lk32
     torch.cuda.empty_cache()
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
     shape = ShapeConfig("smoke", "train", seq_len=1024, global_batch=4)
 
     def train_run(mode, **comm):
@@ -1134,20 +1333,41 @@ def main() -> int:
         synced["pallas"].ef.abs().max()) > 0, "the f32 sync carried no EF"
     del synced, grads, g32, ef32
 
-    # step time of the three exchanges from one start state, in turns
-    # (a b c c b a): host times drift on a machine whose CPU is shared
+    # the libvma analogue trains through the same kernels on a second
+    # path: one pack and one unpack a step around ONE all-reduce
     trainer.log_every = 10
+    vma = Trainer(train_run("vma", compress="bf16", pack="pallas"),
+                  device=dev, log_every=10)
+    for wrapper in (ops.pack_slices, ops.unpack_slices):
+        wrapper.launches = 0
+    o = vma.run_loop(start)
+    torch.cuda.synchronize()
+    vma_launches = {w.__name__: w.launches for w in (ops.pack_slices,
+                                                     ops.unpack_slices)}
+    print(f"[train] {cfg.name} vma/bf16/pallas: losses "
+          f"{[round(x, 4) for x in o['losses']]}, launches {vma_launches}")
+    assert all(np.isfinite(o["losses"])) and o["losses"][-1] < o["losses"][0]
+    assert vma_launches == {"pack_slices": 5, "unpack_slices": 5}, \
+        vma_launches
+    del o
+
+    # step time of the five exchanges from one start state, in turns
+    # (a b c d e e d c b a): host times drift on a machine whose CPU is
+    # shared
     runs = {"hadronio/bf16/pallas": trainer,
             "hadronio/bf16/jnp": Trainer(train_run(
                 "hadronio", compress="bf16", pack="jnp"), device=dev,
                 log_every=10),
+            "vma/bf16/pallas": vma,
+            "sockets": Trainer(train_run("sockets"), device=dev,
+                               log_every=10),
             "gspmd (no exchange)": Trainer(train_run("gspmd"), device=dev,
                                            log_every=10)}
     samples = {label: [] for label in runs}
     for label in list(runs) + list(runs)[::-1]:
         t = runs[label]
-        o = t.run_loop(start if t.run.comm.mode == "hadronio"
-                       else start._replace(ef=None))
+        ef = get_backend(t.run.comm.mode).needs_ef(t.run.comm)
+        o = t.run_loop(start if ef else start._replace(ef=None))
         samples[label].append([x * 1e3 for x in o["step_s"][1:]])
         print(f"[train] {label}: losses {[round(x, 4) for x in o['losses']]}"
               f", step ms {[round(x * 1e3, 2) for x in o['step_s']]}")
@@ -1177,21 +1397,22 @@ def main() -> int:
               f" ms, unpack {part(lambda k: '::unpack_kernel' in k):.3f} "
               f"ms, nccl {part(lambda k: 'nccl' in k.lower()):.3f} ms; top: "
               + "; ".join(f"{name[:100]} {ms:.3f}" for name, ms in ranked))
-    del runs, t
+    del runs, t, vma
     del state, out, start, trainer
-    dist.destroy_process_group()
 
     # -- 6. serve rwkv6-7b and recurrentgemma-9b at full width ---------------
     rwkv_launches = serve_recurrent(
         gen, smi, "rwkv6-7b", (1024, 640, 384, 128), 2048,
-        {"wkv6": (32, 32)}, {"scan": ref.wkv6})
+        {"wkv6": (32, 32)}, {"scan": ref.wkv6}, ring)
     rg_cfg = get_config("recurrentgemma-9b")
     rg_lens = (2040, 1024, 384, 128)
     assert rg_lens[0] + 15 > rg_cfg.local_window   # decode wraps the window
     rg_launches = serve_recurrent(
         gen, smi, "recurrentgemma-9b", rg_lens, 4096,
         {"rglru": (26, 0), "flash_attention": (12, 0)},
-        {"scan": ref.rglru, "attend": ref.flash_attention})
+        {"scan": ref.rglru, "attend": ref.flash_attention}, ring)
+    del ring
+    dist.destroy_process_group()
 
     # -- 7. result lines ------------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
@@ -1199,21 +1420,22 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
-         "launches": launches + rg_launches["flash_attention"],
+         "launches": launches + ring_flash + rg_launches["flash_attention"],
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
          "library_ms": fa64["library_ms"]},
         {"name": "pack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:61",
-         "launches": train_launches["pack_slices"], "max_abs_err": pack_err,
+         "launches": train_launches["pack_slices"]
+         + vma_launches["pack_slices"], "max_abs_err": pack_err,
          "ms": rp["pack_ef"]["ms"], "plain_ms": rp["pack_ef"]["plain_ms"],
          "bound_ms": rp["pack_ef"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
         {"name": "unpack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:100",
-         "launches": train_launches["unpack_slices"],
-         "max_abs_err": unpack_err,
+         "launches": train_launches["unpack_slices"]
+         + vma_launches["unpack_slices"], "max_abs_err": unpack_err,
          "ms": rp["unpack"]["ms"], "plain_ms": rp["unpack"]["plain_ms"],
          "bound_ms": rp["unpack"]["bound_ms"], "bound_by": "bytes",
          "library_ms": rp["unpack"]["library_ms"]},

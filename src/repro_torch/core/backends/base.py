@@ -124,14 +124,18 @@ class CommBackend(abc.ABC):
                    kind: str) -> torch.Tensor:
         """Emit ONE flat f32 serving payload (a tensor-parallel partial
         logit sum, or the coalesced prefill gathering write) through this
-        strategy's wire. ``kind`` is one of ``SERVE_KINDS``: all_reduce
-        (sum over the ring) or all_gather (peer-major concatenation).
-        The reference's default is the sliced ``pipeline.emit_flat``,
-        which is not ported yet."""
-        raise NotImplementedError(
-            f"comm mode {self.name!r} has no serving wire in repro_torch "
-            "yet: the sliced serving emission (pipeline.emit_flat) comes "
-            "with 'Serving at ring size > 1' (ROADMAP.md Queue 1 item 3)")
+        strategy's wire — the inference side of the transparency
+        boundary: ``serving/dispatch.py`` never branches on mode names.
+        ``kind`` is one of ``SERVE_KINDS``: all_reduce (sum over the
+        ring) or all_gather (peer-major concatenation, ring size times
+        the payload). Default: the sliced emission the hadronio family
+        shares (``pipeline.emit_flat``: ring-buffer slices through the
+        channel schedule at the configured aggregate/flush, on the
+        context's ``channel_indices``). Every strategy returns the same
+        values; only the emission differs."""
+        from repro_torch.core.backends import pipeline
+        group = ctx.world_size if kind == "all_gather" else 1
+        return pipeline.emit_flat(flat, ctx, kind, group=group)
 
 
 _REGISTRY: dict[str, CommBackend] = {}

@@ -5,30 +5,19 @@ called), which makes it the yardstick for what the hadronio exchange
 costs per step on the card. A ring of more than one peer needs FSDP2 /
 DTensor (ROADMAP.md Queue 1 item 8); ``launch/steps`` raises for it.
 
-Serving: one whole-payload collective per emission, no ring-buffer
-slicing, no channel pool (``pipeline.raw_emit`` in the reference). At
-ring size 1 every serving kind returns the payload itself.
+Serving: one whole-payload collective per emission on the ring's
+group, no ring-buffer slicing, no channel pool (``pipeline.raw_emit``).
+At ring size 1 with no channel affinity the serve step runs the pure
+local path and emits nothing (``serving/dispatch``), as in the
+reference.
 
 Counterpart of ``repro/core/backends/gspmd.py``.
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.core.backends.base import (SERVE_KINDS, CommBackend,
-                                            SyncContext, SyncResult,
-                                            register)
-
-
-def raw_emit(flat: torch.Tensor, ctx: SyncContext, kind: str) -> torch.Tensor:
-    """The unsliced serving emission (``pipeline.raw_emit``)."""
-    if kind not in SERVE_KINDS:
-        raise ValueError(f"unknown serving kind {kind!r}")
-    if ctx.world_size != 1:
-        raise NotImplementedError(
-            f"serving over a ring of {ctx.world_size} peers is not ported "
-            "yet (ROADMAP.md Queue 1 item 3: 'Serving at ring size > 1')")
-    return flat
+from repro_torch.core.backends import pipeline
+from repro_torch.core.backends.base import (CommBackend, SyncContext,
+                                            SyncResult, register)
 
 
 @register("gspmd")
@@ -54,4 +43,4 @@ class GspmdBackend(CommBackend):
                 "stage; use a TAC mode")
 
     def serve_emit(self, flat, ctx, kind):
-        return raw_emit(flat, ctx, kind)
+        return pipeline.raw_emit(flat, ctx, kind)

@@ -36,17 +36,24 @@ module owns the wire stages:
 * :func:`reduce_slices` — pack stage + per-slice all-reduce + unpack
   stage over the channel schedule.
 
+* :func:`emit_flat` — the serving wire: one flat f32 payload (the
+  decode step's partial logits, the prefill's gathering write) carved
+  into ring-buffer slices and staged through the same emission, kind
+  ``all_reduce`` or ``all_gather``; :func:`raw_emit` — the unsliced
+  serving emission of ``gspmd``, ``sockets`` and ``vma``: one collective
+  for the whole payload on the ring's own group.
+
 All-reduces run IN PLACE: when :func:`finish_emission` returns, every
 staged buffer holds its sum over the ring (a channel flush copies its
 coalesced sum back), so :func:`reduce_slices` unpacks the wire buffer
-itself instead of stacking per-item results.
+itself instead of stacking per-item results. A gather writes a fresh
+buffer per flush, carved back per item when its work completes.
 
 Not ported yet, each with the ROADMAP.md item that brings it: the
 two-level leader emission and the pod-aware channels (Queue 1 item 8),
-``scatter_slices`` for the ZeRO-1 modes (Queue 1 item 4), the serving
-emission ``emit_flat``/``raw_emit`` at ring size > 1 (Queue 1 item 3),
-and the chaos seams (flush fault, alloc hook) and obs spans (Queue 1
-item 6).
+``scatter_slices`` for the ZeRO-1 modes (Queue 1 item 4), the
+``all_to_all`` kind of moe (Queue 1 item 5), and the chaos seams (flush
+fault, alloc hook) and obs spans (Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -54,15 +61,15 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import CommConfig
 from repro_torch.core import compress as comp
-from repro_torch.core.backends.base import SyncContext
+from repro_torch.core.backends.base import SERVE_KINDS, SyncContext
 from repro_torch.core.channels import ChannelFill, CommChannel, make_channels
 from repro_torch.core.flush_scheduler import FlushPlan, make_flush_plan
+from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.kernels import ops, ref
-
-_KINDS = ("all_reduce",)
 
 
 def channels_for(ctx: SyncContext, n_slices: int) -> list[CommChannel]:
@@ -70,8 +77,9 @@ def channels_for(ctx: SyncContext, n_slices: int) -> list[CommChannel]:
     exactly the context's ``channel_indices`` (an owner's disjoint run of
     the pool), over the ring's channel communicators."""
     if ctx.ring is None:
-        raise ValueError("a gradient emission needs the ring's process "
-                         "group: SyncContext.ring is None")
+        raise ValueError("a sliced emission needs the ring's process "
+                         "group and channel communicators: "
+                         "SyncContext.ring is None")
     if ctx.channel_indices:
         idx = tuple(ctx.channel_indices)[:max(1, n_slices)]
     else:
@@ -114,12 +122,17 @@ def unpack_wire(wire: torch.Tensor, comm: CommConfig) -> torch.Tensor:
 class EmitState:
     """In-flight state of one staged emission (built by
     :func:`begin_emission`, driven by :func:`stage_slices` /
-    :func:`flush_ready`, closed by :func:`finish_emission`)."""
+    :func:`flush_ready`, closed by :func:`finish_emission`). ``group`` is
+    the ring size of an ``all_gather`` (its results are ``group`` times
+    the item), 1 otherwise."""
     ctx: SyncContext
+    kind: str
+    group: int
     plan: FlushPlan
     chans: list                   # CommChannel pool
     fills: list                   # per-channel ChannelFill watermark
     staged: dict                  # item id -> wire buffer
+    outs: list                    # item id -> result (valid after finish)
     # issued collectives, in issue order: (work, completion or None)
     pending: list = field(default_factory=list)
 
@@ -137,36 +150,76 @@ def _carve_reduce(st: EmitState, c: int, red: torch.Tensor) -> Callable:
     return carve
 
 
+def _carve_gather(st: EmitState, c: int, g: torch.Tensor) -> Callable:
+    """The completion of one channel's coalesced gather: the result is
+    peer-major over the whole coalesced buffer, ``(group, sum of the
+    items' sizes)``, so item i's gathered bytes are the same column range
+    of every peer's row."""
+    def carve():
+        rows = g.view(st.group, -1)
+        off = 0
+        for i in st.plan.groups[c]:
+            n = st.staged[i].numel()
+            st.outs[i] = rows[:, off:off + n].reshape(-1)
+            off += n
+    return carve
+
+
+def _issue(st: EmitState, c: int, buf: torch.Tensor,
+           items: list) -> None:
+    """Issue channel ``c``'s collective over ``buf``, which holds
+    ``items``' wire bytes in order (one item's own buffer, or their
+    coalesced copy), and record its completion."""
+    ch = st.chans[c]
+    if st.kind == "all_gather":
+        work, g = ch.all_gather(buf)
+        if len(items) == 1:
+            st.outs[items[0]] = g
+            st.pending.append((work, None))
+        else:
+            st.pending.append((work, _carve_gather(st, c, g)))
+        return
+    work = ch.all_reduce(buf)
+    if len(items) == 1:
+        st.outs[items[0]] = buf
+        st.pending.append((work, None))
+    else:
+        for i in items:
+            st.outs[i] = st.staged[i]
+        st.pending.append((work, _carve_reduce(st, c, buf)))
+
+
 def _flush_channel(st: EmitState, c: int) -> None:
     """One coalesced wire flush: the channel's staged items as a single
     contiguous buffer and ONE collective, carved back when it completes
-    (a single item is reduced where it lies)."""
-    idx = st.plan.groups[c]
-    if len(idx) == 1:
-        st.pending.append((st.chans[c].all_reduce(st.staged[idx[0]]), None))
-    else:
-        buf = torch.cat([st.staged[i].reshape(-1) for i in idx])
-        st.pending.append((st.chans[c].all_reduce(buf),
-                           _carve_reduce(st, c, buf)))
+    (a single item is emitted where it lies)."""
+    idx = list(st.plan.groups[c])
+    buf = st.staged[idx[0]] if len(idx) == 1 else \
+        torch.cat([st.staged[i].reshape(-1) for i in idx])
+    _issue(st, c, buf, idx)
     st.fills[c].flushed = True
 
 
 def begin_emission(ctx: SyncContext, n_items: int,
-                   kind: str = "all_reduce") -> EmitState:
+                   kind: str = "all_reduce", *,
+                   group: int = 1) -> EmitState:
     """Open one staged emission of ``n_items`` wire buffers through the
     connection pool. The item->channel schedule is ``comm.flush``
     (``core/flush_scheduler``): round-robin with an end-of-exchange flush
     loop under ``"step"``, contiguous production-order groups flushed the
-    moment they fill under ``"ready"``."""
-    if kind not in _KINDS:
+    moment they fill under ``"ready"``. ``group`` is the ring size for
+    ``kind="all_gather"``."""
+    if kind not in SERVE_KINDS:
         raise NotImplementedError(
-            f"emission kind {kind!r} is not ported yet: this slice ports "
-            f"{_KINDS} (ROADMAP.md Queue 1 items 3-4)")
+            f"emission kind {kind!r} is not ported yet: the port emits "
+            f"{SERVE_KINDS}; reduce_scatter comes with the ZeRO-1 modes "
+            "(ROADMAP.md Queue 1 item 4), all_to_all with moe (item 5)")
     chans = channels_for(ctx, n_items)
     plan = make_flush_plan(n_items, len(chans), ctx.comm.flush)
     fills = [ChannelFill(frozenset(g)) for g in plan.groups]
-    return EmitState(ctx=ctx, plan=plan, chans=chans, fills=fills,
-                     staged={})
+    return EmitState(ctx=ctx, kind=kind, group=group, plan=plan,
+                     chans=chans, fills=fills, staged={},
+                     outs=[None] * n_items)
 
 
 def stage_slices(st: EmitState, i: int, wire: torch.Tensor) -> list:
@@ -185,7 +238,7 @@ def stage_slices(st: EmitState, i: int, wire: torch.Tensor) -> list:
     c = st.plan.assign[i]
     st.fills[c].stage(i)
     if st.ctx.comm.aggregate == "slice":
-        st.pending.append((st.chans[c].all_reduce(wire), None))
+        _issue(st, c, wire, [i])
         if st.fills[c].ready:
             st.fills[c].flushed = True
         return [i]
@@ -211,7 +264,9 @@ def finish_emission(st: EmitState) -> list:
     flush loop (every channel flushed, in channel order); under
     ``"ready"`` everything already went out. Then wait for every issued
     collective in issue order and carve coalesced results back. Returns
-    the per-item results (the staged buffers, now reduced)."""
+    the per-item results: for ``all_reduce`` the staged buffers, now
+    reduced; for ``all_gather`` each item's ``(group * size,)``
+    peer-major gather."""
     if st.ctx.comm.aggregate == "channel":
         for c, fill in enumerate(st.fills):
             if not fill.flushed:
@@ -228,19 +283,86 @@ def finish_emission(st: EmitState) -> list:
         if done is not None:
             done()
     st.pending.clear()
-    return [st.staged[i] for i in range(st.plan.n_items)]
+    return st.outs
 
 
 def emit_through_channels(items: list, ctx: SyncContext,
-                          kind: str = "all_reduce") -> list:
+                          kind: str = "all_reduce", *,
+                          group: int = 1) -> list:
     """Issue the collective ``kind`` for every item through the
     connection pool at the flush granularity ``comm.aggregate`` and the
     schedule ``comm.flush``, and return the per-item results. All four
     granularity/schedule combinations return bit-identical values."""
-    st = begin_emission(ctx, len(items), kind)
+    st = begin_emission(ctx, len(items), kind, group=group)
     for i, x in enumerate(items):
         stage_slices(st, i, x)
     return finish_emission(st)
+
+
+def emit_flat(flat: torch.Tensor, ctx: SyncContext, kind: str, *,
+              group: int = 1) -> torch.Tensor:
+    """The serving wire path: carve ONE flat f32 payload (a partial logit
+    sum, a coalesced KV-cache write) into ring-buffer slices and emit
+    them through the staged channel schedule — the gradient path's
+    gathering write applied to inference traffic. ``kind`` is
+    ``"all_reduce"`` (returns the summed payload, ``flat``'s own shape)
+    or ``"all_gather"`` (``group`` = ring size; returns the peer-major
+    concatenation, ``(group * len,)``). The slice plan's zero padding is
+    trimmed from the result (per peer block for gathers), so callers see
+    exactly their payload. ``flat`` itself is never written: the in-place
+    all-reduce runs on a padded copy."""
+    if flat.dim() != 1:
+        raise ValueError(f"emit_flat takes a flat payload, got "
+                         f"{tuple(flat.shape)}")
+    n_elems = flat.numel()
+    itemsize = flat.element_size()
+    sp = plan_slices(n_elems * itemsize, ctx.comm)
+    elems = max(1, sp.slice_bytes // itemsize)
+    # the plan's slice count IS the emitted-collective count
+    # (dispatch.logit_payload_slices) — never recompute it
+    n = sp.n_slices
+    if n * elems < n_elems:
+        raise ValueError(
+            f"slice_bytes={ctx.comm.slice_bytes} is not a multiple of the "
+            f"{itemsize}-byte element: {n} slices hold {n * elems} of "
+            f"{n_elems} elements")
+    buf = flat.new_zeros(n * elems)
+    buf[:n_elems].copy_(flat)
+    outs = emit_through_channels(list(buf.view(n, elems).unbind(0)), ctx,
+                                 kind, group=group)
+    if kind == "all_gather":
+        g = outs[0].view(group, -1) if n == 1 else \
+            torch.cat([o.view(group, -1) for o in outs], dim=1)
+        return g[:, :n_elems].reshape(-1)
+    return buf[:n_elems]
+
+
+def raw_emit(flat: torch.Tensor, ctx: SyncContext,
+             kind: str) -> torch.Tensor:
+    """The unsliced serving emission (the ``gspmd``, ``sockets`` and
+    ``vma`` overrides of ``CommBackend.serve_emit``): ONE collective for
+    the whole payload on the ring's own group, no ring-buffer slicing,
+    no channel pool. The values equal :func:`emit_flat`'s (summing per
+    element and concatenating peer-major commute with slicing); only the
+    emission differs. With no ring (one peer, no process group) the
+    payload is its own result; given a ring, the collective is issued at
+    any ring size, 1 included. ``flat`` itself is never written."""
+    if kind not in SERVE_KINDS:
+        raise ValueError(f"unknown serving kind {kind!r}: expected one of "
+                         f"{SERVE_KINDS}")
+    if ctx.ring is None:
+        if ctx.world_size != 1:
+            raise ValueError(f"a ring of {ctx.world_size} peers needs its "
+                             "process group: SyncContext.ring is None")
+        return flat
+    group = ctx.ring.group
+    if kind == "all_reduce":
+        out = flat.clone()
+        dist.all_reduce(out, group=group)
+        return out
+    out = flat.new_empty(ctx.ring.world_size * flat.numel())
+    dist.all_gather_into_tensor(out, flat.contiguous(), group=group)
+    return out
 
 
 def reduce_slices(slices: torch.Tensor, ctx: SyncContext):

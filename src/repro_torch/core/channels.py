@@ -15,10 +15,13 @@ ring-buffer slices to channels round-robin (paper §IV-C) or, under
 ``comm.flush="ready"``, contiguously; :class:`ChannelFill` is the
 per-channel fill watermark that flush-when-ready polls.
 
-This slice ports the all-reduce wire. The other collective kinds come
-with the modes that use them (ROADMAP.md Queue 1 items 3-4); the
-pod-aware split collectives raise until the two-level topology is
-ported (Queue 1 item 8).
+A channel issues two kinds: ``all_reduce`` (the gradient exchange and
+the serving logit reduction, in place) and ``all_gather`` (the serving
+prefill's gathering write, peer-major like the reference's tiled
+gather). The rest come with the modes that use them: ``reduce_scatter``
+with the ZeRO-1 modes (ROADMAP.md Queue 1 item 4), ``all_to_all`` with
+moe (item 5), the pod-aware split collectives with the two-level
+topology (item 8).
 """
 from __future__ import annotations
 
@@ -59,6 +62,23 @@ class CommChannel:
         asynchronously on this channel's communicator; the caller waits
         on the returned work before reading ``x``."""
         return dist.all_reduce(x, group=self.group, async_op=True)
+
+    def all_gather(self, x: torch.Tensor):
+        """Concatenate every peer's flat ``x`` peer-major into a fresh
+        ``(world * n,)`` buffer: row ``p`` of ``out.view(world, n)`` is
+        peer ``p``'s ``x``. Issued asynchronously on this channel's
+        communicator; returns ``(work, out)``, and ``out`` is valid once
+        the work is waited on."""
+        x = x.reshape(-1)
+        out = x.new_empty(dist.get_world_size(self.group) * x.numel())
+        return dist.all_gather_into_tensor(out, x, group=self.group,
+                                           async_op=True), out
+
+    def all_to_all(self, x: torch.Tensor):
+        raise NotImplementedError(
+            f"channel {self.index}: all_to_all is the moe expert exchange, "
+            "which comes with moe (ROADMAP.md Queue 1 item 5, 'The other "
+            "model families')")
 
     def _pod_unported(self, what: str):
         return NotImplementedError(

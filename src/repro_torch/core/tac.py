@@ -5,8 +5,9 @@ boundary: every mode has the same signature, so the model and training
 loop never change when the comm stack is swapped. It is a thin façade
 over the backend registry (:mod:`repro_torch.core.backends`) with no
 per-mode branches. Ported modes: ``hadronio`` (pack -> ring-buffer
-slices -> one collective per slice through its channel); the others
-are ROADMAP.md Queue 1 item 4.
+slices -> one collective per slice through its channel), ``sockets``
+(one all-reduce per gradient tensor) and ``vma`` (one all-reduce of the
+whole packed gradient); the others are ROADMAP.md Queue 1 item 4.
 """
 from __future__ import annotations
 

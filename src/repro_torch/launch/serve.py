@@ -1,16 +1,34 @@
 """Serving launcher of the port: init params from a seed, run the
 event-loop serving subsystem (EventLoopGroup of decode engines over the
-CommBackend wire), print the reference CLI's summary lines.
+CommBackend wire and a ring of peers), print the reference CLI's
+summary lines.
 
 Counterpart of ``repro/launch/serve.py`` in its single-tenant,
 unsupervised form (tenants, the supervisor, pods, checkpoints and the
 telemetry flags come in later slices: ROADMAP.md). Runs on the card
 unless ``--device cpu`` is given.
 
+The ring is one process per peer. The CLI joins an existing
+``torch.distributed`` default group; without one it makes one: from the
+environment (``env://``) when ``WORLD_SIZE`` is set, as ``torchrun``
+sets it, else a group of one peer in-process (NCCL on the card, gloo on
+the CPU, a ``HashStore`` so that no port is opened), which it destroys
+at the end. Every peer serves the same requests; only rank 0 prints.
+Over a ring of more than one peer the event loops are drained inline,
+one after another: every peer must issue each loop's collectives in the
+same order, and threads sharing the ring's group would interleave them
+differently on each peer.
+
 CLI::
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8 \
-      --batch 2 --max-len 2048 --event-loops 2 --poll busy
+      --batch 2 --max-len 2048 --event-loops 2 --poll busy \
+      --comm-mode hadronio --aggregate channel --flush ready
+
+  # a ring of 2 peers on the CPU (gloo)
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch qwen2-0.5b-reduced --device cpu --comm-mode hadronio \
+      --requests 6 --max-new 4 --batch 2
 
   # CPU-sized smoke runs (any registry id, with -reduced)
   python -m repro_torch.launch.serve --arch qwen2-0.5b-reduced \
@@ -26,15 +44,18 @@ buckets of prompts, so requests of distinct lengths run one per wave.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.compat import resolve_device
 from repro_torch.configs.base import CommConfig, ServeConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.backends import available_modes
+from repro_torch.core.channels import Ring
 from repro_torch.models import api
 from repro_torch.serving import Request, make_engine_group
 
@@ -64,41 +85,71 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--event-loops", type=int, default=1,
                    help="EventLoopGroup size; each loop owns a disjoint "
-                        "run of the channel pool")
+                        "run of the channel pool. The loops run in threads "
+                        "on a ring of one peer and inline, one after "
+                        "another, on a ring of more (every peer must issue "
+                        "the collectives in the same order)")
     p.add_argument("--poll", default="busy", choices=ServeConfig.POLLS,
                    help="completion polling: busy spins, park blocks, "
                         "adaptive spins then parks (hadroNIO §IV-B)")
     p.add_argument("--comm-mode", default="gspmd", choices=available_modes(),
-                   help="CommBackend the serving collectives flow through")
+                   help="CommBackend the serving collectives (KV gathers, "
+                        "TP logit reductions) flow through")
     p.add_argument("--channels", type=int, default=4,
                    help="global CommChannel pool partitioned across loops")
+    p.add_argument("--aggregate", default="slice",
+                   choices=CommConfig.AGGREGATES,
+                   help="wire flush granularity of the sliced modes: one "
+                        "collective per slice, or one per channel")
+    p.add_argument("--flush", default="step", choices=CommConfig.FLUSHES,
+                   help="channel schedule: flush at the end of the "
+                        "emission, or each channel when it fills")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = api.init(gen, cfg, device=device)
     serve = ServeConfig(event_loops=args.event_loops, poll=args.poll,
                         max_batch=args.batch, max_len=args.max_len,
                         comm=CommConfig(mode=args.comm_mode,
-                                        channels=args.channels))
-    group = make_engine_group(cfg, params, serve, seed=args.seed,
-                              device=device)
-    reqs = make_requests(cfg, args.requests, max_new=args.max_new,
-                         temperature=args.temperature, seed=args.seed)
-    t0 = time.time()
-    group.submit(reqs)
-    results = sorted(group.run(threads=args.event_loops > 1),
-                     key=lambda r: r.uid)
-    dt = time.time() - t0
+                                        channels=args.channels,
+                                        aggregate=args.aggregate,
+                                        flush=args.flush))
+    own_group = not dist.is_initialized()
+    if own_group:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            if device.type == "cuda":     # one card per peer of the host
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+    try:
+        ring = Ring(channels=args.channels)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = api.init(gen, cfg, device=device)
+        group = make_engine_group(cfg, params, serve, seed=args.seed,
+                                  device=device, ring=ring)
+        reqs = make_requests(cfg, args.requests, max_new=args.max_new,
+                             temperature=args.temperature, seed=args.seed)
+        t0 = time.time()
+        group.submit(reqs)
+        threads = args.event_loops > 1 and ring.world_size == 1
+        results = sorted(group.run(threads=threads), key=lambda r: r.uid)
+        dt = time.time() - t0
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    if ring.rank != 0:
+        return 0
     tok = sum(len(r.tokens) for r in results)
     st = group.poll_stats()
     print(f"[serve] {len(results)} requests, {tok} tokens in {dt:.2f}s "
           f"({tok / dt:.1f} tok/s) | {serve.event_loops} event loop(s), "
           f"poll={serve.poll} (spins={st.spins} parks={st.parks}), "
-          f"comm={args.comm_mode}, device={device}")
+          f"comm={args.comm_mode}, ring={ring.world_size}, device={device}")
     for loop in group.loops:
         print(f"  loop {loop.index}: channels={loop.channels} "
               f"results={len(loop.results)}")

@@ -16,12 +16,20 @@ their collectives through ``CommBackend.serve_emit``:
   logits from its contiguous ``d_model`` shard and the partial sums are
   all-reduced through the wire.
 
-This slice runs one peer (``n_shards == 1``, no ``torch.distributed``
-group) and only the ``gspmd`` backend; the structure is the reference's,
-so a later slice widens the ring without restructuring. With no channel
-affinity on ``gspmd`` the step is the pure local path (nothing to
-wire), as in the reference. There is no jit and no step cache: PyTorch
-runs eagerly.
+The ring is a ``core/channels.Ring`` (the reference's mesh): one process
+per peer, its rank the peer's place. The hadronio family emits through
+the sliced ``pipeline.emit_flat`` over the ring's channel communicators
+(``comm.channels``, ``slice_bytes``, ``aggregate`` and ``flush`` all
+shape serving traffic, and an event loop's channel affinity bounds
+which channels it emits on); ``gspmd``, ``sockets`` and ``vma`` issue
+one whole-payload collective on the ring's group
+(``pipeline.raw_emit``). Every mode gives the same logits. With no
+ring the step serves one peer with no process group, which the pure
+local path and ``raw_emit`` accept and the sliced path refuses. With no
+channel affinity on ``gspmd`` at ring size 1 the step is the pure local
+path (nothing to wire), as in the reference. Serving payloads are
+activations, so wire compression is rejected. There is no jit and no
+step cache: PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ import torch
 
 from repro_torch.configs.base import CommConfig, ModelConfig
 from repro_torch.core.backends import SyncContext, get_backend
+from repro_torch.core.channels import Ring
+from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.models import api
 from repro_torch.models.common import tree_from_paths, tree_paths
 from repro_torch.serving import cache_layout
@@ -42,17 +52,36 @@ class ServeStep(NamedTuple):
     prefill: Callable             # (params, batch) -> (logits, cache)
     decode: Callable              # (params, cache, dec) -> (logits, cache)
     n_shards: int                 # ring size: batch rows padded to a multiple
+    comm: CommConfig
+    channel_indices: Optional[tuple]
+
+
+def validate_serve_comm(comm: CommConfig):
+    """Serving-path config validation; returns the backend."""
+    backend = get_backend(comm.mode)
+    if comm.compress != "none":
+        raise ValueError(
+            f"serving cannot honor compress={comm.compress!r}: the wire "
+            "carries activations (logit partial sums, KV gathers), not "
+            "gradients — there is no error-feedback state to make a lossy "
+            "codec unbiased; use compress='none'")
+    return backend
 
 
 def make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
+                    ring: Optional[Ring] = None,
                     channel_indices: Optional[tuple] = None) -> ServeStep:
-    """The serve step for one (model, comm, affinity) combination.
-    ``channel_indices`` is the emitting event loop's owned run of the
-    channel pool (None = the full pool)."""
-    backend = get_backend(comm.mode)
+    """The serve step for one (model, comm, ring, affinity) combination.
+    ``ring`` is the ring of peers (None = one peer with no process
+    group); ``channel_indices`` is the emitting event loop's owned run of
+    the channel pool (None = the full pool)."""
+    backend = validate_serve_comm(comm)
     cache_layout.layout_for(cfg.family)
     chans = tuple(channel_indices) if channel_indices is not None else None
-    ctx = SyncContext(comm, world_size=1, rank=0, channel_indices=chans)
+    one = ring is None
+    ctx = SyncContext(comm, world_size=1 if one else ring.world_size,
+                      rank=0 if one else ring.rank, channel_indices=chans,
+                      ring=ring)
     n_shards = ctx.world_size
     # the pure-local reference path: nothing to wire
     pure_local = n_shards == 1 and not chans and comm.mode == "gspmd"
@@ -115,4 +144,12 @@ def make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
         return api.decode_step(params, cache, dec, cfg,
                                logits_fn=None if pure_local else tp_head)
 
-    return ServeStep(prefill=prefill, decode=decode, n_shards=n_shards)
+    return ServeStep(prefill=prefill, decode=decode, n_shards=n_shards,
+                     comm=comm, channel_indices=chans)
+
+
+def logit_payload_slices(cfg: ModelConfig, batch: int,
+                         comm: CommConfig) -> int:
+    """How many ring-buffer slices one decode logit reduction carves into
+    (the collectives per decode step under ``aggregate="slice"``)."""
+    return plan_slices(batch * cfg.vocab_size * 4, comm).n_slices

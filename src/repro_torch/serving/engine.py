@@ -20,8 +20,10 @@ Counterpart of ``repro/serving/engine.py``.
 * Sampling: greedy, or temperature from the engine's own
   ``torch.Generator`` (no global RNG); stop on ``eos_id`` or ``max_new``.
 * Steps come from ``serving/dispatch.py`` when a ``ServeConfig`` is
-  given (collectives through the registered CommBackend, honouring the
-  owning loop's channel affinity), else straight from ``models/api``.
+  given (collectives through the registered CommBackend over ``ring``,
+  honouring the owning loop's channel affinity), else straight from
+  ``models/api``. Over a ring of peers every peer runs the same engine
+  on the same requests; batch rows are padded to the ring size.
   Completion waits go through the loop's
   :class:`~repro_torch.serving.event_loop.Poller`.
 
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.core.channels import Ring
 from repro_torch.models import api
 from repro_torch.serving import dispatch
 from repro_torch.serving.event_loop import (EventLoop, EventLoopGroup,
@@ -79,9 +82,10 @@ class _Slot:
 class DecodeEngine:
     """Synchronous batched engine around prefill/decode_step on
     ``device`` (the card unless "cpu"). ``params`` must already live
-    there. ``prefills`` counts prefill calls (one per wave + one per
-    admission round), ``admit_prefills`` the admission rounds alone and
-    ``decode_steps`` the decode calls."""
+    there. ``ring`` is the ring of peers the serve step emits over
+    (None = one peer, no process group). ``prefills`` counts prefill
+    calls (one per wave + one per admission round), ``admit_prefills``
+    the admission rounds alone and ``decode_steps`` the decode calls."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *,
                  max_batch: int = 8, max_len: int = 256,
@@ -89,7 +93,7 @@ class DecodeEngine:
                  serve: Optional[ServeConfig] = None,
                  channel_indices: Optional[tuple] = None,
                  poller: Optional[Poller] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, ring: Optional[Ring] = None):
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -106,7 +110,7 @@ class DecodeEngine:
         self.decode_steps = 0
         if serve is not None:
             self.step = dispatch.make_serve_step(
-                cfg, serve.comm, channel_indices=channel_indices)
+                cfg, serve.comm, ring=ring, channel_indices=channel_indices)
             self._prefill = self.step.prefill
             self._decode = self.step.decode
             self.n_shards = self.step.n_shards
@@ -336,14 +340,21 @@ class DecodeEngine:
 
 def make_engine_group(cfg: ModelConfig, params: Any, serve: ServeConfig, *,
                       eos_id: Optional[int] = None, seed: int = 0,
-                      device: DeviceLike = None) -> EventLoopGroup:
+                      device: DeviceLike = None,
+                      ring: Optional[Ring] = None) -> EventLoopGroup:
     """The serving front door: an :class:`EventLoopGroup` of
     ``serve.event_loops`` loops, each owning a disjoint contiguous run of
     the ``serve.comm.channels`` pool and driving its OWN
     :class:`DecodeEngine` (generator seeded ``seed + loop index``) whose
-    serve step emits only on those channels. Requests submitted to the
-    group are assigned round-robin; GREEDY outputs do not depend on
-    ``event_loops``."""
+    serve step emits only on those channels. Every loop shares ``ring``
+    (None = one peer, no process group). Requests submitted to the group
+    are assigned round-robin; GREEDY outputs do not depend on
+    ``event_loops``.
+
+    Over a ring of more than one peer, drain the group inline
+    (``run(threads=False)``): every peer must issue each loop's
+    collectives in the same order, and threads sharing the ring's group
+    would interleave them differently on each peer."""
     dev = resolve_device(device)
     loops = []
     for i, chans in enumerate(channel_affinity(serve.comm.channels,
@@ -353,7 +364,7 @@ def make_engine_group(cfg: ModelConfig, params: Any, serve: ServeConfig, *,
         eng = DecodeEngine(cfg, params, max_batch=serve.max_batch,
                            max_len=serve.max_len, eos_id=eos_id,
                            seed=seed + i, serve=serve, channel_indices=chans,
-                           poller=loop.poller, device=dev)
+                           poller=loop.poller, device=dev, ring=ring)
         loop.engine = eng
         loop.runner = lambda _loop, items, eng=eng: eng.generate(items)
         loops.append(loop)

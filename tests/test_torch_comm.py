@@ -2,7 +2,8 @@
 plans, the flush schedules, the staged emission, ``reduce_slices`` at
 ring size 1, and a two-peer gloo ring in subprocesses for
 ``tac.sync_grads`` over every aggregate x flush x compress x pack
-combination.
+combination of ``hadronio``, beside ``sockets`` (no codec) and ``vma``
+(no codec, and bf16 with either pack stage).
 
 Exactness: plans and schedules are integers and must be equal. At ring
 size 1 a sum over the ring is the peer's own buffer, so ``none`` and
@@ -38,7 +39,7 @@ from repro.core.backends import pipeline as jpipeline
 from repro.core.backends.base import SyncContext as JSyncContext
 from repro.launch.mesh import make_mesh
 from repro.models import api as japi
-from repro_torch.configs.base import CommConfig, ServeConfig
+from repro_torch.configs.base import CommConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core import aggregation as agg
 from repro_torch.core import flush_scheduler as flush
@@ -46,7 +47,6 @@ from repro_torch.core import ring_buffer, selector
 from repro_torch.core.backends import SyncContext, pipeline
 from repro_torch.core.channels import Ring
 from repro_torch.models import api
-from repro_torch.serving import make_engine_group
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -242,18 +242,6 @@ def test_pack_impl_has_no_fallback(monkeypatch):
         assert calls == want, (pack, calls)
 
 
-def test_hadronio_serving_wire_is_not_ported_yet():
-    cfg = get_config("qwen2-0.5b-reduced")
-    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    group = make_engine_group(cfg, params, ServeConfig(
-        max_batch=1, max_len=8, comm=CommConfig(mode="hadronio")),
-        device="cpu")
-    from repro_torch.serving import Request
-    group.submit([Request(uid=0, prompt=np.array([1, 2, 3]), max_new=1)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        group.run(threads=False)
-
-
 # -- a two-peer gloo ring --------------------------------------------------
 
 _WORKER = textwrap.dedent('''
@@ -272,17 +260,22 @@ _WORKER = textwrap.dedent('''
         grads = {"b": {"w": rng.normal(size=(37, 11)).astype(np.float32)},
                  "a": rng.normal(size=(1000,)).astype(np.float32)}
         res = {}
-        for agg_, fl, comp, pack in itertools.product(
-                ("slice", "channel"), ("step", "ready"),
-                ("none", "bf16", "int8_ef"), ("jnp", "pallas")):
-            comm = CommConfig(mode="hadronio", slice_bytes=1024, channels=3,
+        combos = [("hadronio",) + c for c in itertools.product(
+            ("slice", "channel"), ("step", "ready"),
+            ("none", "bf16", "int8_ef"), ("jnp", "pallas"))]
+        combos += [("sockets", "slice", "step", "none", "jnp")]
+        combos += [("vma", "slice", "step", comp, pack) for comp, pack in
+                   (("none", "jnp"), ("bf16", "jnp"), ("bf16", "pallas"))]
+        for mode, agg_, fl, comp, pack in combos:
+            comm = CommConfig(mode=mode, slice_bytes=1024, channels=3,
                               aggregate=agg_, flush=fl, compress=comp,
                               pack=pack)
-            t = {"b": {"w": torch.from_numpy(grads["b"]["w"])},
-                 "a": torch.from_numpy(grads["a"])}
+            # fresh copies: sockets sums the caller's tensors in place
+            t = {"b": {"w": torch.tensor(grads["b"]["w"])},
+                 "a": torch.tensor(grads["a"])}
             ef = None if comp == "none" else torch.zeros(3, 512)
             r = tac.sync_grads(t, comm, ring=ring, ef=ef)
-            res["/".join((agg_, fl, comp, pack))] = np.concatenate(
+            res["/".join((mode, agg_, fl, comp, pack))] = np.concatenate(
                 [r.grads["a"].numpy(), r.grads["b"]["w"].numpy().ravel()])
         np.savez(out, **res)
     finally:
@@ -306,11 +299,11 @@ def test_two_peer_ring_sums_every_combination(tmp_path):
         a = rng.normal(size=(1000,)).astype(np.float32)
         grads.append(np.concatenate([a, w.ravel()]))
     want = grads[0] + grads[1]
-    assert len(outs[0]) == 2 * 2 * 3 * 2
+    assert len(outs[0]) == 2 * 2 * 3 * 2 + 1 + 3
     by_codec: dict = {}
     for key, got in outs[0].items():
         np.testing.assert_array_equal(got, outs[1][key])   # replicated
-        codec = key.split("/")[2]
+        codec = key.split("/")[3]
         by_codec.setdefault(codec, []).append(got)
         if codec == "none":
             np.testing.assert_array_equal(got, want)
@@ -320,6 +313,6 @@ def test_two_peer_ring_sums_every_combination(tmp_path):
         else:
             step = sum(np.abs(g).max() / 127 for g in grads)
             np.testing.assert_allclose(got, want, rtol=0, atol=step)
-    for codec, results in by_codec.items():     # schedule-invariant
+    for codec, results in by_codec.items():     # mode/schedule-invariant
         for got in results[1:]:
             np.testing.assert_array_equal(got, results[0])
