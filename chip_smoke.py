@@ -64,9 +64,25 @@ non-zero (no phase's failure is caught):
    (bf16, exact on the wire, zero EF) and in f32 with a nonzero EF,
    and checks each pair bitwise equal; trains ``vma/bf16/pallas`` (one
    all-reduce of the packed bf16 wire a step) and checks one pack and one
-   unpack launch per step; times steps 2-5 for ``hadronio/bf16/pallas``,
-   ``hadronio/bf16/jnp``, ``vma/bf16/pallas``, ``sockets`` (one
-   all-reduce per gradient tensor) and ``gspmd`` from one start state;
+   unpack launch per step;
+5c. the rest of the hadronio family: syncs the same two real gradients
+   through ``hadronio_rs`` (per-slice reduce-scatter, ZeRO-1),
+   ``hadronio_overlap`` (11 reverse-layer buckets of 4 MiB) and
+   ``hadronio_overlap_rs`` (the buckets reduce-scattered) with
+   ``pack=pallas`` and ``pack=jnp`` and checks each pair bitwise equal,
+   and each mode's ``gathered_grads`` bitwise equal to ``hadronio``'s
+   synced tree (at one peer a reduce-scatter is a copy); holds the ring
+   kernels against their plain versions at the smallest and largest
+   bucket shapes, (1, 1024) and (1, 136134656), and times them beside
+   their bytes bound; trains each of ``FAMILY_RUNS`` 5 steps
+   (``bf16``/``pallas``; ``hadronio_overlap_rs`` under ``slice, step``
+   and ``channel, ready``) and checks finite, falling losses, the pack
+   and unpack launches per step (``hadronio_rs`` 1 and 1; the overlap
+   modes one pack per bucket and one unpack per flush: 11, or 4 under
+   ``channel, ready``) and no flash launch, with the peak memory. Then
+   times steps 2-5 for ``hadronio/bf16/pallas``, ``hadronio/bf16/jnp``,
+   ``vma/bf16/pallas``, ``sockets`` (one all-reduce per gradient
+   tensor), ``gspmd`` and the four family runs from one start state;
    profiles one step of each; reports peak memory;
 6. serve rwkv6-7b (WKV6 kernel) and recurrentgemma-9b (RG-LRU kernel,
    flash at head_dim 256) at full width, bf16, random weights from the
@@ -673,6 +689,176 @@ def serve_over_ring(smi, cfg, params, reqs, want_tokens, ring, big, cache,
     return flash
 
 
+# phase 5c: the rest of the hadronio family, each trained 5 steps
+# (label, mode, aggregate, flush); all with compress=bf16, pack=pallas
+FAMILY_RUNS = (
+    ("hadronio_rs/bf16/pallas", "hadronio_rs", "slice", "step"),
+    ("hadronio_overlap/bf16/pallas", "hadronio_overlap", "slice", "step"),
+    ("hadronio_overlap_rs/bf16/pallas", "hadronio_overlap_rs", "slice",
+     "step"),
+    ("hadronio_overlap_rs/bf16/pallas channel/ready", "hadronio_overlap_rs",
+     "channel", "ready"))
+
+
+def family_launches_per_step(run) -> dict:
+    """The ring-pack launches one step of ``run`` must make: the ZeRO-1
+    ring mode packs and unpacks its stacked slices once; the overlap
+    modes pack once per bucket and unpack once per flush (per bucket
+    under ``aggregate=slice``, per channel under ``channel``)."""
+    from repro_torch.core.backends import hadronio_overlap as ov
+    from repro_torch.models import api
+    comm = run.comm
+    if comm.mode == "hadronio_rs":
+        return {"pack_slices": 1, "unpack_slices": 1}
+    n = ov.make_bucket_plan(api.specs(run.model), comm).n_buckets
+    flushes = n if comm.aggregate == "slice" else min(comm.channels, n)
+    return {"pack_slices": n, "unpack_slices": flushes}
+
+
+def bucket_ef(ring_ef, tree, comm):
+    """A ring-keyed error feedback (``(n_slices, S)``, the packed-flat
+    layout) carried into the overlap modes' per-bucket layout, element
+    for element (so every element's wire value is the same in both)."""
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core.backends import hadronio_overlap as ov
+    from repro_torch.models.common import tree_map, tree_paths
+    f32 = tree_map(lambda t: t.float(), tree)
+    ring_plan = agg.make_plan(f32, comm, dtype=torch.float32)
+    leaves = [leaf for _, leaf in tree_paths(agg.unpack(
+        ring_ef.reshape(-1), ring_plan, f32))]
+    plan = ov.make_bucket_plan(f32, comm)
+    return tuple(ov.pack_bucket(leaves, plan, b)
+                 for b in range(plan.n_buckets))
+
+
+def sync_family(cases, train_run, ring) -> None:
+    """Phase 5c, the sync checks: each real full-width gradient case
+    ``(what, grads, ring EF, hadronio's synced tree)`` through every new
+    mode with ``pack=pallas`` and ``pack=jnp``: the pair bitwise equal
+    (shard or tree, and the new EF); then each mode's gathered tree
+    bitwise equal to hadronio's (at one peer a reduce-scatter is a
+    copy)."""
+    from repro_torch.core import tac
+    from repro_torch.core.backends import get_backend
+    from repro_torch.models.common import tree_paths
+    pairs_of = lambda a, b: [(x, y) for (_, x), (_, y) in zip(
+        tree_paths(a), tree_paths(b))]
+    efs = lambda e: list(e) if isinstance(e, tuple) else [e]
+    for what, tree, ring_ef, want in cases:
+        for mode in ("hadronio_rs", "hadronio_overlap",
+                     "hadronio_overlap_rs"):
+            backend = get_backend(mode)
+            res = {}
+            for pack in ("pallas", "jnp"):
+                comm = train_run(mode, compress="bf16", pack=pack).comm
+                ef = ring_ef if mode == "hadronio_rs" else \
+                    bucket_ef(ring_ef, tree, comm)
+                res[pack] = tac.sync_grads(tree, comm, ring=ring, ef=ef)
+                del ef
+            torch.cuda.synchronize()
+            a, b = res["pallas"], res["jnp"]
+            pairs = [(a.flat_shard, b.flat_shard)] if backend.zero1 \
+                else pairs_of(a.grads, b.grads)
+            check_bitwise(f"real-gradient sync {mode} pallas vs jnp ({what};"
+                          f" {'shard' if backend.zero1 else 'grads'}, new "
+                          "EF)", pairs + list(zip(efs(a.ef), efs(b.ef))))
+            check_bitwise(f"real-gradient sync {mode} gathered_grads vs "
+                          f"hadronio's tree ({what})",
+                          pairs_of(backend.gathered_grads(a, tree), want))
+            del res, a, b, pairs
+
+
+def train_family(smi, cfg, train_run, start, dev) -> dict:
+    """Phase 5c, training: qwen2-0.5b at full width, 5 steps, through
+    each of ``FAMILY_RUNS`` from ``start``'s params, on the Trainers'
+    one-peer NCCL ring. Checks finite, falling losses, the pack and
+    unpack launches per step (``family_launches_per_step``) and no
+    flash launch; reports the peak memory and its rise over what was
+    allocated before the run. Returns ``{label: (trainer, launches,
+    peak GB)}``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import Trainer
+    out = {}
+    for label, mode, aggregate, flush in FAMILY_RUNS:
+        run = train_run(mode, compress="bf16", pack="pallas",
+                        aggregate=aggregate, flush=flush)
+        trainer = Trainer(run, device=dev, log_every=10)
+        # the step-0 state is live before the run, as hadronio's was;
+        # the run holds the only reference, so it goes after step 1
+        states = [steps_mod.tac_state(start.params, run)]
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        for wrapper in (ops.pack_slices, ops.unpack_slices,
+                        ops.flash_attention):
+            wrapper.launches = 0
+        o = trainer.run_loop(states.pop())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {w.__name__: w.launches for w in (
+            ops.pack_slices, ops.unpack_slices, ops.flash_attention)}
+        per_step = family_launches_per_step(run)
+        losses = o["losses"]
+        mu = o["state"].opt.mu
+        moments = f"flat shard {tuple(mu.shape)}" if torch.is_tensor(mu) \
+            else "tree"
+        print(f"[train] {cfg.name} {label}: losses "
+              f"{[round(x, 4) for x in losses]}, step s "
+              f"{[round(x, 4) for x in o['step_s']]}, launches {launches} "
+              f"(per step {per_step}), moments {moments}, peak memory "
+              f"{peak:.2f} GB ({peak - live:.2f} GB above the {live:.2f} GB "
+              f"live before the run) | {smi}")
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], \
+            (label, losses)
+        assert launches == {k: 5 * v for k, v in per_step.items()} | {
+            "flash_attention": 0}, (label, launches, per_step)
+        assert o["state"].step == 5, label
+        out[label] = (trainer, launches, peak)
+        del o, mu
+        torch.cuda.empty_cache()
+    return out
+
+
+def bucket_shape_times(smi, gen, dev, sizes) -> dict:
+    """Ring pack (with EF, bf16 wire) and unpack at the overlap modes'
+    bucket shapes ``(1, n)``: bitwise against the plain version, then
+    kernel and plain times (queued) beside the bytes bound (pack 14 B
+    and unpack 6 B per element). Returns ``{kernel: {n: times}}``."""
+    from repro_torch.kernels import ops, ref
+    out = {"pack_slices": {}, "unpack_slices": {}}
+    for n in sizes:
+        flat = torch.randn(n, generator=gen, device=dev) * 1e-3
+        ef = torch.randn((1, n), generator=gen, device=dev) * 1e-6
+        kw = dict(n_slices=1, slice_elems=n, wire_dtype="bfloat16")
+        wire, new_ef = ops.pack_slices(flat, ef, **kw)
+        un = ops.unpack_slices(wire)
+        torch.cuda.synchronize()
+        rw, re_ = ref.pack_slices(flat, ef, **kw)
+        check_bitwise(f"ring_pack (1, {n}) bfloat16 ef (bucket shape)",
+                      [(wire, rw), (new_ef, re_),
+                       (un, ref.unpack_slices(rw))])
+        iters = 200 if n < 1 << 20 else 10
+        for name, kernel, plain, per_elem in (
+                ("pack_slices", lambda: ops.pack_slices(flat, ef, **kw),
+                 lambda: ref.pack_slices(flat, ef, **kw), 14.0),
+                ("unpack_slices", lambda: ops.unpack_slices(wire),
+                 lambda: ref.unpack_slices(wire), 6.0)):
+            t = {"ms": time_ms(kernel, iters=iters, queued=True,
+                               label=f"{name} (1, {n})"),
+                 "plain_ms": time_ms(plain, iters=iters, queued=True,
+                                     label=f"{name} plain (1, {n})"),
+                 "bound_ms": per_elem * n / H100_BYTES_S * 1e3}
+            out[name][n] = t
+            print(f"[time] ring {name} bucket (1, {n}): kernel "
+                  f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, bound "
+                  f"{t['bound_ms']:.3e} ms (bytes; {t['bound_ms'] / t['ms']:.1%}"
+                  f" of the HBM rate) | {smi}")
+        del flat, ef, wire, new_ef, un, rw, re_
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1271,6 +1457,7 @@ def main() -> int:
     trainer = Trainer(main_run, device=dev, log_every=1)
     start = trainer.init_state()
     torch.cuda.synchronize()
+    live_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     for wrapper in (ops.pack_slices, ops.unpack_slices, ops.flash_attention):
         wrapper.launches = 0
@@ -1287,7 +1474,8 @@ def main() -> int:
           f"{[round(x, 4) for x in out['step_s']]}, launches "
           f"{train_launches}, max|EF| after the run "
           f"{float(out['state'].ef.abs().max()):.3e}, peak memory "
-          f"{peak_gb:.2f} GB | {smi}")
+          f"{peak_gb:.2f} GB ({peak_gb - live_gb:.2f} GB above the "
+          f"{live_gb:.2f} GB live before the run) | {smi}")
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
     assert train_launches == {"pack_slices": 5, "unpack_slices": 5,
@@ -1313,6 +1501,7 @@ def main() -> int:
     flat32 = agg.as_slices(agg.pack(g32, plan32), plan32)
     ef32 = (flat32 - flat32.to(torch.bfloat16).float()).contiguous()
     del flat32
+    cases = []          # phase 5c syncs the same gradients
     for what, tree, ef_in in (("bf16 grads, run's EF", grads,
                                out["state"].ef),
                               ("f32 grads x0.37, nonzero EF", g32, ef32)):
@@ -1329,9 +1518,10 @@ def main() -> int:
                           tree_paths(synced["pallas"].grads),
                           tree_paths(synced["jnp"].grads))]
                       + [(synced["pallas"].ef, synced["jnp"].ef)])
+        cases.append((what, tree, ef_in, synced["pallas"].grads))
     assert float(ef32.abs().max()) > 0 and float(
         synced["pallas"].ef.abs().max()) > 0, "the f32 sync carried no EF"
-    del synced, grads, g32, ef32
+    del synced, tree, ef_in, out
 
     # the libvma analogue trains through the same kernels on a second
     # path: one pack and one unpack a step around ONE all-reduce
@@ -1351,7 +1541,26 @@ def main() -> int:
         vma_launches
     del o
 
-    # step time of the five exchanges from one start state, in turns
+    # -- 5c. the rest of the hadronio family ---------------------------------
+    # the same real gradients through hadronio_rs, hadronio_overlap and
+    # hadronio_overlap_rs (pallas vs jnp; gathered vs hadronio's tree)
+    sync_family(cases, train_run, trainer.ring)
+    del cases, grads, g32, ef32
+    torch.cuda.empty_cache()
+    # the ring kernels at the buckets' smallest and largest shapes
+    from repro_torch.core.backends import hadronio_overlap as ov
+    sizes = ov.make_bucket_plan(api.specs(cfg), main_run.comm).padded
+    assert len(sizes) == 11, sizes       # qwen2-0.5b at 4 MiB
+    bucket_times = bucket_shape_times(smi, gen, dev, (min(sizes),
+                                                      max(sizes)))
+    print(f"[memory] allocated before the family runs: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB (the start state "
+          f"and the trainers)")
+    family = train_family(smi, cfg, train_run, start, dev)
+    family_launches = {k: sum(n[k] for _, n, _ in family.values())
+                       for k in ("pack_slices", "unpack_slices")}
+
+    # step time of the exchanges from one start state, in turns
     # (a b c d e e d c b a): host times drift on a machine whose CPU is
     # shared
     runs = {"hadronio/bf16/pallas": trainer,
@@ -1363,11 +1572,22 @@ def main() -> int:
                                log_every=10),
             "gspmd (no exchange)": Trainer(train_run("gspmd"), device=dev,
                                            log_every=10)}
+    runs.update({label: t for label, (t, _, _) in family.items()})
+
+    def state0(t, state):
+        """``state`` in ``t``'s layout: as it is for the tree-moment
+        modes with a ring EF; zero moments and EF around its params for
+        the ZeRO-1 and bucketed modes (made per run: each holds ~6 GB)."""
+        if t.run.comm.mode in ("hadronio_rs", "hadronio_overlap",
+                               "hadronio_overlap_rs"):
+            return steps_mod.tac_state(state.params, t.run)
+        ef = get_backend(t.run.comm.mode).needs_ef(t.run.comm)
+        return state if ef else state._replace(ef=None)
+
     samples = {label: [] for label in runs}
     for label in list(runs) + list(runs)[::-1]:
         t = runs[label]
-        ef = get_backend(t.run.comm.mode).needs_ef(t.run.comm)
-        o = t.run_loop(start if ef else start._replace(ef=None))
+        o = t.run_loop(state0(t, start))
         samples[label].append([x * 1e3 for x in o["step_s"][1:]])
         print(f"[train] {label}: losses {[round(x, 4) for x in o['losses']]}"
               f", step ms {[round(x * 1e3, 2) for x in o['step_s']]}")
@@ -1380,10 +1600,11 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} (per run {per_run[k]})"
                       for k, v in step_ms.items()) + f" | {smi}")
 
-    state = out["state"]
     for label, t in runs.items():
+        state = state0(t, start)
         busy, n_k, ranked, by_name = profile_device(
             lambda: t.step_fn(state, batch), top=8)
+        del state
         wall = step_ms[label]
         if busy is None:
             print(f"[profile] train step {label}: device time not measured "
@@ -1397,8 +1618,8 @@ def main() -> int:
               f" ms, unpack {part(lambda k: '::unpack_kernel' in k):.3f} "
               f"ms, nccl {part(lambda k: 'nccl' in k.lower()):.3f} ms; top: "
               + "; ".join(f"{name[:100]} {ms:.3f}" for name, ms in ranked))
-    del runs, t, vma
-    del state, out, start, trainer
+    del runs, t, vma, family
+    del start, trainer
 
     # -- 6. serve rwkv6-7b and recurrentgemma-9b at full width ---------------
     rwkv_launches = serve_recurrent(
@@ -1428,17 +1649,21 @@ def main() -> int:
         {"name": "pack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:61",
          "launches": train_launches["pack_slices"]
-         + vma_launches["pack_slices"], "max_abs_err": pack_err,
+         + vma_launches["pack_slices"] + family_launches["pack_slices"],
+         "max_abs_err": pack_err,
          "ms": rp["pack_ef"]["ms"], "plain_ms": rp["pack_ef"]["plain_ms"],
          "bound_ms": rp["pack_ef"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "buckets": {
+             str(n): t for n, t in bucket_times["pack_slices"].items()}},
         {"name": "unpack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:100",
          "launches": train_launches["unpack_slices"]
-         + vma_launches["unpack_slices"], "max_abs_err": unpack_err,
+         + vma_launches["unpack_slices"] + family_launches["unpack_slices"],
+         "max_abs_err": unpack_err,
          "ms": rp["unpack"]["ms"], "plain_ms": rp["unpack"]["plain_ms"],
          "bound_ms": rp["unpack"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": rp["unpack"]["library_ms"]},
+         "library_ms": rp["unpack"]["library_ms"], "buckets": {
+             str(n): t for n, t in bucket_times["unpack_slices"].items()}},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:89",

@@ -10,22 +10,24 @@ name, and callers reach one only through the registry
 
 * ``sync(grads, ctx) -> SyncResult`` — the collective schedule of one
   gradient exchange;
-* ``state_specs(run)`` — the optimizer and error-feedback state layout
-  it needs;
+* ``state_specs(run, n_shards)`` — the optimizer and error-feedback
+  state layout it needs (tree moments, or ZeRO-1 flat shards);
 * ``apply_update(...)`` — how synced gradients become a parameter
-  update (tree AdamW by default);
-* ``serve_emit`` — the serving wire.
+  update (tree AdamW by default; the ZeRO-1 shard update and its gather
+  epilogue for the reduce-scatter strategies);
+* ``serve_emit`` — the serving wire;
+* ``gathered_grads`` / ``reshard_flat_shards`` — the synced tree back
+  from a ZeRO-1 shard, and the flat state re-sliced for another ring.
 
-A capability flag replaces mode names: ``manual`` (the backend
-exchanges gradients itself, in the TAC step). The reference's ``zero1``
-flag and ``SyncResult.flat_shard`` come with the ZeRO-1 modes
-(ROADMAP.md Queue 1 item 4).
+Capability flags replace mode names: ``manual`` (the backend exchanges
+gradients itself, in the TAC step) and ``zero1`` (its optimizer moments
+are flat ring-sharded slices).
 """
 from __future__ import annotations
 
 import abc
-from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -37,6 +39,9 @@ from repro_torch.models.common import tree_map
 from repro_torch.optim import adamw
 
 Tree = Any
+# an error-feedback residual: one tensor keyed to the ring plan, or a
+# tuple of tensors keyed by bucket id (the overlap modes)
+EF = Union[torch.Tensor, tuple, None]
 
 SERVE_KINDS = ("all_reduce", "all_gather")
 
@@ -44,10 +49,12 @@ SERVE_KINDS = ("all_reduce", "all_gather")
 class SyncResult(NamedTuple):
     """What one gradient exchange produced (the same for every
     backend — the other half of the transparency boundary)."""
-    grads: Tree               # synced grads (tree)
-    plan: Any = None          # backend-owned pack plan
-    ef: Optional[torch.Tensor] = None    # new error-feedback residual
-    #                                      (this peer's, keyed to the plan)
+    grads: Tree               # synced grads (tree), or None in zero1 modes
+    flat_shard: Optional[torch.Tensor] = None   # this peer's ZeRO-1 shard
+    plan: Any = None          # backend-owned pack plan (ring or bucketed)
+    ef: EF = None             # new error-feedback residual (this peer's)
+    gather_group: Any = None  # process group the zero1 shard was
+    #                           scattered over (the ring's group)
 
 
 @dataclass(frozen=True)
@@ -63,21 +70,47 @@ class SyncContext:
     rank: int = 0
     channel_indices: Optional[tuple] = None
     ring: Optional[Ring] = None
-    ef: Optional[torch.Tensor] = None
+    ef: EF = None
 
 
 class StateSpecs(NamedTuple):
     """Backend-owned part of the train state, as ``meta`` tensors (shape
     and dtype, no storage)."""
-    opt: adamw.AdamState      # moment layout
-    ef: Optional[torch.Tensor]   # this peer's error-feedback layout
+    opt: adamw.AdamState      # moment layout (tree, or this peer's flat
+    #                           ZeRO-1 shard)
+    ef: EF                    # this peer's error-feedback layout: one
+    #                           tensor, or a tuple keyed by bucket id
 
 
 @dataclass(frozen=True)
 class UpdateContext:
     """Ring facts ``apply_update`` needs beyond the sync result (the
-    ring size is ``ring.world_size``)."""
+    ring size is ``ring.world_size``; ``eff_shards`` is the ZeRO-1
+    scatter-group size). ``memo`` keeps what :meth:`cached` built for
+    the life of the step function that owns this context."""
     ring: Ring
+    eff_shards: int = 1
+    memo: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def cached(self, key, build: Callable[[], Any]):
+        """``build()``, made once per ``key``: a ZeRO-1 decay-mask shard
+        is ~2 GB at full width and the same every step."""
+        if key not in self.memo:
+            self.memo[key] = build()
+        return self.memo[key]
+
+
+def scatter_group_size(n_shards: int, pod_size: int,
+                       comm: CommConfig) -> int:
+    """ZeRO-1 scatter-group size: the whole flat ring. The reference
+    scatters in-pod when its collectives are pod-aware (hierarchical
+    ZeRO); that path is not ported (ROADMAP.md Queue 1 item 8)."""
+    if pod_size > 1:
+        raise NotImplementedError(
+            f"a ZeRO-1 scatter group inside pods of {pod_size} needs the "
+            "pod-aware collectives, which are not ported to repro_torch "
+            "yet (ROADMAP.md Queue 1 item 8)")
+    return n_shards
 
 
 class CommBackend(abc.ABC):
@@ -85,6 +118,7 @@ class CommBackend(abc.ABC):
 
     name: str = ""            # set by @register
     manual: bool = True       # True: exchanges gradients in the TAC step
+    zero1: bool = False       # True: flat ring-sharded optimizer moments
 
     @abc.abstractmethod
     def sync(self, grads: Tree, ctx: SyncContext) -> SyncResult:
@@ -93,11 +127,12 @@ class CommBackend(abc.ABC):
     def needs_ef(self, comm: CommConfig) -> bool:
         return comm.compress in ("bf16", "int8_ef")
 
-    def state_specs(self, run: RunConfig) -> StateSpecs:
+    def state_specs(self, run: RunConfig, n_shards: int = 1) -> StateSpecs:
         """Default layout: f32 tree moments shaped like the params, and
         this peer's (n_slices, slice_elems) f32 error-feedback residual
-        when compression is on. (The reference's global EF carries a
-        leading ring dim; each process here holds its own row.)"""
+        when compression is on. (The reference's global state carries a
+        leading ring dim of ``n_shards``; each process here holds its own
+        row.)"""
         specs = api.specs(run.model)
         meta = lambda shape: torch.empty(shape, dtype=torch.float32,
                                          device="meta")
@@ -136,6 +171,25 @@ class CommBackend(abc.ABC):
         from repro_torch.core.backends import pipeline
         group = ctx.world_size if kind == "all_gather" else 1
         return pipeline.emit_flat(flat, ctx, kind, group=group)
+
+    def gathered_grads(self, res: SyncResult, like: Tree) -> Tree:
+        """The full synced-gradient tree of a SyncResult. Default: the
+        tree is already there. ZeRO-1 backends override: all-gather their
+        flat shard over ``res.gather_group`` and unpack. Tests and tools
+        read it; the train step never needs it."""
+        if res.grads is None:
+            raise TypeError(f"{self.name}: a zero1 backend must override "
+                            "gathered_grads")
+        return res.grads
+
+    def reshard_flat_shards(self, run: RunConfig, stacked, new_shards: int):
+        """Re-slice checkpointed ring-sharded flat optimizer state (global
+        ``(old_shards, len)`` numpy array) for a ring of ``new_shards``
+        (elastic restore). Only zero1 backends have such state; its
+        layout is theirs, so the rule is too."""
+        raise ValueError(
+            f"comm backend {self.name!r} has no ring-sharded flat state "
+            "to reshard")
 
 
 _REGISTRY: dict[str, CommBackend] = {}

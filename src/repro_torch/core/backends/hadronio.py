@@ -27,4 +27,4 @@ class HadronioBackend(CommBackend):
         slices = agg.as_slices(flat, plan)
         red, new_ef = pipeline.reduce_slices(slices, ctx)
         synced = agg.unpack(agg.from_slices(red, plan), plan, grads)
-        return SyncResult(synced, plan, new_ef)
+        return SyncResult(synced, plan=plan, ef=new_ef)

@@ -33,8 +33,18 @@ module owns the wire stages:
 * :func:`unpack_wire` — the unpack stage (the scattering read): one
   cast-from-wire pass over the stacked results, by the same
   ``comm.pack`` switch (``kernels.ops.unpack_slices``).
+  ``begin_emission(..., unpack=True)`` runs it per flush instead, on
+  each flushed buffer once its collective has completed (the bucketed
+  modes: the scattering read keyed to the flush that produced the
+  bytes).
 * :func:`reduce_slices` — pack stage + per-slice all-reduce + unpack
   stage over the channel schedule.
+* :func:`scatter_slices` — the ZeRO-1 exchange: pack stage + per-slice
+  reduce-scatter + unpack stage; each peer keeps its ring-ordered chunk
+  of every slice (:func:`scatter_group`). A coalesced reduce-scatter
+  flush interleaves its items peer-major
+  (:func:`interleave_for_scatter`), so every peer's shard is the same
+  under every aggregate and flush.
 
 * :func:`emit_flat` — the serving wire: one flat f32 payload (the
   decode step's partial logits, the prefill's gathering write) carved
@@ -50,10 +60,10 @@ itself instead of stacking per-item results. A gather writes a fresh
 buffer per flush, carved back per item when its work completes.
 
 Not ported yet, each with the ROADMAP.md item that brings it: the
-two-level leader emission and the pod-aware channels (Queue 1 item 8),
-``scatter_slices`` for the ZeRO-1 modes (Queue 1 item 4), the
-``all_to_all`` kind of moe (Queue 1 item 5), and the chaos seams (flush
-fault, alloc hook) and obs spans (Queue 1 item 6).
+two-level leader emission, the pod-aware channels and the in-pod
+scatter group (Queue 1 item 8), the ``all_to_all`` kind of moe (Queue 1
+item 5), and the chaos seams (flush fault, alloc hook) and obs spans
+(Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -70,6 +80,10 @@ from repro_torch.core.channels import ChannelFill, CommChannel, make_channels
 from repro_torch.core.flush_scheduler import FlushPlan, make_flush_plan
 from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.kernels import ops, ref
+
+# the emission kinds ported so far (the reference's fourth, all_to_all,
+# comes with moe)
+KINDS = ("all_reduce", "all_gather", "reduce_scatter")
 
 
 def channels_for(ctx: SyncContext, n_slices: int) -> list[CommChannel]:
@@ -118,107 +132,169 @@ def unpack_wire(wire: torch.Tensor, comm: CommConfig) -> torch.Tensor:
     return unpack(wire).reshape(wire.shape)
 
 
+def _unpack_flush(buf: torch.Tensor, comm: CommConfig) -> torch.Tensor:
+    """The unpack stage over ONE flushed buffer (any shape): the
+    cast-from-wire pass keyed to the flush, not to the item."""
+    if buf.dtype == torch.float32:
+        return buf
+    return unpack_wire(buf.reshape(1, -1), comm).reshape(buf.shape)
+
+
+def interleave_for_scatter(flats: list, group: int) -> torch.Tensor:
+    """Peer-major coalescing of 1-D wire buffers for ONE reduce-scatter
+    flush: peer ``p``'s contiguous ``1/group`` chunk of the result is the
+    concatenation of ``p``'s chunk of every buffer, in buffer order — so
+    a coalesced reduce-scatter hands every peer exactly the per-item
+    shards (and so the ZeRO-1 flat-shard order) of one collective per
+    item."""
+    if len(flats) == 1:
+        return flats[0]
+    return torch.cat([f.reshape(group, -1) for f in flats],
+                     dim=1).reshape(-1)
+
+
+def _scattered_shape(shape: tuple, group: int) -> tuple:
+    return tuple(shape[:-1]) + (shape[-1] // group,)
+
+
 @dataclass
 class EmitState:
     """In-flight state of one staged emission (built by
     :func:`begin_emission`, driven by :func:`stage_slices` /
     :func:`flush_ready`, closed by :func:`finish_emission`). ``group`` is
     the ring size of an ``all_gather`` (its results are ``group`` times
-    the item), 1 otherwise."""
+    the item) or a ``reduce_scatter`` (``1/group`` of it), 1 otherwise;
+    ``unpack`` runs the unpack stage per flush."""
     ctx: SyncContext
     kind: str
     group: int
+    unpack: bool
     plan: FlushPlan
     chans: list                   # CommChannel pool
     fills: list                   # per-channel ChannelFill watermark
     staged: dict                  # item id -> wire buffer
     outs: list                    # item id -> result (valid after finish)
-    # issued collectives, in issue order: (work, completion or None)
+    # issued collectives, in issue order: (work, completion)
     pending: list = field(default_factory=list)
 
 
-def _carve_reduce(st: EmitState, c: int, red: torch.Tensor) -> Callable:
-    """The completion of one channel's coalesced all-reduce: copy each
-    item's span of the summed buffer back into the item (the scattering
-    read)."""
+def _item_spans(st: EmitState, items: list, buf: torch.Tensor,
+                group: int = 1):
+    """``(item id, its span of buf)`` for a buffer holding ``items`` in
+    order, each ``1/group`` of the item's size (a scatter shard) or all
+    of it, shaped like the item (its last dim divided by ``group``)."""
+    flat, off = buf.reshape(-1), 0
+    for i in items:
+        n = st.staged[i].numel() // group
+        yield i, flat[off:off + n].view(
+            _scattered_shape(st.staged[i].shape, group))
+        off += n
+
+
+def _carve_reduce(st: EmitState, items: list,
+                  red: torch.Tensor) -> Callable:
+    """The completion of one all-reduce over ``items``' wire bytes: with
+    the per-flush unpack stage, each item's result is its span of the
+    unpacked sum; without it, a coalesced sum is copied back into the
+    items (the scattering read; a single item was reduced where it
+    lies)."""
     def carve():
-        off = 0
-        for i in st.plan.groups[c]:
-            n = st.staged[i].numel()
-            st.staged[i].copy_(red[off:off + n].view(st.staged[i].shape))
-            off += n
+        if st.unpack:
+            full = _unpack_flush(red, st.ctx.comm)
+            for i, span in _item_spans(st, items, full):
+                st.outs[i] = span
+        elif len(items) > 1:
+            for i, span in _item_spans(st, items, red):
+                st.staged[i].copy_(span)
     return carve
 
 
-def _carve_gather(st: EmitState, c: int, g: torch.Tensor) -> Callable:
-    """The completion of one channel's coalesced gather: the result is
-    peer-major over the whole coalesced buffer, ``(group, sum of the
-    items' sizes)``, so item i's gathered bytes are the same column range
-    of every peer's row."""
+def _carve_gather(st: EmitState, items: list, g: torch.Tensor) -> Callable:
+    """The completion of one gather over ``items``: the result is
+    peer-major over the whole buffer, ``(group, sum of the items'
+    sizes)``, so item i's gathered bytes are the same column range of
+    every peer's row."""
     def carve():
-        rows = g.view(st.group, -1)
+        rows = (_unpack_flush(g, st.ctx.comm) if st.unpack
+                else g).view(st.group, -1)
         off = 0
-        for i in st.plan.groups[c]:
+        for i in items:
             n = st.staged[i].numel()
             st.outs[i] = rows[:, off:off + n].reshape(-1)
             off += n
     return carve
 
 
-def _issue(st: EmitState, c: int, buf: torch.Tensor,
-           items: list) -> None:
-    """Issue channel ``c``'s collective over ``buf``, which holds
-    ``items``' wire bytes in order (one item's own buffer, or their
-    coalesced copy), and record its completion."""
+def _carve_scatter(st: EmitState, items: list,
+                   sh: torch.Tensor) -> Callable:
+    """The completion of one reduce-scatter over ``items`` (coalesced
+    peer-major by :func:`interleave_for_scatter`): each item contributes
+    ``1/group`` of its elements to this peer's shard, in item order."""
+    def carve():
+        full = _unpack_flush(sh, st.ctx.comm) if st.unpack else sh
+        for i, span in _item_spans(st, items, full, st.group):
+            st.outs[i] = span
+    return carve
+
+
+def _issue(st: EmitState, c: int, items: list) -> None:
+    """Issue channel ``c``'s ONE collective over ``items``' wire bytes (a
+    single item where it lies, or the items coalesced into one buffer:
+    concatenated, or peer-major interleaved for a reduce-scatter) and
+    record its completion, which runs after the collective has
+    completed (:func:`finish_emission`)."""
     ch = st.chans[c]
+    flats = [st.staged[i] for i in items]
+    if st.kind == "reduce_scatter":
+        work, sh = ch.reduce_scatter(interleave_for_scatter(
+            [f.reshape(-1) for f in flats], st.group))
+        st.pending.append((work, _carve_scatter(st, items, sh)))
+        return
+    buf = flats[0] if len(flats) == 1 else \
+        torch.cat([f.reshape(-1) for f in flats])
     if st.kind == "all_gather":
         work, g = ch.all_gather(buf)
-        if len(items) == 1:
-            st.outs[items[0]] = g
-            st.pending.append((work, None))
-        else:
-            st.pending.append((work, _carve_gather(st, c, g)))
+        st.pending.append((work, _carve_gather(st, items, g)))
         return
     work = ch.all_reduce(buf)
-    if len(items) == 1:
-        st.outs[items[0]] = buf
-        st.pending.append((work, None))
-    else:
+    if not st.unpack:
         for i in items:
             st.outs[i] = st.staged[i]
-        st.pending.append((work, _carve_reduce(st, c, buf)))
+    st.pending.append((work, _carve_reduce(st, items, buf)))
 
 
 def _flush_channel(st: EmitState, c: int) -> None:
     """One coalesced wire flush: the channel's staged items as a single
-    contiguous buffer and ONE collective, carved back when it completes
-    (a single item is emitted where it lies)."""
-    idx = list(st.plan.groups[c])
-    buf = st.staged[idx[0]] if len(idx) == 1 else \
-        torch.cat([st.staged[i].reshape(-1) for i in idx])
-    _issue(st, c, buf, idx)
+    buffer and ONE collective, carved back when it completes."""
+    _issue(st, c, list(st.plan.groups[c]))
     st.fills[c].flushed = True
 
 
 def begin_emission(ctx: SyncContext, n_items: int,
-                   kind: str = "all_reduce", *,
-                   group: int = 1) -> EmitState:
+                   kind: str = "all_reduce", *, group: int = 1,
+                   unpack: bool = False) -> EmitState:
     """Open one staged emission of ``n_items`` wire buffers through the
     connection pool. The item->channel schedule is ``comm.flush``
     (``core/flush_scheduler``): round-robin with an end-of-exchange flush
     loop under ``"step"``, contiguous production-order groups flushed the
     moment they fill under ``"ready"``. ``group`` is the ring size for
-    ``kind="all_gather"``."""
-    if kind not in SERVE_KINDS:
+    ``kind="all_gather"`` and ``"reduce_scatter"``. ``unpack=True`` runs
+    the unpack stage per flush, after its collective completes, and the
+    results are f32 (channel-local instead of item-local: the scattering
+    read keyed to the flush that produced the bytes)."""
+    if kind == "all_to_all":
         raise NotImplementedError(
-            f"emission kind {kind!r} is not ported yet: the port emits "
-            f"{SERVE_KINDS}; reduce_scatter comes with the ZeRO-1 modes "
-            "(ROADMAP.md Queue 1 item 4), all_to_all with moe (item 5)")
+            "emission kind 'all_to_all' is not ported yet: it is the moe "
+            "expert exchange, which comes with moe (ROADMAP.md Queue 1 "
+            "item 5)")
+    if kind not in KINDS:
+        raise ValueError(f"unknown emission kind {kind!r}: expected one "
+                         f"of {KINDS}")
     chans = channels_for(ctx, n_items)
     plan = make_flush_plan(n_items, len(chans), ctx.comm.flush)
     fills = [ChannelFill(frozenset(g)) for g in plan.groups]
-    return EmitState(ctx=ctx, kind=kind, group=group, plan=plan,
-                     chans=chans, fills=fills, staged={},
+    return EmitState(ctx=ctx, kind=kind, group=group, unpack=unpack,
+                     plan=plan, chans=chans, fills=fills, staged={},
                      outs=[None] * n_items)
 
 
@@ -238,7 +314,7 @@ def stage_slices(st: EmitState, i: int, wire: torch.Tensor) -> list:
     c = st.plan.assign[i]
     st.fills[c].stage(i)
     if st.ctx.comm.aggregate == "slice":
-        _issue(st, c, wire, [i])
+        _issue(st, c, [i])
         if st.fills[c].ready:
             st.fills[c].flushed = True
         return [i]
@@ -263,10 +339,12 @@ def finish_emission(st: EmitState) -> list:
     """Close the emission: under ``flush="step"`` the end-of-exchange
     flush loop (every channel flushed, in channel order); under
     ``"ready"`` everything already went out. Then wait for every issued
-    collective in issue order and carve coalesced results back. Returns
-    the per-item results: for ``all_reduce`` the staged buffers, now
-    reduced; for ``all_gather`` each item's ``(group * size,)``
-    peer-major gather."""
+    collective in issue order and run its completion (the carve, and the
+    per-flush unpack stage). Returns the per-item results: for
+    ``all_reduce`` the staged buffers, now reduced (with ``unpack``: the
+    f32 sums); for ``all_gather`` each item's ``(group * size,)``
+    peer-major gather; for ``reduce_scatter`` each item's shard, its last
+    dim divided by ``group``."""
     if st.ctx.comm.aggregate == "channel":
         for c, fill in enumerate(st.fills):
             if not fill.flushed:
@@ -280,20 +358,19 @@ def finish_emission(st: EmitState) -> list:
                            f"{st.plan.n_items} items staged")
     for work, done in st.pending:
         work.wait()
-        if done is not None:
-            done()
+        done()
     st.pending.clear()
     return st.outs
 
 
 def emit_through_channels(items: list, ctx: SyncContext,
-                          kind: str = "all_reduce", *,
-                          group: int = 1) -> list:
+                          kind: str = "all_reduce", *, group: int = 1,
+                          unpack: bool = False) -> list:
     """Issue the collective ``kind`` for every item through the
     connection pool at the flush granularity ``comm.aggregate`` and the
     schedule ``comm.flush``, and return the per-item results. All four
     granularity/schedule combinations return bit-identical values."""
-    st = begin_emission(ctx, len(items), kind, group=group)
+    st = begin_emission(ctx, len(items), kind, group=group, unpack=unpack)
     for i, x in enumerate(items):
         stage_slices(st, i, x)
     return finish_emission(st)
@@ -375,3 +452,38 @@ def reduce_slices(slices: torch.Tensor, ctx: SyncContext):
         return comp.int8_allreduce(wire, scale, ctx.ring.group), new_ef
     emit_through_channels(list(wire.unbind(0)), ctx, "all_reduce")
     return unpack_wire(wire, ctx.comm), new_ef
+
+
+def scatter_group(ctx: SyncContext):
+    """``(gather_group, group_size)`` of the ZeRO-1 reduce-scatter: the
+    whole ring (the reference's in-pod group under pod-aware collectives
+    comes with the pod topology, ROADMAP.md Queue 1 item 8)."""
+    if ctx.ring is None:
+        raise ValueError("a ZeRO-1 exchange needs the ring's process "
+                         "group: SyncContext.ring is None")
+    return ctx.ring.group, ctx.ring.world_size
+
+
+def scatter_slices(slices: torch.Tensor, ctx: SyncContext):
+    """Per-slice reduce-scatter (the ZeRO-1 exchange) over the channel
+    schedule, with the pack and unpack stages. slices: (n, S) f32.
+    Returns ``(flat_shard, new_ef, gather_group)``: this peer's
+    ``(n * S/group,)`` shard, slice-major with the peer's ring-ordered
+    chunk of every slice, and the group to all-gather it over."""
+    gather_group, group = scatter_group(ctx)
+    n, s = slices.shape
+    if s % group:
+        raise ValueError(f"slices of {s} elements do not shard over "
+                         f"{group} peers")
+    wire, new_ef, scale = pack_wire(slices, ctx.ef, ctx.comm)
+    if scale is not None:
+        # int8: the full dequant-sum everywhere, then this peer's chunk
+        red = comp.int8_allreduce(wire, scale, ctx.ring.group)
+        c = s // group
+        return red[:, ctx.rank * c:(ctx.rank + 1) * c].reshape(-1), \
+            new_ef, gather_group
+    shards = emit_through_channels(list(wire.unbind(0)), ctx,
+                                   "reduce_scatter", group=group)
+    # (n_slices, S/group) -> the flat local shard, ZeRO-1 layout
+    return unpack_wire(torch.stack(shards), ctx.comm).reshape(-1), \
+        new_ef, gather_group

@@ -44,9 +44,9 @@ class VmaBackend(CommBackend):
             dist.all_reduce(wire, group=ctx.ring.group)
             red = pipeline.unpack_wire(wire, ctx.comm)
             synced = agg.unpack(agg.from_slices(red, plan), plan, grads)
-            return SyncResult(synced, plan, new_ef)
+            return SyncResult(synced, plan=plan, ef=new_ef)
         dist.all_reduce(flat, group=ctx.ring.group)
-        return SyncResult(agg.unpack(flat, plan, grads), plan)
+        return SyncResult(agg.unpack(flat, plan, grads), plan=plan)
 
     def serve_emit(self, flat, ctx, kind):
         """Monolithic serving send: the payload arrives flat, so the one

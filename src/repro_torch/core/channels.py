@@ -15,13 +15,13 @@ ring-buffer slices to channels round-robin (paper §IV-C) or, under
 ``comm.flush="ready"``, contiguously; :class:`ChannelFill` is the
 per-channel fill watermark that flush-when-ready polls.
 
-A channel issues two kinds: ``all_reduce`` (the gradient exchange and
-the serving logit reduction, in place) and ``all_gather`` (the serving
+A channel issues three kinds: ``all_reduce`` (the gradient exchange
+and the serving logit reduction, in place), ``all_gather`` (the serving
 prefill's gathering write, peer-major like the reference's tiled
-gather). The rest come with the modes that use them: ``reduce_scatter``
-with the ZeRO-1 modes (ROADMAP.md Queue 1 item 4), ``all_to_all`` with
-moe (item 5), the pod-aware split collectives with the two-level
-topology (item 8).
+gather) and ``reduce_scatter`` (the ZeRO-1 exchange: each peer keeps
+the sum of its contiguous 1/ring chunk). The rest come with the modes
+that use them: ``all_to_all`` with moe (ROADMAP.md Queue 1 item 5), the
+pod-aware split collectives with the two-level topology (item 8).
 """
 from __future__ import annotations
 
@@ -73,6 +73,23 @@ class CommChannel:
         out = x.new_empty(dist.get_world_size(self.group) * x.numel())
         return dist.all_gather_into_tensor(out, x, group=self.group,
                                            async_op=True), out
+
+    def reduce_scatter(self, x: torch.Tensor):
+        """Sum the flat ``x`` over the ring and keep this peer's
+        contiguous chunk: ``out`` is ``x.numel() / world`` long and is
+        chunk ``rank`` of the sum (the reference's tiled
+        ``psum_scatter``). Issued asynchronously on this channel's
+        communicator; returns ``(work, out)``, and ``out`` is valid once
+        the work is waited on."""
+        x = x.reshape(-1)
+        world = dist.get_world_size(self.group)
+        if x.numel() % world:
+            raise ValueError(f"channel {self.index}: a reduce-scatter of "
+                             f"{x.numel()} elements does not split over "
+                             f"{world} peers")
+        out = x.new_empty(x.numel() // world)
+        return dist.reduce_scatter_tensor(out, x, group=self.group,
+                                          async_op=True), out
 
     def all_to_all(self, x: torch.Tensor):
         raise NotImplementedError(

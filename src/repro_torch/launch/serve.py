@@ -94,7 +94,11 @@ def main(argv=None) -> int:
                         "adaptive spins then parks (hadroNIO §IV-B)")
     p.add_argument("--comm-mode", default="gspmd", choices=available_modes(),
                    help="CommBackend the serving collectives (KV gathers, "
-                        "TP logit reductions) flow through")
+                        "TP logit reductions) flow through; the overlap "
+                        "modes always flush when ready, and the ZeRO-1 "
+                        "modes (whose training shards the optimizer "
+                        "moments over the ring) serve through the sliced "
+                        "hadronio wire")
     p.add_argument("--channels", type=int, default=4,
                    help="global CommChannel pool partitioned across loops")
     p.add_argument("--aggregate", default="slice",

@@ -9,8 +9,11 @@ backend's ``manual`` flag, never by a mode name:
   scaled by 1/ring size, autograd gives the local gradients,
   ``tac.sync_grads`` sums them over the ring through the backend's
   collective schedule, and the backend's ``apply_update`` turns the sum
-  into an update. The reference runs this body inside a manual
-  ``shard_map``; here the process *is* the peer.
+  into an update (for the ``zero1`` backends: this peer's flat shard,
+  then the gather epilogue). The state layout is the backend's
+  ``state_specs``. The reference runs this body inside a manual
+  ``shard_map`` and its state carries a leading ring dim; here the
+  process *is* the peer and holds its own row.
 * gspmd (``manual=False``) — local gradients and a tree AdamW with no
   exchange, on one peer only (a wider ring needs FSDP2/DTensor,
   ROADMAP.md Queue 1 item 8).
@@ -22,7 +25,7 @@ later slice.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -30,10 +33,12 @@ import torch.distributed as dist
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import tac
-from repro_torch.core.backends import UpdateContext, get_backend
+from repro_torch.core.backends import (UpdateContext, get_backend,
+                                       scatter_group_size)
+from repro_torch.core.backends.base import EF
 from repro_torch.core.channels import Ring
 from repro_torch.models import api
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_map, tree_paths
 from repro_torch.optim import adamw
 
 Tree = Any
@@ -41,9 +46,12 @@ Tree = Any
 
 class TrainState(NamedTuple):
     params: Tree
-    opt: adamw.AdamState
+    opt: adamw.AdamState          # tree moments, or this peer's flat
+    #                               ZeRO-1 shards (zero1 backends)
     step: int
-    ef: Optional[torch.Tensor] = None   # this peer's error-feedback row
+    ef: EF = None                 # this peer's error-feedback residual: a
+    #                               tensor keyed to the ring plan, or a
+    #                               tuple keyed by bucket id
 
 
 def _loss_and_grads(params: Tree, batch: dict, run: RunConfig,
@@ -65,18 +73,31 @@ def init_train_state(gen: torch.Generator, run: RunConfig,
 
 
 def init_tac_state(gen: torch.Generator, run: RunConfig,
-                   device: DeviceLike = None) -> TrainState:
+                   device: DeviceLike = None, *,
+                   n_shards: int = 1) -> TrainState:
     """Params from ``gen``; moments and error feedback laid out as the
-    backend's ``state_specs`` say, zero-filled on ``device``."""
+    backend's ``state_specs`` say for a ring of ``n_shards`` peers,
+    zero-filled on ``device``."""
     dev = resolve_device(device)
-    specs = get_backend(run.comm.mode).state_specs(run)
+    return tac_state(api.init(gen, run.model, device=dev), run,
+                     n_shards=n_shards)
+
+
+def tac_state(params: Tree, run: RunConfig, *,
+              n_shards: int = 1) -> TrainState:
+    """A step-0 TAC state around ``params``: moments and error feedback
+    laid out as the backend's ``state_specs`` say for a ring of
+    ``n_shards`` peers, zero-filled on the params' device."""
+    dev = tree_paths(params)[0][1].device
+    specs = get_backend(run.comm.mode).state_specs(run, n_shards)
     zeros = lambda m: torch.zeros(m.shape, dtype=m.dtype, device=dev)
-    return TrainState(
-        params=api.init(gen, run.model, device=dev),
-        opt=adamw.AdamState(tree_map(zeros, specs.opt.mu),
-                            tree_map(zeros, specs.opt.nu), 0),
-        step=0,
-        ef=None if specs.ef is None else zeros(specs.ef))
+    ef = specs.ef
+    if ef is not None:
+        ef = tuple(map(zeros, ef)) if isinstance(ef, tuple) else zeros(ef)
+    return TrainState(params=params,
+                      opt=adamw.AdamState(tree_map(zeros, specs.opt.mu),
+                                          tree_map(zeros, specs.opt.nu), 0),
+                      step=0, ef=ef)
 
 
 def make_train_step_tac(run: RunConfig, ring: Ring):
@@ -86,7 +107,8 @@ def make_train_step_tac(run: RunConfig, ring: Ring):
     backend = get_backend(comm.mode)
     backend.validate(comm)
     n_shards = ring.world_size
-    uctx = UpdateContext(ring=ring)
+    uctx = UpdateContext(ring=ring, eff_shards=scatter_group_size(
+        n_shards, 1, comm))
 
     def step_fn(state: TrainState, batch: dict):
         # local loss scaled so the ring sum of the grads is the global mean

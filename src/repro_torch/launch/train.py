@@ -20,10 +20,16 @@ CLI::
   # CPU-sized smoke run
   python -m repro_torch.launch.train --arch qwen2-0.5b-reduced \\
       --device cpu --steps 2 --global-batch 2 --seq-len 32
+
+  # bucketed ZeRO-1 on a ring of 2 peers on the CPU (gloo)
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch qwen2-0.5b-reduced --device cpu --steps 3 --global-batch 4 \\
+      --seq-len 32 --mode hadronio_overlap_rs --compress bf16
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Optional
 
@@ -68,7 +74,8 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(
             self.run.seed if seed is None else seed)
         if get_backend(self.run.comm.mode).manual:
-            return steps_mod.init_tac_state(gen, self.run, self.device)
+            return steps_mod.init_tac_state(gen, self.run, self.device,
+                                            n_shards=self.ring.world_size)
         return steps_mod.init_train_state(gen, self.run, self.device)
 
     def batch(self, step: int) -> dict:
@@ -130,7 +137,10 @@ def main(argv=None) -> int:
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--mode", default="hadronio",
-                   choices=list(available_modes()))
+                   choices=list(available_modes()),
+                   help="gradient exchange; the ZeRO-1 modes (hadronio_rs, "
+                        "hadronio_overlap_rs) reduce-scatter the gradients "
+                        "and shard the optimizer moments over the ring")
     p.add_argument("--compress", default="none",
                    choices=list(CommConfig.COMPRESS_CODECS))
     p.add_argument("--pack", default="jnp",
@@ -153,12 +163,28 @@ def main(argv=None) -> int:
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)
 
-    trainer = Trainer(build_run(args), device=args.device)
+    # under torchrun each process is one peer: join the launcher's ring
+    own_group = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if own_group:
+        device = resolve_device(args.device)
+        if device.type == "cuda":     # one card per peer of the host
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method="env://")
     try:
-        out = trainer.run_loop()
+        rank0 = not dist.is_initialized() or dist.get_rank() == 0
+        trainer = Trainer(build_run(args), device=args.device,
+                          log_fn=print if rank0 else lambda line: None)
+        try:
+            out = trainer.run_loop()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
-    print(f"final loss: {out['final_loss']:.4f}")
+        if own_group:
+            dist.destroy_process_group()
+    if rank0:
+        print(f"final loss: {out['final_loss']:.4f}")
     return 0
 
 

@@ -43,17 +43,21 @@ def stacked(spec: ParamSpec, layers: int) -> ParamSpec:
 
 def tree_paths(tree: Tree) -> list[tuple[str, Any]]:
     """Flatten a nested-dict tree into (dotted_path, leaf) pairs, keys
-    sorted at every level (the order ``jax.tree.flatten`` gives dicts)."""
+    sorted at every level (the order ``jax.tree.flatten`` gives dicts).
+    Iterative: a recursive closure would be a reference cycle holding
+    every leaf until the cyclic garbage collector ran (gigabytes of
+    gradients at full width)."""
     out: list[tuple[str, Any]] = []
-
-    def rec(prefix: str, node: Any):
+    stack = [("", tree)]
+    while stack:
+        prefix, node = stack.pop()
         if isinstance(node, dict):
-            for k in sorted(node):
-                rec(f"{prefix}.{k}" if prefix else str(k), node[k])
+            # pushed in reverse, so popped in sorted order, depth first
+            for k in sorted(node, reverse=True):
+                stack.append((f"{prefix}.{k}" if prefix else str(k),
+                              node[k]))
         else:
             out.append((prefix, node))
-
-    rec("", tree)
     return out
 
 

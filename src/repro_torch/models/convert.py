@@ -5,7 +5,8 @@
 the reference's JAX param pytree after ``np.asarray`` on every leaf —
 into the port's params with the same dotted paths.
 ``from_numpy_train_state`` does the same for a whole JAX ``TrainState``
-(params, Adam moments and count, step, error feedback). bfloat16 arrives as
+(params, Adam moments and count, step, error feedback), tree or ZeRO-1
+flat moments alike. bfloat16 arrives as
 the ml_dtypes ``bfloat16`` numpy dtype, which ``torch.from_numpy``
 rejects: it crosses as its 16-bit pattern (``int16``) and is
 reinterpreted as ``torch.bfloat16``. The dtype is recognised by name, so
@@ -42,19 +43,26 @@ def from_numpy_train_state(state: Any, device: DeviceLike = None, *,
                            rank: int = 0):
     """The reference's ``TrainState`` after ``np.asarray`` on every leaf
     -> the port's ``launch.steps.TrainState`` on ``device``: params,
-    Adam ``mu``/``nu``/``count``, ``step``, and this peer's row
-    ``ef[rank]`` of the error feedback (the reference's global EF
-    carries a leading ring dim; a port process holds its own row).
-    Fields are read by name, so the JAX types need not be importable."""
+    Adam ``mu``/``nu``/``count``, ``step`` and the error feedback. The
+    reference's ring-sharded leaves carry a leading ring dim and a port
+    process holds its own row ``rank``: of the error feedback (one array
+    keyed to the ring plan, or a tuple per bucket), and of the moments
+    when they are ZeRO-1 flat shards, ``(n_shards, len)`` arrays instead
+    of trees. Fields are read by name and layouts from the leaves, so
+    the JAX types need not be importable."""
     from repro_torch.launch.steps import TrainState
     from repro_torch.optim.adamw import AdamState
     dev = resolve_device(device)
-    ef = None if state.ef is None else from_numpy(np.asarray(state.ef)[rank],
-                                                  dev)
+    row = lambda a: from_numpy(np.asarray(a)[rank], dev)
+    moments = lambda m: from_numpy_params(m, dev) if isinstance(m, dict) \
+        else row(m)
+    ef = state.ef
+    if ef is not None:
+        ef = tuple(map(row, ef)) if isinstance(ef, (tuple, list)) \
+            else row(ef)
     return TrainState(
         params=from_numpy_params(state.params, dev),
-        opt=AdamState(mu=from_numpy_params(state.opt.mu, dev),
-                      nu=from_numpy_params(state.opt.nu, dev),
+        opt=AdamState(mu=moments(state.opt.mu), nu=moments(state.opt.nu),
                       count=int(np.asarray(state.opt.count))),
         step=int(np.asarray(state.step)),
         ef=ef)

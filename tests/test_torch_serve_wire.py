@@ -49,7 +49,9 @@ from repro_torch.serving import Request, dispatch, make_engine_group
 
 ARCH = "qwen2-0.5b-reduced"
 TOL = dict(atol=1e-4, rtol=1e-4)
-MODES = ("gspmd", "sockets", "vma", "hadronio")
+MODES = ("gspmd", "sockets", "vma", "hadronio", "hadronio_rs",
+         "hadronio_overlap", "hadronio_overlap_rs")
+SLICED = tuple(m for m in MODES if m.startswith("hadronio"))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -173,7 +175,8 @@ def _count_collectives(monkeypatch):
 def test_decode_collectives_per_step(qwen, ring, mode, monkeypatch):
     """One decode step's logit reduction: one collective per ring slice
     under ``aggregate="slice"``, min(channels, slices) coalesced flushes
-    under ``"channel"`` (the sliced wire); one whole-payload collective
+    under ``"channel"`` (the sliced wire of the hadronio family, the
+    overlap modes flushing when ready); one whole-payload collective
     for sockets and vma; none for gspmd, whose step at ring size 1 with
     no affinity is the pure local path (the reference's
     ``test_serving_collectives_flow_through_staged_emission``)."""
@@ -181,7 +184,7 @@ def test_decode_collectives_per_step(qwen, ring, mode, monkeypatch):
     n_channels = 2
     n_slices = dispatch.logit_payload_slices(tcfg, 2, _comm(mode))
     assert n_slices > n_channels
-    want = {"slice": n_slices, "channel": n_channels} if mode == "hadronio" \
+    want = {"slice": n_slices, "channel": n_channels} if mode in SLICED \
         else dict.fromkeys(("slice", "channel"),
                            0 if mode == "gspmd" else 1)
     toks, lens = _inputs(tcfg.vocab_size)
@@ -387,7 +390,8 @@ _WORKER = textwrap.dedent('''
                 "token": lp.argmax(-1), "pos": torch.as_tensor(lens)})
             return lp.numpy(), ld.numpy()
 
-        for mode in ("gspmd", "sockets", "vma", "hadronio"):
+        for mode in ("gspmd", "sockets", "vma", "hadronio", "hadronio_rs",
+                     "hadronio_overlap_rs"):
             res["logits", mode] = logits(mode)
         res["logits", "hadronio(1, 3)"] = logits("hadronio", (1, 3))
         res["logits", "hadronio/channel/ready"] = logits(
@@ -465,8 +469,10 @@ def _ring_data(qwen):
 
 def test_ring_of_four_peers(qwen, tmp_path):
     """The reference's four-device serving check on four gloo peers:
-    prefill logits bitwise across modes and an affinity; decode logits
-    within rtol 1e-6, atol 1e-6 of the largest logit (gloo's order);
+    prefill logits bitwise across modes (the ZeRO-1 modes too) and an
+    affinity; decode logits within rtol 1e-6, atol 1e-6 of the largest
+    logit (gloo's order), and the ZeRO-1 modes' bitwise equal to
+    hadronio's;
     group greedy tokens equal across modes and 1 and 2 event loops, with
     max_batch 2 below the ring size (padded rows, admission), and equal
     to the JAX one-device group's; an admitted request equal to its solo
@@ -477,7 +483,8 @@ def test_ring_of_four_peers(qwen, tmp_path):
     ref_p, ref_d = res["logits", "gspmd"]
     assert ref_p.shape == (4, tcfg.vocab_size)
     worst = 0.0
-    for key in ("sockets", "vma", "hadronio", "hadronio(1, 3)",
+    for key in ("sockets", "vma", "hadronio", "hadronio_rs",
+                "hadronio_overlap_rs", "hadronio(1, 3)",
                 "hadronio/channel/ready"):
         got_p, got_d = res["logits", key]
         np.testing.assert_array_equal(got_p, ref_p)
@@ -486,6 +493,11 @@ def test_ring_of_four_peers(qwen, tmp_path):
         worst = max(worst, float(np.abs(got_d - ref_d).max()))
     print(f"4 peers: largest decode-logit difference across modes {worst:.3e}"
           f" (max |logit| {np.abs(ref_d).max():.3e})")
+    for key in ("hadronio_rs", "hadronio_overlap_rs"):
+        # the ZeRO-1 modes serve through hadronio's sliced wire: the same
+        # slices, summed in the same order, bit for bit
+        np.testing.assert_array_equal(res["logits", key][1],
+                                      res["logits", "hadronio"][1])
     toks = {k[1:]: v for k, v in res.items() if k[0] == "tokens"}
     first = toks["hadronio", 1]
     assert all(t == first for t in toks.values()), toks

@@ -224,7 +224,7 @@ def test_serve_config_validation():
     with pytest.raises(ValueError, match="channels"):
         ServeConfig(event_loops=8, comm=CommConfig(channels=4))
     with pytest.raises(ValueError, match="comm mode"):
-        CommConfig(mode="hadronio_rs")
+        CommConfig(mode="ucx")
 
 
 # -- CLI and the no-quiet-CPU rule -------------------------------------------
