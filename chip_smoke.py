@@ -84,6 +84,27 @@ non-zero (no phase's failure is caught):
    ``vma/bf16/pallas``, ``sockets`` (one all-reduce per gradient
    tensor), ``gspmd`` and the four family runs from one start state;
    profiles one step of each; reports peak memory;
+5d. the fault-tolerant trainer, on the same ring, ``hadronio/bf16/pallas``
+   at B=4, S=1024, seed 0: writes a token shard (8 M uint16 tokens from
+   a numpy generator, seed 0, with its ``.meta``) into a temporary
+   directory (after printing its ``df`` and checking it has room for
+   three checkpoints) and trains from it (``--data``); 3 steps at
+   ``microbatches`` 1 and 2 from one start state, checking finite,
+   falling losses, one pack and one unpack launch per step at both and
+   a lower peak memory at 2; then the main path, ``train_with_restarts``
+   for 4 steps at ``microbatches=2`` with asynchronous checkpoints every
+   2 steps (keep 2) and ``REPRO_FAULT_AT_STEP=3``: checks one restart,
+   the state restored from step 2 bitwise equal to the live state saved
+   there (params, moments, count, EF), the final loss within 1e-5 of an
+   uninterrupted run, and reports whether the final params are bitwise
+   equal; saves and restores a ``hadronio_rs`` state (flat ZeRO-1
+   moments) at ring size 1, bitwise; reports checkpoint bytes, blocking
+   save, snapshot and restore seconds, and the step time with an
+   asynchronous save in flight against without. Each Trainer is closed
+   after use (its channel communicators destroyed), and the cache is
+   emptied before each new ring, whose communicators NCCL allocates
+   outside PyTorch's allocator; ``[memory]`` lines print the card's free
+   memory there. The directory is removed at the end, whatever happened;
 6. serve rwkv6-7b (WKV6 kernel) and recurrentgemma-9b (RG-LRU kernel,
    flash at head_dim 256) at full width, bf16, random weights from the
    card's generator, through the same path: 8 requests in four pairs of
@@ -113,6 +134,7 @@ Exits non-zero without a result when CUDA is not available.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -859,6 +881,350 @@ def bucket_shape_times(smi, gen, dev, sizes) -> dict:
     return out
 
 
+# phase 5d: the fault-tolerant trainer (microbatches, checkpoints, restart)
+FAULT_ENV = ("REPRO_FAULT_AT_STEP", "REPRO_FAULT_FLAG")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def write_token_shard(path: str, n_tokens: int, vocab: int) -> None:
+    """One uint16 token shard with its ``.meta`` sidecar, from a numpy
+    generator (seed 0): zipfian ids below ``vocab`` and 65536, so a model
+    learns."""
+    os.makedirs(path)
+    rng = np.random.default_rng(0)
+    ids = (rng.zipf(1.5, n_tokens) - 1) % min(vocab, 65536)
+    ids.astype(np.uint16).tofile(
+        os.path.join(path, "shard_0.bin"))
+    with open(os.path.join(path, "shard_0.meta"), "w") as f:
+        f.write("uint16")
+
+
+def checkpoint_root(need_bytes: float) -> str:
+    """The temporary directory's parent: TMPDIR or the checkout's
+    ``build/``, whichever has more room. Prints its ``df``; raises when
+    it has less than ``need_bytes`` free."""
+    import shutil
+    import tempfile
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    root = max((tempfile.gettempdir(), build),
+               key=lambda d: shutil.disk_usage(d).free)
+    print(subprocess.run(["df", "-h", root], capture_output=True,
+                         text=True).stdout.rstrip())
+    free = shutil.disk_usage(root).free
+    print(f"[ckpt] temporary directory under {root}: {free / 1e9:.1f} GB "
+          f"free, {need_bytes / 1e9:.1f} GB needed")
+    if free < need_bytes:
+        raise RuntimeError(f"{root} has {free / 1e9:.1f} GB free, less than "
+                           f"three checkpoints ({need_bytes / 1e9:.1f} GB)")
+    return root
+
+
+def release_memory(label: str) -> None:
+    """Collect the garbage, give PyTorch's cached blocks back to the card
+    and print what is left: NCCL allocates a new communicator's buffers
+    outside PyTorch's allocator, at the communicator's first collective,
+    and fails when the cache holds the whole card. Phases 5 and 5d call
+    it before each new ring's first step."""
+    held = torch.cuda.mem_get_info()[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[memory] {label}: allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB (peak "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB), free on the "
+          f"card {free / 1e9:.2f} of {total / 1e9:.2f} GB "
+          f"({held / 1e9:.2f} GB before the cache was emptied)")
+
+
+def state_pairs(g, w) -> list:
+    """The tensor leaves of two train states' ``leaf_files`` lists,
+    paired by checkpoint file name; the ints (step, Adam count) must be
+    equal."""
+    assert [n for n, _ in g] == [n for n, _ in w]
+    for (name, a), (_, b) in zip(g, w):
+        if not torch.is_tensor(b):
+            assert a == b, (name, a, b)
+    return [(a, b) for (_, a), (_, b) in zip(g, w) if torch.is_tensor(b)]
+
+
+def train_fault_tolerant(smi, cfg, train_run, dev) -> dict:
+    """Phase 5d: the fault-tolerant trainer at full width on the one-peer
+    NCCL ring, hadronio/bf16/pallas, B=4, S=1024, seed 0, data from a
+    token shard (``--data``): (a) write the shard; (b) 3 steps at
+    ``microbatches`` 1 and 2 from one start state, with their launches
+    and peak memory; (c) the main path, ``train_with_restarts`` with
+    checkpoints every 2 steps and a fault injected at step 3, against an
+    uninterrupted run; (d) a ``hadronio_rs`` state saved and restored at
+    ring size 1; (e) checkpoint bytes, save and restore seconds, and the
+    step time with an asynchronous save in flight. Returns the ring
+    kernels' launches."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointStore, leaf_files
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import Trainer, train_with_restarts
+    from repro_torch.models.common import tree_paths
+    wrappers = (ops.pack_slices, ops.unpack_slices, ops.flash_attention)
+
+    def reset():
+        for w in wrappers:
+            w.launches = 0
+
+    def launches():
+        return {w.__name__: w.launches for w in wrappers}
+
+    total = {"pack_slices": 0, "unpack_slices": 0}
+    release_memory("before phase 5d")
+
+    def count(got, n_steps, label):
+        assert got == {"pack_slices": n_steps, "unpack_slices": n_steps,
+                       "flash_attention": 0}, (label, got)
+        for k in total:
+            total[k] += got[k]
+
+    # bf16 params, f32 moments, f32 error feedback (padded slices)
+    ckpt_bytes = cfg.param_count() * (2 + 4 + 4 + 4)
+    tmp = tempfile.mkdtemp(prefix="ckpt-smoke-",
+                           dir=checkpoint_root(3 * ckpt_bytes))
+    env = {k: os.environ.get(k) for k in FAULT_ENV}
+    try:
+        # -- a. a token shard, read through --data
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_token_shard(data, 8 * 2 ** 20 + 4096, cfg.vocab_size)
+        print(f"[ckpt] token shard: {8 * 2 ** 20 + 4096} uint16 tokens "
+              f"written in {time.perf_counter() - t0:.2f} s")
+
+        def ft_run(mb, **kw):
+            return dataclasses.replace(
+                train_run("hadronio", compress="bf16", pack="pallas"),
+                microbatches=mb, data_path=data, **kw)
+
+        # -- b. microbatches 1 and 2 from one start state
+        peaks, mb_losses = {}, {}
+        start = None
+        for mb in (1, 2):
+            t = Trainer(ft_run(mb, total_steps=3), device=dev, log_every=10)
+            start = t.init_state() if start is None else start
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            o = t.run_loop(start)
+            torch.cuda.synchronize()
+            got = launches()
+            peaks[mb] = torch.cuda.max_memory_allocated() / 1e9
+            mb_losses[mb] = o["losses"]
+            print(f"[train-ft] {cfg.name} hadronio/bf16/pallas --data, "
+                  f"microbatches={mb} (B=4 as {mb} x {4 // mb}): losses "
+                  f"{[round(x, 4) for x in o['losses']]}, step s "
+                  f"{[round(x, 4) for x in o['step_s']]}, launches {got}, "
+                  f"peak memory {peaks[mb]:.2f} GB ({peaks[mb] - live:.2f} "
+                  f"GB above the {live:.2f} GB live) | {smi}")
+            assert all(np.isfinite(o["losses"])), o["losses"]
+            assert o["losses"][-1] < o["losses"][0], o["losses"]
+            count(got, 3, f"microbatches={mb}")
+            t.close()
+            del o, t
+        print(f"[train-ft] peak memory microbatches 1 -> 2: {peaks[1]:.2f} "
+              f"-> {peaks[2]:.2f} GB ({peaks[1] - peaks[2]:.2f} GB less); "
+              "max |loss difference| "
+              f"{max(abs(a - b) for a, b in zip(*mb_losses.values())):.3e}")
+        assert peaks[2] < peaks[1], peaks
+        del start
+        release_memory("after 5d.b")
+
+        # -- c. the main path: checkpoints every 2 steps, a fault at step
+        # 3, a restart from LATEST (step 2), against an uninterrupted run
+        ck = os.path.join(tmp, "ckpt")
+        run = ft_run(2, total_steps=4, checkpoint_dir=ck,
+                     checkpoint_every=2, keep_checkpoints=2,
+                     async_checkpoint=True)
+        os.environ["REPRO_FAULT_AT_STEP"] = "3"
+        os.environ["REPRO_FAULT_FLAG"] = os.path.join(tmp, "fault_fired")
+        saved, restored, made, lines, times = {}, [], [], [], {}
+
+        class Probe(Trainer):
+            """Keeps a device copy of the state saved at step 2 and each
+            restored state; times the saves' snapshots and the restore."""
+
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(len(made))
+                save = self.store.save_async
+
+                def spy(step, state, extra=None):
+                    if step == 2:
+                        saved[step] = [(n, x.clone() if torch.is_tensor(x)
+                                        else x) for n, x in
+                                       leaf_files(state)]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    save(step, state, extra)
+                    times.setdefault("snapshot", []).append(
+                        time.perf_counter() - t0)
+                self.store.save_async = spy
+
+            def restore_or_init(self):
+                t0 = time.perf_counter()
+                state = super().restore_or_init()
+                torch.cuda.synchronize()
+                if len(made) > 1:
+                    times.setdefault("restore", []).append(
+                        time.perf_counter() - t0)
+                    restored.append(state)
+                return state
+
+        reset()
+        t0 = time.perf_counter()
+        out = train_with_restarts(
+            lambda: Probe(run, device=dev, log_every=1, log_fn=lines.append),
+            log_fn=lines.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launches()
+        for k in FAULT_ENV:
+            del os.environ[k]
+        store = CheckpointStore(ck)
+        step_bytes = dir_bytes(store.step_dir(4))
+        print(f"[train-ft] main path: train_with_restarts, microbatches=2, "
+              f"--ckpt every 2 (async, keep 2), fault at step 3: restarts "
+              f"{out['restarts']}, losses after the restart "
+              f"{[round(x, 4) for x in out['losses']]}, checkpoints "
+              f"{store.available_steps()} (LATEST {store.latest_step()}), "
+              f"launches {got} (3 steps before the fault, 2 after), "
+              f"{wall:.2f} s in all; snapshot s "
+              f"{[round(x, 3) for x in times['snapshot']]}, restore s "
+              f"{[round(x, 3) for x in times['restore']]} | {smi}")
+        for line in lines:
+            if line.startswith(("[supervisor]", "[trainer] restoring")):
+                print(f"[train-ft]   {line}")
+        assert out["restarts"] == 1 and len(made) == 2, out["restarts"]
+        assert store.available_steps() == [2, 4] and \
+            store.latest_step() == 4
+        count(got, 5, "main path")
+        names = [n for n, _ in saved[2]]
+        check_bitwise("restored step-2 state vs the live state saved at "
+                      f"step 2 ({len(names)} leaves: params, mu, nu, EF)",
+                      state_pairs(leaf_files(restored[0]), saved[2]))
+        ef = dict(saved[2])[".ef.npy"]
+        print(f"[train-ft]   max|EF| at step 2 {float(ef.abs().max()):.3e} "
+              "(f32 accumulated grads: the bf16 wire leaves a residual)")
+        del saved, restored, made, ef
+        release_memory("after 5d.c's restarted run")
+
+        clean = Trainer(ft_run(2, total_steps=4), device=dev, log_every=10)
+        ref = clean.run_loop()
+        d_loss = abs(out["final_loss"] - ref["final_loss"])
+        diff = [p for (p, a), (_, b) in zip(
+            tree_paths(out["state"].params), tree_paths(ref["state"].params))
+            if not torch.equal(bits(a), bits(b))]
+        print(f"[train-ft] uninterrupted run: losses "
+              f"{[round(x, 4) for x in ref['losses']]}; final loss "
+              f"{out['final_loss']:.6f} restarted vs {ref['final_loss']:.6f} "
+              f"(|diff| {d_loss:.3e}, limit 1e-5); final params bitwise "
+              f"equal: {not diff}" + (f" (differ: {diff})" if diff else ""))
+        assert d_loss < 1e-5, d_loss
+        del out
+        release_memory("after 5d.c's uninterrupted run")
+
+        # -- d. hadronio_rs (flat ZeRO-1 moment shards) at ring size 1
+        rs_run = dataclasses.replace(
+            train_run("hadronio_rs", compress="bf16", pack="pallas"),
+            total_steps=1, data_path=data)
+        t = Trainer(rs_run, device=dev, log_every=10)
+        reset()
+        state = t.run_loop()["state"]
+        count(launches(), 1, "hadronio_rs")
+        rs_store = CheckpointStore(os.path.join(tmp, "rs"), keep=1,
+                                   group=dist.group.WORLD,
+                                   rows=steps_mod.ring_rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs_store.save(1, state)
+        save_s = time.perf_counter() - t0
+        rs_bytes = dir_bytes(rs_store.step_dir(1))
+        t0 = time.perf_counter()
+        back, s = elastic.restore_elastic(rs_store, rs_run, t.ring,
+                                          device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mu_shape = rs_store.manifest(1)["leaves"]
+        mu_shape = [x["shape"] for x in mu_shape
+                    if x["file"] == ".opt_.mu.npy"]
+        assert s == 1 and mu_shape == [[1, state.opt.mu.numel()]], mu_shape
+        check_bitwise(f"hadronio_rs state saved and restored at ring size 1 "
+                      f"(flat moments {tuple(state.opt.mu.shape)}, stored "
+                      f"{tuple(mu_shape[0])})",
+                      state_pairs(leaf_files(back), leaf_files(state)))
+        print(f"[ckpt] hadronio_rs checkpoint {rs_bytes / 1e9:.3f} GB: "
+              f"blocking save {save_s:.2f} s ({rs_bytes / save_s / 1e9:.2f}"
+              f" GB/s), restore {restore_s:.2f} s "
+              f"({rs_bytes / restore_s / 1e9:.2f} GB/s) | {smi}")
+        t.close()
+        del state, back, t
+        shutil.rmtree(os.path.join(tmp, "rs"))
+        release_memory("after 5d.d")
+
+        # -- e. the step time with an asynchronous save in flight
+        state = ref.pop("state")
+        batch = clean.batch(4)
+
+        def timed_steps(n):
+            out = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                _, m = clean.step_fn(state, batch)
+                float(m["loss"])
+                out.append((time.perf_counter() - t0) * 1e3)
+                del m
+            return out
+
+        e_store = CheckpointStore(os.path.join(tmp, "e"), keep=1,
+                                  group=dist.group.WORLD,
+                                  rows=steps_mod.ring_rows)
+        before = timed_steps(4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_store.save_async(4, state)
+        snap_s = time.perf_counter() - t0
+        during = timed_steps(4)
+        t0 = time.perf_counter()
+        e_store.wait()
+        left_s = time.perf_counter() - t0
+        after = timed_steps(4)
+        print(f"[ckpt] hadronio checkpoint {step_bytes / 1e9:.3f} GB "
+              f"(params, mu, nu, EF); async save: snapshot {snap_s:.2f} s "
+              f"(blocking), the write still ran {left_s:.2f} s after the 4 "
+              f"steps below; step ms (microbatches=2) without a save "
+              f"{[round(x, 1) for x in before]}, with the write in flight "
+              f"{[round(x, 1) for x in during]}, after "
+              f"{[round(x, 1) for x in after]} (median "
+              f"{statistics.median(before + after):.1f} vs "
+              f"{statistics.median(during):.1f}) | {smi}")
+        clean.close()
+        del state, clean, ref
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1526,6 +1892,7 @@ def main() -> int:
     # the libvma analogue trains through the same kernels on a second
     # path: one pack and one unpack a step around ONE all-reduce
     trainer.log_every = 10
+    release_memory("before the vma run (a new ring)")
     vma = Trainer(train_run("vma", compress="bf16", pack="pallas"),
                   device=dev, log_every=10)
     for wrapper in (ops.pack_slices, ops.unpack_slices):
@@ -1573,6 +1940,7 @@ def main() -> int:
             "gspmd (no exchange)": Trainer(train_run("gspmd"), device=dev,
                                            log_every=10)}
     runs.update({label: t for label, (t, _, _) in family.items()})
+    release_memory("before the timed runs (three new rings)")
 
     def state0(t, state):
         """``state`` in ``t``'s layout: as it is for the tree-moment
@@ -1618,8 +1986,13 @@ def main() -> int:
               f" ms, unpack {part(lambda k: '::unpack_kernel' in k):.3f} "
               f"ms, nccl {part(lambda k: 'nccl' in k.lower()):.3f} ms; top: "
               + "; ".join(f"{name[:100]} {ms:.3f}" for name, ms in ranked))
+    for t in runs.values():     # their channel communicators go too
+        t.close()
     del runs, t, vma, family
     del start, trainer
+
+    # -- 5d. the fault-tolerant trainer ---------------------------------------
+    ft_launches = train_fault_tolerant(smi, cfg, train_run, dev)
 
     # -- 6. serve rwkv6-7b and recurrentgemma-9b at full width ---------------
     rwkv_launches = serve_recurrent(
@@ -1649,7 +2022,8 @@ def main() -> int:
         {"name": "pack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:61",
          "launches": train_launches["pack_slices"]
-         + vma_launches["pack_slices"] + family_launches["pack_slices"],
+         + vma_launches["pack_slices"] + family_launches["pack_slices"]
+         + ft_launches["pack_slices"],
          "max_abs_err": pack_err,
          "ms": rp["pack_ef"]["ms"], "plain_ms": rp["pack_ef"]["plain_ms"],
          "bound_ms": rp["pack_ef"]["bound_ms"], "bound_by": "bytes",
@@ -1658,7 +2032,8 @@ def main() -> int:
         {"name": "unpack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:100",
          "launches": train_launches["unpack_slices"]
-         + vma_launches["unpack_slices"] + family_launches["unpack_slices"],
+         + vma_launches["unpack_slices"] + family_launches["unpack_slices"]
+         + ft_launches["unpack_slices"],
          "max_abs_err": unpack_err,
          "ms": rp["unpack"]["ms"], "plain_ms": rp["unpack"]["plain_ms"],
          "bound_ms": rp["unpack"]["bound_ms"], "bound_by": "bytes",

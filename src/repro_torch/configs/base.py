@@ -215,8 +215,13 @@ class ServeConfig:
 @dataclass(frozen=True)
 class RunConfig:
     """What the trainer needs beyond the model: the reference's
-    optimizer, data and seed fields (checkpointing and restarts come in
-    a later slice, ROADMAP.md Queue 1)."""
+    optimizer, gradient accumulation, checkpointing and restart, data and
+    seed fields, with its defaults. ``microbatches`` splits each peer's
+    batch for gradient accumulation; ``checkpoint_dir`` (empty: no
+    checkpoints) receives a checkpoint every ``checkpoint_every`` steps
+    and at the end, the last ``keep_checkpoints`` kept, written on a
+    thread when ``async_checkpoint``; ``max_restarts`` bounds the
+    supervision loop (``launch/train.train_with_restarts``)."""
 
     model: ModelConfig
     shape: ShapeConfig
@@ -231,6 +236,14 @@ class RunConfig:
     grad_clip: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 1000
+    microbatches: int = 1              # gradient accumulation
+
+    # checkpointing / fault tolerance
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
+    max_restarts: int = 100
 
     # data
     data_path: str = ""                # empty -> synthetic

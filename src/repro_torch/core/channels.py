@@ -8,7 +8,8 @@ channels are independent streams of collectives, while the collectives
 of one channel run in issue order on its communicator (the ordering the
 reference pins with ``optimization_barrier``). :class:`Ring` owns the
 ring's group and creates the channel communicators once, in channel
-order on every rank, as ``new_group`` requires.
+order on every rank, as ``new_group`` requires; :meth:`Ring.close`
+destroys them.
 
 The hadronio-family backends (``core/backends/pipeline``) assign
 ring-buffer slices to channels round-robin (paper §IV-C) or, under
@@ -50,6 +51,14 @@ class Ring:
             group if group is not None else dist.group.WORLD)
         self.channel_groups = tuple(dist.new_group(ranks=ranks)
                                     for _ in range(channels))
+
+    def close(self) -> None:
+        """Destroy the channel communicators (their device buffers live
+        outside PyTorch's allocator); ``group`` is left to its owner.
+        Every rank closes its ring, as every rank created it."""
+        groups, self.channel_groups = self.channel_groups, ()
+        for g in groups:
+            dist.destroy_process_group(g)
 
 
 @dataclass(frozen=True)

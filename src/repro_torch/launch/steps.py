@@ -18,10 +18,16 @@ backend's ``manual`` flag, never by a mode name:
   exchange, on one peer only (a wider ring needs FSDP2/DTensor,
   ROADMAP.md Queue 1 item 8).
 
+Both families accumulate gradients over ``run.microbatches`` sequential
+microbatches (``_accumulate_grads``), as the reference does: one
+microbatch gives the gradients in the parameter dtype, more give their
+f32 mean. The exchange runs once per step, after the accumulation.
+
 A step is ``step_fn(state, batch) -> (state, metrics)`` with ``batch``
 {"tokens", "labels"} on the device; metrics are 0-d tensors plus the
-Python float ``lr``. Gradient accumulation (``microbatches``) comes in a
-later slice.
+Python float ``lr``. ``abstract_state`` is the state's layout as
+``meta`` tensors (the ``like`` tree of a checkpoint restore) and
+``ring_rows`` names the checkpoint leaves each peer holds one row of.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import tac
 from repro_torch.core.backends import (UpdateContext, get_backend,
@@ -57,13 +63,51 @@ class TrainState(NamedTuple):
 def _loss_and_grads(params: Tree, batch: dict, run: RunConfig,
                     n_shards: int):
     """(loss / n_shards, its grads) by autograd over fresh leaves that
-    alias the params."""
+    alias the params. ``backward`` frees the graph before this returns."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, _aux = api.loss(leaves, batch, run.model)
         loss = loss / n_shards
         loss.backward()
     return loss.detach(), tree_map(lambda p: p.grad, leaves)
+
+
+def _microbatches(batch: dict, n: int) -> dict:
+    """(B, ...) -> (n, B/n, ...) for gradient accumulation (views)."""
+    def split(x):
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"a batch of {b} does not split into {n} "
+                             "microbatches")
+        return x.reshape(n, b // n, *x.shape[1:])
+    return {k: split(v) for k, v in batch.items()}
+
+
+def _accumulate_grads(params: Tree, batch: dict, run: RunConfig,
+                      n_shards: int):
+    """Mean loss and grads over ``run.microbatches`` sequential
+    microbatches. One microbatch returns the grads in the parameter
+    dtype; more sum them in f32 (``acc + g.float()`` from zeros, then
+    ``x 1/n``, the reference's order) and return f32. Each microbatch's
+    graph is freed by its backward before the next forward, so peak
+    memory falls with ``n``."""
+    n = run.microbatches
+    if n == 1:
+        return _loss_and_grads(params, batch, run, n_shards)
+    micro = _microbatches(batch, n)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+    lsum = torch.zeros((), dtype=torch.float32,
+                       device=batch["tokens"].device)
+    for i in range(n):
+        loss, grads = _loss_and_grads(
+            params, {k: v[i] for k, v in micro.items()}, run, n_shards)
+        for (_, a), (_, g) in zip(tree_paths(acc), tree_paths(grads)):
+            a.add_(g)
+        lsum = lsum + loss
+        del grads
+    inv = 1.0 / n
+    return lsum * inv, tree_map(lambda a: a.mul_(inv), acc)
 
 
 def init_train_state(gen: torch.Generator, run: RunConfig,
@@ -100,6 +144,31 @@ def tac_state(params: Tree, run: RunConfig, *,
                       step=0, ef=ef)
 
 
+def abstract_state(run: RunConfig, n_shards: int = 1) -> TrainState:
+    """The state's layout for a ring of ``n_shards`` peers, as ``meta``
+    tensors (no storage): params in their dtype, moments and error
+    feedback as the backend's ``state_specs`` say (this peer's row of
+    the ring-sharded leaves). The ``like`` tree of a checkpoint restore;
+    the counterpart of the reference's ``abstract_tac_state`` and
+    ``abstract_train_state``."""
+    dtype = torch_dtype(run.model.param_dtype)
+    params = tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                            device="meta"),
+                      api.specs(run.model))
+    specs = get_backend(run.comm.mode).state_specs(run, n_shards)
+    return TrainState(params=params, opt=specs.opt, step=0, ef=specs.ef)
+
+
+def ring_rows(name: str) -> bool:
+    """Whether the checkpoint leaf ``name`` (the reference's file name,
+    ``checkpoint.store.leaf_files``) is one that each peer holds one row
+    of: every error-feedback leaf, and the moments when they are ZeRO-1
+    flat shards (a tree of moments has longer names). The reference's
+    state stacks these rows along a leading ring dim."""
+    return name.startswith(".ef") or name in (".opt_.mu.npy",
+                                              ".opt_.nu.npy")
+
+
 def make_train_step_tac(run: RunConfig, ring: Ring):
     """The TAC step over ``ring``: every process runs it on its own
     shard of the global batch."""
@@ -112,7 +181,7 @@ def make_train_step_tac(run: RunConfig, ring: Ring):
 
     def step_fn(state: TrainState, batch: dict):
         # local loss scaled so the ring sum of the grads is the global mean
-        loss, grads = _loss_and_grads(state.params, batch, run, n_shards)
+        loss, grads = _accumulate_grads(state.params, batch, run, n_shards)
         res = tac.sync_grads(grads, comm, ring=ring, ef=state.ef)
         # the loss epilogue after the sync emission, as in the reference
         dist.all_reduce(loss, group=ring.group)
@@ -133,7 +202,7 @@ def make_train_step_gspmd(run: RunConfig, ring: Ring):
             "item 8); use a TAC mode such as hadronio")
 
     def step_fn(state: TrainState, batch: dict):
-        loss, grads = _loss_and_grads(state.params, batch, run, 1)
+        loss, grads = _accumulate_grads(state.params, batch, run, 1)
         new_params, new_opt, metrics = adamw.update(
             grads, state.opt, state.params, run)
         return TrainState(new_params, new_opt, state.step + 1,

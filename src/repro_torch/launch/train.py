@@ -1,10 +1,25 @@
-"""Training entry point of the port.
+"""Fault-tolerant training entry point of the port.
 
-Counterpart of ``repro/launch/train.py`` in its single-run form: a
-``Trainer`` owns the ring, the step function and the data source, and
-``run_loop`` trains from a state to ``total_steps``, data addressed by
-step index. Checkpoints, the watchdog and restarts come in a later
-slice (ROADMAP.md Queue 1).
+Counterpart of ``repro/launch/train.py``:
+
+* ``Trainer`` owns the ring, the step function, the checkpoint store and
+  the data source. ``run_loop()`` trains from the latest checkpoint (or
+  a fresh state) to ``total_steps``; data is addressed by step index,
+  so a resume needs nothing beyond the restored step counter. It saves
+  every ``checkpoint_every`` steps and at the end.
+* ``train_with_restarts`` — the supervision loop: a step that raises
+  (an injected fault, a lost peer) closes its Trainer, and a new one
+  restores from the last checkpoint and continues, up to
+  ``max_restarts`` times.
+* ``Watchdog`` — a timer that ends the process out of a step stuck
+  longer than ``watchdog_secs`` (a dead peer shows as a hang in a
+  synchronous step; the cluster manager restarts the process, which
+  resumes from ``LATEST``).
+* Elastic restarts onto a ring of another size: ``launch/elastic.py``.
+
+Fault injection for tests and demos: ``REPRO_FAULT_AT_STEP=<k>`` makes
+step k raise once; the flag file ``REPRO_FAULT_FLAG`` (default
+``/tmp/repro_fault_fired``) keeps it to once per process tree.
 
 The Trainer joins an existing ``torch.distributed`` default group (one
 process per peer of the ring). Without one it creates a group of one
@@ -13,29 +28,39 @@ that no port is opened) and destroys it in :meth:`Trainer.close`.
 
 CLI::
 
-  python -m repro_torch.launch.train --arch qwen2-0.5b --steps 5 \\
+  python -m repro_torch.launch.train --arch qwen2-0.5b --steps 50 \\
       --global-batch 4 --seq-len 1024 --mode hadronio --compress bf16 \\
-      --pack pallas
+      --pack pallas --microbatches 2 --ckpt /path/run1 --ckpt-every 10 \\
+      --data /path/shards
 
   # CPU-sized smoke run
   python -m repro_torch.launch.train --arch qwen2-0.5b-reduced \\
       --device cpu --steps 2 --global-batch 2 --seq-len 32
 
-  # bucketed ZeRO-1 on a ring of 2 peers on the CPU (gloo)
+  # ZeRO-1 on a ring of 2 peers on the CPU (gloo), then continued on 4:
+  # the restore re-slices the flat moment shards
   torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
-      --arch qwen2-0.5b-reduced --device cpu --steps 3 --global-batch 4 \\
-      --seq-len 32 --mode hadronio_overlap_rs --compress bf16
+      --arch qwen2-0.5b-reduced --device cpu --steps 4 --global-batch 4 \\
+      --seq-len 32 --mode hadronio_rs --compress bf16 --ckpt /path/run2 \\
+      --ckpt-every 2
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen2-0.5b-reduced --device cpu --steps 8 --global-batch 4 \\
+      --seq-len 32 --mode hadronio_rs --compress bf16 --ckpt /path/run2 \\
+      --ckpt-every 2
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import os
+import threading
 import time
 from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
 from repro_torch.configs.registry import get_config
@@ -43,11 +68,45 @@ from repro_torch.core.backends import available_modes, get_backend
 from repro_torch.core.channels import Ring
 from repro_torch.data import DataConfig, batch_at, make_source
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.elastic import make_on_mismatch
+
+
+class Watchdog:
+    """Calls ``on_timeout`` when armed longer than ``timeout_secs``:
+    ``arm()`` before blocking work, ``disarm()`` after (one timer
+    thread)."""
+
+    def __init__(self, timeout_secs: float, on_timeout: Callable[[], None]):
+        self.timeout = timeout_secs
+        self.on_timeout = on_timeout
+        self._timer: Optional[threading.Timer] = None
+
+    def arm(self):
+        self.disarm()
+        self._timer = threading.Timer(self.timeout, self.on_timeout)
+        self._timer.daemon = True
+        self._timer.start()
+
+    def disarm(self):
+        if self._timer is not None:
+            self._timer.cancel()
+            self._timer = None
+
+
+def _maybe_inject_fault(step: int):
+    at = os.environ.get("REPRO_FAULT_AT_STEP")
+    if at is None:
+        return
+    flag = os.environ.get("REPRO_FAULT_FLAG", "/tmp/repro_fault_fired")
+    if int(at) == step and not os.path.exists(flag):
+        with open(flag, "w") as f:
+            f.write(str(step))
+        raise RuntimeError(f"injected fault at step {step}")
 
 
 class Trainer:
     def __init__(self, run: RunConfig, *, device: DeviceLike = None,
-                 log_every: int = 10,
+                 log_every: int = 10, watchdog_secs: float = 0.0,
                  log_fn: Callable[[str], None] = print):
         self.run = run
         self.device = resolve_device(device)
@@ -58,6 +117,8 @@ class Trainer:
             dist.init_process_group(
                 "nccl" if self.device.type == "cuda" else "gloo",
                 store=dist.HashStore(), rank=0, world_size=1)
+        self.store = None
+        self.watchdog = None
         try:
             self.ring = Ring(channels=run.comm.channels)
             self.source = make_source(run)
@@ -66,9 +127,23 @@ class Trainer:
                                  host_index=self.ring.rank,
                                  num_hosts=self.ring.world_size)
             self.step_fn = steps_mod.make_train_step(run, self.ring)
+            if run.checkpoint_dir:
+                self.store = CheckpointStore(
+                    run.checkpoint_dir, keep=run.keep_checkpoints,
+                    group=self.ring.group or dist.group.WORLD,
+                    rows=steps_mod.ring_rows)
         except Exception:
             self.close()
             raise
+        if watchdog_secs > 0:
+            def _abort():
+                # end the process out of the stuck step; whoever restarts
+                # it resumes from LATEST
+                self.log_fn(f"[watchdog] step exceeded {watchdog_secs}s")
+                os._exit(42)
+            self.watchdog = Watchdog(watchdog_secs, _abort)
+
+    # -- state ----------------------------------------------------------
 
     def init_state(self, seed: Optional[int] = None) -> steps_mod.TrainState:
         gen = torch.Generator(device=self.device).manual_seed(
@@ -78,42 +153,119 @@ class Trainer:
                                             n_shards=self.ring.world_size)
         return steps_mod.init_train_state(gen, self.run, self.device)
 
+    def restore_or_init(self) -> steps_mod.TrainState:
+        """The latest checkpoint's state when there is one (a changed
+        ring size is resolved by ``elastic.make_on_mismatch``), else a
+        fresh state from the run's seed."""
+        if self.store is not None:
+            latest = self.store.latest_step()
+            if latest is not None:
+                self.log_fn(f"[trainer] restoring step {latest}")
+                return self.store.restore(
+                    latest, steps_mod.abstract_state(
+                        self.run, self.ring.world_size),
+                    on_mismatch=make_on_mismatch(self.run),
+                    device=self.device)
+        return self.init_state()
+
     def batch(self, step: int) -> dict:
         """This peer's batch for ``step`` on the device."""
         return {k: torch.as_tensor(v).long().to(self.device)
                 for k, v in batch_at(self.source, self.dc, step).items()}
 
+    # -- loop ------------------------------------------------------------
+
     def run_loop(self, state: Optional[steps_mod.TrainState] = None) -> dict:
-        """Train from ``state`` (default: a fresh one from the run's seed)
-        to ``total_steps``. Returns the final state, the per-step losses
-        and the per-step seconds (host clock, each step ending in the
-        loss read that waits for the card)."""
+        """Train from ``state`` (default: :meth:`restore_or_init`) to
+        ``total_steps``, saving every ``checkpoint_every`` steps and at
+        the end. Returns the final state, the per-step losses and the
+        per-step seconds (host clock, each step ending in the loss read
+        that waits for the card; a save's snapshot is not in them)."""
         run = self.run
-        state = self.init_state() if state is None else state
+        state = self.restore_or_init() if state is None else state
         losses, step_s = [], []
         # the host builds batch k+1 while the card runs step k
         batch = self.batch(state.step)
         for step in range(state.step, run.total_steps):
+            _maybe_inject_fault(step)
             t0 = time.perf_counter()
+            if self.watchdog:
+                self.watchdog.arm()
             state, metrics = self.step_fn(state, batch)
             if step + 1 < run.total_steps:
                 batch = self.batch(step + 1)
-            loss = float(metrics["loss"])
+            loss = float(metrics["loss"])     # also waits for the card
+            if self.watchdog:
+                self.watchdog.disarm()
             step_s.append(time.perf_counter() - t0)
             losses.append(loss)
             if step % self.log_every == 0 or step == run.total_steps - 1:
                 self.log_fn(f"[trainer] step {step} loss {loss:.4f} "
                             f"gnorm {float(metrics['grad_norm']):.3f} "
                             f"lr {metrics['lr']:.2e}")
+            if self.store is not None and (
+                    (step + 1) % run.checkpoint_every == 0
+                    or step == run.total_steps - 1):
+                save = (self.store.save_async if run.async_checkpoint
+                        else self.store.save)
+                save(step + 1, state,
+                     extra={"loss": loss, "arch": run.model.name})
+        if self.store is not None:
+            self.store.wait()
         return {"final_loss": losses[-1] if losses else None,
                 "losses": losses, "step_s": step_s, "state": state}
 
     def close(self) -> None:
-        """Destroy the process group this Trainer created (a joined
-        group is left to its owner)."""
-        if self._owns_group and dist.is_initialized():
-            dist.destroy_process_group()
-            self._owns_group = False
+        """Finish a pending checkpoint write, destroy the ring's channel
+        communicators and the process group this Trainer created (a
+        joined group is left to its owner)."""
+        try:
+            if self.watchdog is not None:
+                self.watchdog.disarm()
+            if self.store is not None:
+                self.store.wait()
+        finally:
+            ring = getattr(self, "ring", None)
+            if ring is not None and dist.is_initialized():
+                ring.close()
+            if self._owns_group and dist.is_initialized():
+                dist.destroy_process_group()
+                self._owns_group = False
+
+
+def train_with_restarts(make_trainer: Callable[[], Trainer],
+                        max_restarts: Optional[int] = None,
+                        log_fn: Callable[[str], None] = print) -> dict:
+    """Supervision loop: run a Trainer from ``make_trainer``; when a step
+    raises, close it (its pending write lands, its own process group
+    goes) and run a new one, which restores from the last checkpoint,
+    up to ``max_restarts`` times (default: the run's). The last Trainer
+    is closed too. Returns its ``run_loop`` result and ``restarts``."""
+    trainer = make_trainer()
+    limit = (trainer.run.max_restarts if max_restarts is None
+             else max_restarts)
+    attempts = 0
+    while True:
+        try:
+            out = trainer.run_loop()
+        except Exception as e:         # noqa: BLE001 — supervision boundary
+            attempts += 1
+            trainer.close()
+            if attempts > limit:
+                raise
+            log_fn(f"[supervisor] step failed ({type(e).__name__}: {e}); "
+                   f"restart {attempts}/{limit}")
+        else:
+            trainer.close()
+            return dict(out, restarts=attempts)
+        # the failed run's blocks go back to the card: the new ring's
+        # communicators allocate outside PyTorch's caching allocator
+        device = trainer.device
+        del trainer
+        if device.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+        trainer = make_trainer()       # a fresh ring; restores LATEST
 
 
 def build_run(args) -> RunConfig:
@@ -126,7 +278,10 @@ def build_run(args) -> RunConfig:
     return RunConfig(model=cfg, shape=shape, comm=comm, lr=args.lr,
                      total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 1),
-                     seed=args.seed)
+                     microbatches=args.microbatches,
+                     checkpoint_dir=args.ckpt,
+                     checkpoint_every=args.ckpt_every,
+                     data_path=args.data, seed=args.seed)
 
 
 def main(argv=None) -> int:
@@ -157,8 +312,23 @@ def main(argv=None) -> int:
                         "at one end-of-exchange loop, 'ready' each channel "
                         "when its last slice is staged")
     p.add_argument("--slice-bytes", type=int, default=4 * 1024 * 1024)
+    p.add_argument("--microbatches", type=int, default=1,
+                   help="gradient accumulation: each peer's batch in this "
+                        "many sequential microbatches, one exchange a step")
     p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--ckpt", default="",
+                   help="checkpoint directory: resume from its LATEST, save "
+                        "into it (empty: no checkpoints)")
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--data", default="",
+                   help="directory of binary token shards (*.bin, a .meta "
+                        "sidecar names uint16/uint32; else synthetic)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--watchdog-secs", type=float, default=0.0,
+                   help="end the process when a step takes longer (0: off)")
+    p.add_argument("--max-restarts", type=int, default=None,
+                   help="restarts from the last checkpoint after a failed "
+                        "step (default: the run config's)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)
@@ -174,12 +344,12 @@ def main(argv=None) -> int:
             init_method="env://")
     try:
         rank0 = not dist.is_initialized() or dist.get_rank() == 0
-        trainer = Trainer(build_run(args), device=args.device,
-                          log_fn=print if rank0 else lambda line: None)
-        try:
-            out = trainer.run_loop()
-        finally:
-            trainer.close()
+        log = print if rank0 else lambda line: None
+        run = build_run(args)
+        out = train_with_restarts(
+            lambda: Trainer(run, device=args.device,
+                            watchdog_secs=args.watchdog_secs, log_fn=log),
+            max_restarts=args.max_restarts, log_fn=log)
     finally:
         if own_group:
             dist.destroy_process_group()
