@@ -17,7 +17,10 @@ non-zero (no phase's failure is caught):
    kernels and the RG-LRU TMA instance, LDGSTS in the RG-LRU cp.async
    instance);
 3. hold each kernel against its plain PyTorch version on the card at
-   the stated tolerances (flash attention at 3e-2/5e-2 in bf16 and
+   the stated tolerances (flash attention at 3e-2/5e-2 in bf16, and
+   every (batch, position, head) row of the output within 2e-2 rel_l2
+   of the plain version's, a bound only rounding meets (a plain version
+   missing one 64-key tile lands past it at mixtral's S=4090, checked);
    2e-4/2e-3 in f32, head dims 16..256; ring pack and unpack bit for bit,
    ``torch.equal`` on the bit patterns; WKV6 at 2e-3, 5e-3 at extreme
    decays, every head size on both sides of the chunk and the
@@ -25,7 +28,10 @@ non-zero (no phase's failure is caught):
    paths, ragged W, a misaligned base, chained calls), then time kernel,
    plain version and the one PyTorch library call that computes the same
    function, at the shapes the main paths give them, beside the roofline
-   bound. Every timing is queued behind a device-side spin, so it times
+   bound (flash also at phase 7's Dh-128 shapes: B=2, S=1024, (H, KV) =
+   (20, 20), (24, 2), (48, 8), (64, 8), and S=4096 and mixtral's served
+   S=4090, (32, 8) window 4096).
+   Every timing is queued behind a device-side spin, so it times
    the card, not the host's launch rate (the WKV6 decode step, ~3 us, over
    500 calls);
 4. serve qwen2-0.5b at full width (random weights from a seed) through
@@ -38,7 +44,7 @@ non-zero (no phase's failure is caught):
    logits, and that those logits match the plain-attention path;
 4b. serve the same requests over a ring of peers: a one-peer NCCL group
    (``HashStore``), one ``Ring`` of 4 channel communicators, shared by
-   phases 4b-6. ``hadronio`` through the sliced serving wire
+   phases 4b-7. ``hadronio`` through the sliced serving wire
    (``pipeline.emit_flat``: the prefill's gathering write and the decode
    logit reduction carved into 4 MiB ring slices, each an NCCL
    collective on its loop's own channel), 2 threaded loops, busy polling,
@@ -127,7 +133,34 @@ non-zero (no phase's failure is caught):
    ``hadronio`` over the ring and checks the same tokens and launch
    counts. Reports prefill (B=2, S=1024) and decode (B=2) times, host
    and device, and peak memory;
-7. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+7. the decoder-only families at full width, bf16, random weights from
+   the card's generator, memory released before each: qwen1.5-4b (40
+   layers) and starcoder2-3b (30 layers) whole, serving phase 4's 8
+   prompts (874..283 tokens), 16 new tokens each, ``--batch 2``, 2 event
+   loops, busy polling, ``gspmd``; qwen1.5-110b at 4 of 80 layers, one
+   prefill (B=2, S=1024) and 16 decode steps through the serve step;
+   mixtral-8x7b at 16 of 32 layers (pairs of 4090, 1024, 384 and 128
+   tokens, ``--max-len 8192``: the longest pair decodes past the
+   4096-slot rolling window) and dbrx-132b at 4 of 40 layers (pairs of
+   1024 and 128 tokens). Checks every request's token count, one flash
+   launch per layer per prefill call, that served first tokens replay
+   from the kernel path's logits, and for the dense models phase 4's
+   logit rule (f32 kernel vs plain within 1e-3 rel_l2, bf16 kernel no
+   farther from f32 than twice the bf16 plain path plus 5e-3). For every
+   model the first layer's bf16 attention output on the served batch,
+   kernel against plain, within phase 3's 2e-2 per-row bound. For the
+   moe models: one layer's block time against its expert GEMMs; the
+   longest pair again through ``hadronio`` over the ring, where the
+   expert stage runs expert-parallel through the ``all_to_all`` wire
+   (``all_to_all_single`` counted: 2 x the plan's slices per moe layer
+   per call), with how far its prefill logits land from the local path's
+   (f32 experts there, bf16 here: reported, not bounded); and at f32,
+   full width and 2 layers the exchange path's prefill logits, KV cache
+   and decode logits bitwise equal to the local path's, the kernel path
+   within 1e-3 rel_l2 of the plain one. Reports prefill (B=2, S=1024) and
+   decode (B=2) times, wall and device, kernels, busy share and peak
+   memory of each model (of the exchange path too);
+8. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -286,6 +319,32 @@ def check_close(name, got, want, atol, rtol, verbose=True) -> float:
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+ROW_BOUND = 2e-2    # bf16 flash, per output row; rounding alone ~5e-3
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest rel_l2 over the last dim: each (batch, position, head)
+    row of an attention output against its plain version's. A late row
+    averages thousands of keys, so its values are small; an elementwise
+    atol as large as those values would pass a kernel that drops keys."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def check_rows(name, got, want, verbose=True) -> float:
+    """Every row of ``got`` within ``ROW_BOUND`` rel_l2 of ``want``'s
+    and finite; raises otherwise, returns the worst row's error."""
+    err = row_err(got, want)
+    ok = bool(torch.isfinite(got).all()) and err <= ROW_BOUND
+    if verbose or not ok:
+        print(f"[check] {name}: worst row rel_l2={err:.3e} (bound "
+              f"{ROW_BOUND}), whole rel_l2={rel_l2(got, want):.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return err
 
 
 def check_prefill_flash(label: str, by_name: dict) -> None:
@@ -574,11 +633,12 @@ def serve_recurrent(gen, smi, arch, lens, max_len, expect, plain, ring):
 
 class CollectiveCount:
     """Counts the ``torch.distributed`` collectives the serving wire
-    issues (``all_reduce``, ``all_gather_into_tensor``), by wrapping the
-    module's functions, which the port calls through the module at call
-    time. Thread-safe: the threaded event loops count together."""
+    issues (``all_reduce``, ``all_gather_into_tensor``, and the moe
+    expert exchange's ``all_to_all_single``), by wrapping the module's
+    functions, which the port calls through the module at call time.
+    Thread-safe: the threaded event loops count together."""
 
-    NAMES = ("all_reduce", "all_gather_into_tensor")
+    NAMES = ("all_reduce", "all_gather_into_tensor", "all_to_all_single")
 
     def __init__(self):
         import threading
@@ -708,6 +768,326 @@ def serve_over_ring(smi, cfg, params, reqs, want_tokens, ring, big, cache,
                       + f" | {smi}")
     finally:
         count.restore()
+    return flash
+
+
+def right_padded(reqs, dev) -> dict:
+    """The engine's prefill batch of ``reqs``: prompts right-padded to
+    the longest, with ``last_pos``."""
+    lens = np.array([len(r.prompt) for r in reqs])
+    toks = np.zeros((len(reqs), lens.max()), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, :lens[i]] = r.prompt
+    return {"tokens": torch.as_tensor(toks, device=dev),
+            "last_pos": torch.as_tensor(lens - 1, device=dev)}
+
+
+def step_times(smi, label, step, params, big, dec, cache) -> None:
+    """Prefill (``big``) and decode (``dec`` against ``cache``) of a
+    serve step: wall time on the host clock (a step of thousands of
+    launches cannot be queued behind a device spin) and device time from
+    the profiler, with its kernel count, busy share and NCCL share."""
+    for what, fn in (("prefill", lambda: step.prefill(params, big)),
+                     ("decode", lambda: step.decode(params, cache, dec))):
+        wall = time_ms(fn, iters=3 if what == "prefill" else 10, warmup=1)
+        busy, n_k, ranked, by_name = profile_device(fn)
+        if busy is None:
+            print(f"[profile] {label} {what}: {wall:.3f} ms wall, device "
+                  f"time not measured (no device events) | {smi}")
+            continue
+        nccl = sum(ms for name, ms in by_name.items()
+                   if "nccl" in name.lower())
+        print(f"[profile] {label} {what}: {wall:.3f} ms wall, {busy:.3f} ms "
+              f"device ({n_k} kernels, {busy / wall:.1%} busy, nccl "
+              f"{nccl:.3f} ms); top: " + "; ".join(
+                  f"{name[:48]} {ms:.3f}" for name, ms in ranked)
+              + f" | {smi}")
+        if what == "prefill":
+            check_prefill_flash(label, by_name)
+
+
+def moe_stage_times(smi, gen, cfg, params) -> None:
+    """One moe layer's device time at the prefill (B=2, S=1024) and
+    decode (B=2, S=1) shapes: the whole block (routing, dispatch, the
+    expert GEMMs, combine) against the expert GEMMs alone on a buffer of
+    the dispatched shape, and the f32 expert stage the expert-parallel
+    path runs (its weight casts included)."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+    p = tree_map(lambda t: t[0], params["layers"]["moe"])
+    dev, e, d = gen.device, cfg.moe.num_experts, cfg.d_model
+    for label, s in (("prefill B=2 S=1024", 1024), ("decode B=2", 1)):
+        x = torch.randn((2, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        c = moe.capacity(s, cfg)
+        buf = torch.randn((2, e, c, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        block = time_ms(lambda: moe.apply_moe(p, x, cfg), iters=10,
+                        queued=True, label=f"{cfg.name} moe block")
+        gemms = time_ms(lambda: moe.apply_experts(p, buf, cfg), iters=10,
+                        queued=True, label=f"{cfg.name} expert GEMMs")
+        f32 = time_ms(lambda: moe.apply_experts(
+            {w: p[w].float() for w in ("wi", "wg", "wo")}, buf.float(),
+            cfg), iters=3, queued=True, label=f"{cfg.name} f32 experts")
+        print(f"[moe-time] {cfg.name} one layer, {label} (capacity {c}): "
+              f"block {block:.4f} ms, expert GEMMs {gemms:.4f} ms, routing "
+              f"+ dispatch + combine {block - gemms:.4f} ms; the f32 expert "
+              f"stage of the exchange path {f32:.4f} ms | {smi}")
+        del x, buf
+
+
+def serve_decoder(gen, smi, arch, ring, *, num_layers=None, lens=None,
+                  max_len=2048) -> int:
+    """Phase 7 for one decoder-only model at full width (``num_layers``
+    cuts the depth), bf16, random weights from the card's generator.
+    ``lens``: prompt lengths of 8 requests served through the
+    event-loop group (2 loops, 2 slots each, ``gspmd`` at ring size 1),
+    or None for one prefill (B=2, S=1024) and 16 decode steps through
+    the serve step. Checks token counts, one flash launch per layer per
+    prefill call, first tokens replayed from the kernel path's logits,
+    the first layer's attention output on the served batch (kernel vs
+    plain, phase 3's row bound);
+    for dense models the bf16 kernel path's logits against the same
+    weights in f32 (as phase 4); for moe models the longest pair again
+    through ``hadronio`` over ``ring`` (the expert exchange), its
+    ``all_to_all_single`` count, its distance from the local path, and
+    at f32 and 2 layers the exchange path bitwise equal to the local
+    one. Times prefill and decode, wall and device. Returns the flash
+    launches of the served runs."""
+    from repro_torch.configs.base import CommConfig, ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import api
+    from repro_torch.models.attention import attend_chunked
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import Request, dispatch, make_engine_group
+    dev = gen.device
+    cfg = get_config(arch)
+    depth = cfg.num_layers
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    is_moe = cfg.family == "moe"
+    release_memory(f"before {cfg.name}")
+    t0 = time.perf_counter()
+    params = api.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"[init] {cfg.name}: {cfg.num_layers} of {depth} layers, "
+          f"{cfg.param_count() / 1e9:.3f}B params ("
+          f"{cfg.active_param_count() / 1e9:.3f}B active) {cfg.param_dtype}"
+          f" in {time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    local = dispatch.make_serve_step(cfg, CommConfig(mode="gspmd",
+                                                     channels=4))
+    rng = np.random.default_rng(0)
+    L = cfg.num_layers
+    flash = 0
+    if lens is not None:
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                        max_new=16) for i, n in enumerate(lens)]
+        group = make_engine_group(cfg, params, ServeConfig(
+            event_loops=2, poll="busy", max_batch=2, max_len=max_len,
+            comm=CommConfig(mode="gspmd", channels=4)), seed=0, device=dev)
+        ops.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        group.submit(reqs)
+        results = sorted(group.run(threads=True), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ops.flash_attention.launches
+        engines = [l.engine for l in group.loops]
+        prefills = sum(e.prefills for e in engines)
+        n_tok = sum(len(r.tokens) for r in results)
+        print(f"[serve] {cfg.name}: {len(results)} requests (prompts "
+              f"{list(lens)}), {n_tok} tokens in {dt:.3f}s = "
+              f"{n_tok / dt:.1f} tok/s | prefill calls {prefills} "
+              f"(admission rounds {sum(e.admit_prefills for e in engines)})"
+              f", decode steps {sum(e.decode_steps for e in engines)}, "
+              f"flash launches {launches} | {smi}")
+        assert [r.uid for r in results] == list(range(len(reqs)))
+        assert all(len(r.tokens) == 16 for r in results), \
+            [len(r.tokens) for r in results]
+        assert all(0 <= t < cfg.vocab_size for r in results
+                   for t in r.tokens)
+        assert launches == L * prefills, (launches, prefills)
+        flash += launches
+        del group, engines          # the engines hold the params
+        # loop 0's first wave (uids 0 and 2) replays its first tokens
+        pair = [reqs[0], reqs[2]]
+        batch = right_padded(pair, dev)
+        lk, _ = local.prefill(params, batch)
+        first = lk.argmax(-1).tolist()
+        assert first == [int(results[0].tokens[0]),
+                         int(results[2].tokens[0])], \
+            (first, results[0].tokens[:1], results[2].tokens[:1])
+    else:
+        batch = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (2, 1024)), device=dev)}
+        ops.flash_attention.launches = 0
+        lk, cache = local.prefill(params, batch)
+        launches = ops.flash_attention.launches
+        cache = api.grow_cache(cfg, cache, max_len)
+        tok, pos = lk.argmax(-1), torch.full((2,), 1024, device=dev)
+        for _ in range(16):
+            logits, cache = local.decode(params, cache,
+                                         {"token": tok, "pos": pos})
+            tok, pos = logits.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(logits).all())
+        print(f"[serve] {cfg.name}: one prefill (B=2, S=1024) and 16 decode "
+              f"steps through the serve step, flash launches {launches} | "
+              f"{smi}")
+        assert launches == L, launches
+        flash += launches
+        del cache, logits
+    assert lk.shape == (2, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+
+    # prefill B=2 S=1024 and decode B=2, wall and device
+    big = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                  (2, 1024)), device=dev)}
+    _, cache = local.prefill(params, big)
+    cache = api.grow_cache(cfg, cache, max_len)
+    dec = {"token": torch.zeros(2, dtype=torch.long, device=dev),
+           "pos": torch.tensor([1024, 1024], device=dev)}
+    step_times(smi, cfg.name, local, params, big, dec, cache)
+    del cache
+    torch.cuda.synchronize()
+    print(f"[memory] {cfg.name}: peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
+          f"({base_gb:.2f} GB before the run) | {smi}")
+
+    def plain_prefill():
+        """The served batch through the plain attention path: its
+        logits; and the first layer's attention output, kernel against
+        plain, held to phase 3's row bound on the q, k, v that layer
+        was given."""
+        seen = []
+
+        def attend(q, k, v, **kw):
+            if not seen:
+                seen.append((q, k, v))
+            return attend_chunked(q, k, v, **kw)
+
+        lp, _ = api.prefill(params, batch, cfg, attend=attend)
+        q, k, v = seen[0]
+        w = cfg.sliding_window
+        check_rows(f"{cfg.name} layer 0 attention on the served batch "
+                   f"{tuple(q.shape)} KV={k.shape[2]} window={w}: kernel "
+                   f"vs plain", ops.flash_attention(q, k, v, window=w),
+                   ref.flash_attention(q, k, v, window=w))
+        return lp
+
+    if not is_moe:
+        # the kernel path against the plain attention path, ground truth
+        # the same weights in f32 (phase 4's rule)
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        lp = plain_prefill()
+        p32 = tree_map(lambda t: t.float(), params)
+        l32, _ = api.prefill(p32, batch, cfg32, attend=attend_chunked)
+        lk32, _ = api.prefill(p32, batch, cfg32)
+        del p32
+        e32, ek, ep = rel_l2(lk32, l32), rel_l2(lk, l32), rel_l2(lp, l32)
+        ok = e32 <= 1e-3 and ek <= 2 * ep + 5e-3
+        print(f"[check] {cfg.name} prefill logits of "
+              f"{tuple(batch['tokens'].shape)}: f32 kernel vs plain rel_l2="
+              f"{e32:.3e} (bound 1e-3); bf16 vs f32 rel_l2 kernel={ek:.3e} "
+              f"plain={ep:.3e} (bound 2x plain + 5e-3); bf16 kernel vs plain "
+              f"max_abs_err={float((lk.float() - lp.float()).abs().max()):.3e}"
+              f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{cfg.name}: prefill logits of the kernel "
+                                 "path disagree with the plain path")
+        del params, lk, lp, l32, lk32
+        return flash
+
+    moe_stage_times(smi, gen, cfg, params)
+    # the longest pair through the expert exchange: hadronio over the ring
+    comm = CommConfig(mode="hadronio", channels=4)
+    wired = make_engine_group(cfg, params, ServeConfig(
+        event_loops=1, poll="busy", max_batch=2, max_len=max_len,
+        comm=comm), seed=0, device=dev, ring=ring)
+    count = CollectiveCount()
+    try:
+        ops.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        wired.submit(pair)
+        wres = sorted(wired.run(threads=False), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = ops.flash_attention.launches
+        counts = dict(count.counts)
+    finally:
+        count.restore()
+    eng = wired.loops[0].engine
+    s = len(pair[0].prompt)
+    per_layer = 2 * (dispatch.expert_exchange_slices(cfg, 2, s, comm)
+                     * eng.prefills + dispatch.expert_exchange_slices(
+                         cfg, 2, 1, comm) * eng.decode_steps)
+    same = sum(a == b for r, w in zip((results[0], results[2]), wres)
+               for a, b in zip(r.tokens.tolist(), w.tokens.tolist()))
+    print(f"[serve-ring] {cfg.name} hadronio over a ring of "
+          f"{ring.world_size} (expert exchange, f32 experts): uids 0, 2 "
+          f"(prompts {s}) in {dt:.3f}s, prefill calls {eng.prefills}, "
+          f"decode steps {eng.decode_steps}, collectives {counts} "
+          f"(all_to_all_single predicted {L} layers x {per_layer}), flash "
+          f"launches {launches}; {same} of 32 tokens equal the local bf16 "
+          f"path's | {smi}")
+    assert all(len(r.tokens) == 16 for r in wres)
+    assert counts["all_to_all_single"] == L * per_layer, counts
+    assert launches == L * eng.prefills, (launches, eng.prefills)
+    flash += launches
+    del wired, eng
+    ep_step = dispatch.make_serve_step(cfg, comm, ring=ring)
+    le, _ = ep_step.prefill(params, batch)
+    # yardstick: the local path with plain attention, the same bf16
+    # weights (routing flips under bf16 rounding move moe logits by O(1))
+    lp = plain_prefill()
+    print(f"[check] {cfg.name} prefill logits of "
+          f"{tuple(batch['tokens'].shape)}: the exchange path (f32 experts) "
+          f"vs the local path (bf16 experts) rel_l2={rel_l2(le, lk):.3e}, "
+          f"max_abs_err={float((le.float() - lk.float()).abs().max()):.3e},"
+          f" argmax equal {le.argmax(-1).tolist() == lk.argmax(-1).tolist()}"
+          " (reported, not bounded: the reference's exchange path computes"
+          f" the experts in f32); the local path with plain attention vs "
+          f"the kernel path rel_l2={rel_l2(lp, lk):.3e}")
+    del lp
+    _, cache = ep_step.prefill(params, big)
+    cache = api.grow_cache(cfg, cache, max_len)
+    step_times(smi, f"{cfg.name} hadronio (expert exchange)", ep_step,
+               params, big, dec, cache)
+    del cache, params, le, lk, ep_step, local
+
+    # f32, full width, 2 layers: the exchange path bitwise equal to the
+    # local path (prefill logits and cache, then a decode step), and the
+    # kernel path against the plain attention path
+    release_memory(f"before {cfg.name} f32 2 layers")
+    cfg2 = dataclasses.replace(cfg, num_layers=2, param_dtype="float32",
+                               compute_dtype="float32")
+    p2 = api.init(gen, cfg2, device=dev)
+    local2 = dispatch.make_serve_step(cfg2, CommConfig(mode="gspmd"))
+    ep2 = dispatch.make_serve_step(cfg2, comm, ring=ring)
+    outs = []
+    for step in (local2, ep2):
+        lp_, c_ = step.prefill(p2, big)
+        c_ = api.grow_cache(cfg2, c_, max_len)
+        pre = (lp_, c_["k"].clone(), c_["v"].clone())
+        ld_, _ = step.decode(p2, c_, dict(
+            dec, token=outs[0][0].argmax(-1) if outs else lp_.argmax(-1)))
+        outs.append(pre + (ld_,))
+        del c_
+    check_bitwise(f"{cfg.name} f32 2 layers: exchange path vs local path, "
+                  "prefill logits, K, V and decode logits",
+                  list(zip(outs[1], outs[0])))
+    lp2, _ = api.prefill(p2, big, cfg2, attend=attend_chunked)
+    e2 = rel_l2(outs[0][0], lp2)
+    print(f"[check] {cfg.name} f32 2 layers, prefill logits of (2, 1024): "
+          f"kernel vs plain rel_l2={e2:.3e} (bound 1e-3) "
+          f"{'ok' if e2 <= 1e-3 else 'FAIL'}")
+    if not e2 <= 1e-3:
+        raise AssertionError(f"{cfg.name}: kernel path disagrees with the "
+                             "plain path")
+    del p2, outs, lp2
     return flash
 
 
@@ -1246,7 +1626,8 @@ def main() -> int:
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import api
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    from repro_torch.models.attention import attend_chunked, expand_kv
+    from repro_torch.models.attention import (attend_chunked, attend_direct,
+                                              expand_kv)
     from repro_torch.models.common import tree_map
     from repro_torch.serving import make_engine_group
 
@@ -1323,7 +1704,7 @@ def main() -> int:
              ("non-causal", False, 0))
     ragged = (1, 63, 65, 257)
     for dh in HEAD_DIMS:
-        worst, n_case = 0.0, 0
+        worst, worst_row, n_case = 0.0, 0.0, 0
         for kv in (1, 2, 4):
             for s_ in ragged:
                 for mode, causal, window in modes:
@@ -1331,15 +1712,18 @@ def main() -> int:
                     got = ops.flash_attention(q, k, v, causal=causal,
                                               window=window)
                     torch.cuda.synchronize()
-                    worst = max(worst, check_close(
-                        f"flash bf16 Dh={dh} KV={kv} of H=4 S={s_} {mode}",
-                        got, ref.flash_attention(q, k, v, causal=causal,
-                                                 window=window),
-                        3e-2, 5e-2, verbose=False))
+                    want = ref.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+                    name = f"flash bf16 Dh={dh} KV={kv} of H=4 S={s_} {mode}"
+                    worst = max(worst, check_close(name, got, want, 3e-2,
+                                                   5e-2, verbose=False))
+                    worst_row = max(worst_row, check_rows(name, got, want,
+                                                          verbose=False))
                     n_case += 1
         print(f"[check] flash bf16 Dh={dh}: {n_case} cases (B=2, H=4, KV "
               f"1/2/4, S {ragged}, causal / window 48 / non-causal): "
-              f"max_abs_err={worst:.3e} (atol=3e-2, rtol=5e-2) ok")
+              f"max_abs_err={worst:.3e} (atol=3e-2, rtol=5e-2), worst row "
+              f"rel_l2={worst_row:.3e} (bound {ROW_BOUND}) ok")
     cases = [  # name, dtype, B, S, H, KV, Dh, causal, window, atol, rtol
         ("bf16 causal S=1024", bf16, 4, 1024, 14, 2, 64, True, 0, 3e-2, 5e-2),
         ("bf16 window=48 S=257", bf16, 4, 257, 14, 14, 64, True, 48, 3e-2,
@@ -1361,8 +1745,10 @@ def main() -> int:
         q, k, v = qkv(b, s, h, dh, dt, kv)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        check_close(name, got, ref.flash_attention(q, k, v, causal=causal,
-                                                   window=window), atol, rtol)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
+        check_close(name, got, want, atol, rtol)
+        if dt == bf16:
+            check_rows(name, got, want)
 
     # timing at the main paths' prefill shapes: K/V at their KV heads as
     # the models pass them, and expanded to H heads as they were passed
@@ -1373,13 +1759,15 @@ def main() -> int:
         q, k, v = qkv(b, s, h, dh, bf16, kv)
         ke, ve = expand_kv(k, h), expand_kv(v, h)
         shape = f"B={b} S={s} H={h} Dh={dh}"
-        t = {"err": check_close(
-            f"bf16 {shape} KV={kv} window={window} (timed shape)",
-            ops.flash_attention(q, k, v, window=window),
-            ref.flash_attention(q, k, v, window=window), 3e-2, 5e-2)}
-        check_close(f"bf16 {shape} expanded window={window} (timed shape)",
-                    ops.flash_attention(q, ke, ve, window=window),
-                    ref.flash_attention(q, ke, ve, window=window), 3e-2, 5e-2)
+        for heads, kk, vv in (("KV=" + str(kv), k, v), ("expanded", ke, ve)):
+            name = f"bf16 {shape} {heads} window={window} (timed shape)"
+            got = ops.flash_attention(q, kk, vv, window=window)
+            want = ref.flash_attention(q, kk, vv, window=window)
+            err = check_close(name, got, want, 3e-2, 5e-2)
+            row = check_rows(name, got, want)
+            if kk is k:
+                t = {"err": err, "row_err": row}
+        del got, want
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ke, ve))
         run = {"ms": lambda: ops.flash_attention(q, k, v, window=window),
                "expanded_ms": lambda: ops.flash_attention(q, ke, ve,
@@ -1410,6 +1798,31 @@ def main() -> int:
 
     fa64 = flash_times(2, 1024, 14, 2, 64, 0)
     fa256 = flash_times(2, 1024, 16, 1, 256, 2048)
+    # the prefill shapes of phase 7's decoder-only families, Dh 128: MHA
+    # at a head count that is not a power of two (qwen1.5-4b), GQA 24/2
+    # (starcoder2-3b), 48/8 (dbrx-132b), 64/8 (qwen1.5-110b), and
+    # mixtral's window of 4096 at S=4096 (equal to causal) and at its
+    # served pair's S=4090 (a ragged last tile)
+    fa128 = {f"B=2 S={s_} H={h} KV={kv} window={w}": flash_times(
+        2, s_, h, kv, 128, w) for s_, h, kv, w in (
+            (1024, 20, 20, 0), (1024, 24, 2, 0), (1024, 48, 8, 0),
+            (1024, 64, 8, 0), (4096, 32, 8, 4096), (4090, 32, 8, 4096))}
+    # the row bound fails a wrong kernel: the plain version with one
+    # 64-key tile hidden from every query (its key positions past S)
+    q, k, v = qkv(2, 4090, 32, 128, bf16, 8)
+    ke, ve = expand_kv(k, 32), expand_kv(v, 32)
+    pos = torch.arange(4090, device=dev)
+    kpos = pos.clone()
+    kpos[1024:1088] = 4090
+    dropped = row_err(attend_direct(q, ke, ve, pos, kpos, causal=True,
+                                    window=4096),
+                      ref.flash_attention(q, k, v, window=4096))
+    print(f"[check] the flash row bound {ROW_BOUND} rejects the plain "
+          f"version missing one 64-key tile at B=2 S=4090 H=32 KV=8: worst "
+          f"row rel_l2={dropped:.3e} {'ok' if dropped > ROW_BOUND else 'FAIL'}")
+    if not dropped > ROW_BOUND:
+        raise AssertionError("the flash row bound passes a dropped tile")
+    del q, k, v, ke, ve
 
     # ring pack / unpack: bitwise against the plain version, every shape
     # of the reference's tests plus a ragged one, both wires, EF on, off
@@ -1798,8 +2211,8 @@ def main() -> int:
                              "the plain attention path")
 
     # -- 4b. serve qwen2-0.5b over a ring (one peer, NCCL) -------------------
-    # one group for phases 4b-6: the serve ring here, the Trainers' rings
-    # in phase 5 and the recurrent families' hadronio runs in phase 6
+    # one group for phases 4b-7: the serve ring here, the Trainers' rings
+    # in phase 5 and the hadronio runs of phases 6 and 7
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     ring = Ring(channels=4)
@@ -2005,20 +2418,41 @@ def main() -> int:
         gen, smi, "recurrentgemma-9b", rg_lens, 4096,
         {"rglru": (26, 0), "flash_attention": (12, 0)},
         {"scan": ref.rglru, "attend": ref.flash_attention}, ring)
+
+    # -- 7. the decoder-only families at full width --------------------------
+    dense_lens = [len(r.prompt) for r in make_requests(
+        get_config("qwen2-0.5b"), 8, max_new=16, temperature=0.0, seed=0,
+        min_len=16, max_len=1025)]
+    fam_flash = serve_decoder(gen, smi, "qwen1.5-4b", ring, lens=dense_lens)
+    fam_flash += serve_decoder(gen, smi, "starcoder2-3b", ring,
+                               lens=dense_lens)
+    fam_flash += serve_decoder(gen, smi, "qwen1.5-110b", ring, num_layers=4)
+    # pairs of equal prompts, one pair per loop and wave; mixtral's longest
+    # pair decodes past its 4096-slot rolling window
+    fam_flash += serve_decoder(gen, smi, "mixtral-8x7b", ring, num_layers=16,
+                               lens=(4090, 1024) * 2 + (384, 128) * 2,
+                               max_len=8192)
+    fam_flash += serve_decoder(gen, smi, "dbrx-132b", ring, num_layers=4,
+                               lens=(1024, 128) * 4)
     del ring
     dist.destroy_process_group()
 
-    # -- 7. result lines ------------------------------------------------------
+    # -- 8. result lines ------------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
-         "launches": launches + ring_flash + rg_launches["flash_attention"],
+         "launches": launches + ring_flash + rg_launches["flash_attention"]
+         + fam_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
-         "library_ms": fa64["library_ms"]},
+         "library_ms": fa64["library_ms"], "dh128": {
+             shape: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "err",
+                                       "row_err")}
+             for shape, t in fa128.items()}},
         {"name": "pack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:61",
          "launches": train_launches["pack_slices"]

@@ -9,7 +9,18 @@ the same shapes in both packages.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice top-k experts. ``capacity_factor`` sizes each
+    expert's per-row buffer (``models/moe.capacity``): tokens routed past
+    it are dropped."""
+
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
 
 
 @dataclass(frozen=True)
@@ -17,7 +28,7 @@ class ModelConfig:
     """Architecture hyperparameters (per-arch modules hold the numbers)."""
 
     name: str
-    family: str               # dense | ssm | hybrid are ported
+    family: str               # dense | moe | ssm | hybrid are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,11 +38,13 @@ class ModelConfig:
 
     head_dim: int = 0         # 0 -> d_model // num_heads
     qkv_bias: bool = False
-    mlp_kind: str = "swiglu"
+    mlp_kind: str = "swiglu"  # swiglu | gelu
     norm_kind: str = "rmsnorm"  # rmsnorm | layernorm
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     sliding_window: int = 0   # 0 -> full attention; >0 -> SWA window
+
+    moe: Optional[MoEConfig] = None
 
     # hybrid (recurrentgemma): block pattern cycled over layers
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rglru", "rglru", "local_attn")
@@ -54,6 +67,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.family not in self.FAMILIES:
             raise ValueError(f"unknown family {self.family!r}")
+        if self.family == "moe" and self.moe is None:
+            raise ValueError("a moe config needs its MoEConfig")
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
@@ -77,6 +92,9 @@ class ModelConfig:
         if self.qkv_bias:
             att += self.num_heads * hd + 2 * self.num_kv_heads * hd
         mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * f
+        mlp_total = mlp
+        if self.family == "moe":
+            mlp_total = self.moe.num_experts * mlp + d * self.moe.num_experts
         if self.family == "hybrid":
             lw = self.lru_width or d
             rec = 2 * d * lw + lw * d + self.conv1d_width * lw + 3 * lw \
@@ -86,7 +104,17 @@ class ModelConfig:
                          if pat[i % len(pat)] == "local_attn")
             return n + n_attn * (att + mlp + 2 * d) \
                 + (L - n_attn) * (rec + mlp + 2 * d)
-        return n + L * (att + mlp + 2 * d)
+        return n + L * (att + mlp_total + 2 * d)
+
+    def active_param_count(self) -> int:
+        """Parameters one token runs through: the total less the experts
+        it is not routed to (the reference's count: a swiglu expert's
+        three matrices)."""
+        if self.family != "moe":
+            return self.param_count()
+        inactive = self.num_layers * (self.moe.num_experts - self.moe.top_k) \
+            * 3 * self.d_model * self.d_ff
+        return self.param_count() - inactive
 
 
 @dataclass(frozen=True)
@@ -255,8 +283,15 @@ class RunConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """The CPU-sized variant: same family and topology, tiny dims, f32 —
     the rule of ``repro.configs.base.reduced`` for the ported families
-    (a hybrid keeps two full block-pattern groups and no tail)."""
+    (a hybrid keeps two full block-pattern groups and no tail; a moe
+    config keeps at most 4 experts and top-2, with ``capacity_factor``
+    equal to its expert count, so no token is dropped)."""
     num_heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
+    moe = None
+    if cfg.moe is not None:
+        e = min(cfg.moe.num_experts, 4)
+        moe = MoEConfig(num_experts=e, top_k=min(cfg.moe.top_k, 2),
+                        capacity_factor=float(e))
     return replace(
         cfg, name=cfg.name + "-reduced",
         num_layers=min(cfg.num_layers, 2 * len(cfg.block_pattern)
@@ -269,6 +304,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         rwkv_head_size=16, rwkv_decay_lora=8, rwkv_mix_lora=8,
         sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window
         else 0,
-        local_window=16,
+        local_window=16, moe=moe,
         param_dtype="float32", compute_dtype="float32")
 

@@ -1,10 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 Counterpart of ``repro/configs/registry.py``. Ported so far: the dense
-``qwen2-0.5b``, the ssm ``rwkv6-7b`` and the hybrid
-``recurrentgemma-9b``; the reference's other ids are known here and
-raise ``NotImplementedError`` naming the ROADMAP queue entry that brings
-their family or config.
+``qwen2-0.5b``, ``qwen1.5-4b``, ``starcoder2-3b`` and ``qwen1.5-110b``,
+the moe ``mixtral-8x7b`` and ``dbrx-132b``, the ssm ``rwkv6-7b`` and the
+hybrid ``recurrentgemma-9b``; the reference's other ids (whisper's
+encdec and llava's vlm) are known here and raise
+``NotImplementedError`` naming the ROADMAP queue entry that brings
+their family.
 """
 from __future__ import annotations
 
@@ -13,14 +15,18 @@ import importlib
 from repro_torch.configs.base import ModelConfig, reduced
 
 _ARCH_MODULES = {
+    "qwen1.5-4b": "qwen1_5_4b",
+    "starcoder2-3b": "starcoder2_3b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "dbrx-132b": "dbrx_132b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "rwkv6-7b": "rwkv6_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
-# reference ids whose family (or config module) is not ported yet
-_NOT_PORTED = ("qwen1.5-4b", "starcoder2-3b", "qwen1.5-110b", "whisper-tiny",
-               "dbrx-132b", "mixtral-8x7b", "llava-next-mistral-7b")
+# reference ids whose family is not ported yet
+_NOT_PORTED = ("whisper-tiny", "llava-next-mistral-7b")
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
 

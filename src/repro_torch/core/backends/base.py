@@ -43,7 +43,7 @@ Tree = Any
 # tuple of tensors keyed by bucket id (the overlap modes)
 EF = Union[torch.Tensor, tuple, None]
 
-SERVE_KINDS = ("all_reduce", "all_gather")
+SERVE_KINDS = ("all_reduce", "all_gather", "all_to_all")
 
 
 class SyncResult(NamedTuple):
@@ -162,15 +162,17 @@ class CommBackend(abc.ABC):
         strategy's wire — the inference side of the transparency
         boundary: ``serving/dispatch.py`` never branches on mode names.
         ``kind`` is one of ``SERVE_KINDS``: all_reduce (sum over the
-        ring) or all_gather (peer-major concatenation, ring size times
-        the payload). Default: the sliced emission the hadronio family
+        ring), all_gather (peer-major concatenation, ring size times
+        the payload) or all_to_all (the moe expert exchange: the payload
+        is a peer-major ``(ring, len // ring)`` block and each peer
+        receives its row of every peer's block, in the same layout).
+        Default: the sliced emission the hadronio family
         shares (``pipeline.emit_flat``: ring-buffer slices through the
         channel schedule at the configured aggregate/flush, on the
         context's ``channel_indices``). Every strategy returns the same
         values; only the emission differs."""
         from repro_torch.core.backends import pipeline
-        group = ctx.world_size if kind == "all_gather" else 1
-        return pipeline.emit_flat(flat, ctx, kind, group=group)
+        return pipeline.emit_flat(flat, ctx, kind)
 
     def gathered_grads(self, res: SyncResult, like: Tree) -> Tree:
         """The full synced-gradient tree of a SyncResult. Default: the

@@ -187,8 +187,7 @@ def ready_serve_emit(flat, ctx: SyncContext, kind: str):
     path). Only the emission differs; the values are the same."""
     rctx = dataclasses.replace(
         ctx, comm=dataclasses.replace(ctx.comm, flush="ready"))
-    group = ctx.world_size if kind == "all_gather" else 1
-    return pipeline.emit_flat(flat, rctx, kind, group=group)
+    return pipeline.emit_flat(flat, rctx, kind)
 
 
 @register("hadronio_overlap")

@@ -47,23 +47,27 @@ module owns the wire stages:
   under every aggregate and flush.
 
 * :func:`emit_flat` — the serving wire: one flat f32 payload (the
-  decode step's partial logits, the prefill's gathering write) carved
-  into ring-buffer slices and staged through the same emission, kind
-  ``all_reduce`` or ``all_gather``; :func:`raw_emit` — the unsliced
-  serving emission of ``gspmd``, ``sockets`` and ``vma``: one collective
-  for the whole payload on the ring's own group.
+  decode step's partial logits, the prefill's gathering write, the moe
+  expert exchange) carved into ring-buffer slices and staged through
+  the same emission, kind ``all_reduce``, ``all_gather`` or
+  ``all_to_all``; :func:`raw_emit` — the unsliced serving emission of
+  ``gspmd``, ``sockets`` and ``vma``: one collective for the whole
+  payload on the ring's own group.
 
 All-reduces run IN PLACE: when :func:`finish_emission` returns, every
 staged buffer holds its sum over the ring (a channel flush copies its
 coalesced sum back), so :func:`reduce_slices` unpacks the wire buffer
-itself instead of stacking per-item results. A gather writes a fresh
-buffer per flush, carved back per item when its work completes.
+itself instead of stacking per-item results. A gather or an exchange
+writes a fresh buffer per flush, carved back per item when its work
+completes. An ``all_to_all`` item is a peer-major ``(group, m)`` block
+(row ``p`` for peer ``p``); a coalesced flush interleaves its items
+peer-major (:func:`interleave_for_scatter`), so each peer's row of the
+exchanged buffer holds every item's chunk in item order.
 
 Not ported yet, each with the ROADMAP.md item that brings it: the
 two-level leader emission, the pod-aware channels and the in-pod
-scatter group (Queue 1 item 8), the ``all_to_all`` kind of moe (Queue 1
-item 5), and the chaos seams (flush fault, alloc hook) and obs spans
-(Queue 1 item 6).
+scatter group (Queue 1 item 8), and the chaos seams (flush fault, alloc
+hook) and obs spans (Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -81,9 +85,7 @@ from repro_torch.core.flush_scheduler import FlushPlan, make_flush_plan
 from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.kernels import ops, ref
 
-# the emission kinds ported so far (the reference's fourth, all_to_all,
-# comes with moe)
-KINDS = ("all_reduce", "all_gather", "reduce_scatter")
+KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
 
 
 def channels_for(ctx: SyncContext, n_slices: int) -> list[CommChannel]:
@@ -163,7 +165,8 @@ class EmitState:
     :func:`begin_emission`, driven by :func:`stage_slices` /
     :func:`flush_ready`, closed by :func:`finish_emission`). ``group`` is
     the ring size of an ``all_gather`` (its results are ``group`` times
-    the item) or a ``reduce_scatter`` (``1/group`` of it), 1 otherwise;
+    the item), a ``reduce_scatter`` (``1/group`` of it) or an
+    ``all_to_all`` (the item's ``group`` rows), 1 otherwise;
     ``unpack`` runs the unpack stage per flush."""
     ctx: SyncContext
     kind: str
@@ -209,17 +212,19 @@ def _carve_reduce(st: EmitState, items: list,
     return carve
 
 
-def _carve_gather(st: EmitState, items: list, g: torch.Tensor) -> Callable:
-    """The completion of one gather over ``items``: the result is
-    peer-major over the whole buffer, ``(group, sum of the items'
-    sizes)``, so item i's gathered bytes are the same column range of
+def _carve_rows(st: EmitState, items: list, g: torch.Tensor,
+                shard: int = 1) -> Callable:
+    """The completion of one gather (``shard`` 1) or exchange (``shard``
+    = ``group``) over ``items``: the result is peer-major over the whole
+    buffer, ``(group, ...)``, and each row holds ``1/shard`` of every
+    item in item order, so item i's bytes are the same column range of
     every peer's row."""
     def carve():
         rows = (_unpack_flush(g, st.ctx.comm) if st.unpack
                 else g).view(st.group, -1)
         off = 0
         for i in items:
-            n = st.staged[i].numel()
+            n = st.staged[i].numel() // shard
             st.outs[i] = rows[:, off:off + n].reshape(-1)
             off += n
     return carve
@@ -245,16 +250,21 @@ def _issue(st: EmitState, c: int, items: list) -> None:
     completed (:func:`finish_emission`)."""
     ch = st.chans[c]
     flats = [st.staged[i] for i in items]
-    if st.kind == "reduce_scatter":
-        work, sh = ch.reduce_scatter(interleave_for_scatter(
-            [f.reshape(-1) for f in flats], st.group))
-        st.pending.append((work, _carve_scatter(st, items, sh)))
+    if st.kind in ("reduce_scatter", "all_to_all"):
+        buf = interleave_for_scatter([f.reshape(-1) for f in flats],
+                                     st.group)
+        if st.kind == "all_to_all":
+            work, ex = ch.all_to_all(buf)
+            st.pending.append((work, _carve_rows(st, items, ex, st.group)))
+        else:
+            work, sh = ch.reduce_scatter(buf)
+            st.pending.append((work, _carve_scatter(st, items, sh)))
         return
     buf = flats[0] if len(flats) == 1 else \
         torch.cat([f.reshape(-1) for f in flats])
     if st.kind == "all_gather":
         work, g = ch.all_gather(buf)
-        st.pending.append((work, _carve_gather(st, items, g)))
+        st.pending.append((work, _carve_rows(st, items, g)))
         return
     work = ch.all_reduce(buf)
     if not st.unpack:
@@ -278,15 +288,13 @@ def begin_emission(ctx: SyncContext, n_items: int,
     (``core/flush_scheduler``): round-robin with an end-of-exchange flush
     loop under ``"step"``, contiguous production-order groups flushed the
     moment they fill under ``"ready"``. ``group`` is the ring size for
-    ``kind="all_gather"`` and ``"reduce_scatter"``. ``unpack=True`` runs
-    the unpack stage per flush, after its collective completes, and the
-    results are f32 (channel-local instead of item-local: the scattering
-    read keyed to the flush that produced the bytes)."""
-    if kind == "all_to_all":
-        raise NotImplementedError(
-            "emission kind 'all_to_all' is not ported yet: it is the moe "
-            "expert exchange, which comes with moe (ROADMAP.md Queue 1 "
-            "item 5)")
+    ``kind="all_gather"``, ``"reduce_scatter"`` and ``"all_to_all"``.
+    ``unpack=True`` runs the unpack stage per flush, after its
+    collective completes, and the results are f32 (channel-local instead
+    of item-local: the scattering read keyed to the flush that produced
+    the bytes). The reference's ``all_to_all`` bypasses its leader lanes
+    (an exchange has no in-pod/cross-pod split); the port has no leader
+    lanes yet (ROADMAP.md Queue 1 item 8), so every kind flushes flat."""
     if kind not in KINDS:
         raise ValueError(f"unknown emission kind {kind!r}: expected one "
                          f"of {KINDS}")
@@ -344,7 +352,8 @@ def finish_emission(st: EmitState) -> list:
     ``all_reduce`` the staged buffers, now reduced (with ``unpack``: the
     f32 sums); for ``all_gather`` each item's ``(group * size,)``
     peer-major gather; for ``reduce_scatter`` each item's shard, its last
-    dim divided by ``group``."""
+    dim divided by ``group``; for ``all_to_all`` each item's exchanged
+    ``(group, size / group)`` block, flat."""
     if st.ctx.comm.aggregate == "channel":
         for c, fill in enumerate(st.fills):
             if not fill.flushed:
@@ -376,42 +385,58 @@ def emit_through_channels(items: list, ctx: SyncContext,
     return finish_emission(st)
 
 
-def emit_flat(flat: torch.Tensor, ctx: SyncContext, kind: str, *,
-              group: int = 1) -> torch.Tensor:
+def emit_flat(flat: torch.Tensor, ctx: SyncContext,
+              kind: str) -> torch.Tensor:
     """The serving wire path: carve ONE flat f32 payload (a partial logit
-    sum, a coalesced KV-cache write) into ring-buffer slices and emit
-    them through the staged channel schedule — the gradient path's
-    gathering write applied to inference traffic. ``kind`` is
-    ``"all_reduce"`` (returns the summed payload, ``flat``'s own shape)
-    or ``"all_gather"`` (``group`` = ring size; returns the peer-major
-    concatenation, ``(group * len,)``). The slice plan's zero padding is
-    trimmed from the result (per peer block for gathers), so callers see
-    exactly their payload. ``flat`` itself is never written: the in-place
-    all-reduce runs on a padded copy."""
+    sum, a coalesced KV-cache write, a moe expert exchange) into
+    ring-buffer slices and emit them through the staged channel schedule
+    — the gradient path's gathering write applied to inference traffic.
+    ``kind`` is ``"all_reduce"`` (returns the summed payload, ``flat``'s
+    own shape), ``"all_gather"`` (returns the peer-major concatenation,
+    ``(ring * len,)``) or ``"all_to_all"`` (``flat`` is a peer-major
+    ``(ring, len / ring)`` block flattened, row ``p`` for peer ``p``, and
+    the result is the received block in the same layout); ``ring`` is
+    ``ctx.world_size``. An exchange's plan carves
+    the per-peer row, so every slice is itself a peer-major block and
+    the exchanged slices re-concatenate per row, as gathered ones do.
+    The slice plan's zero padding is trimmed from the result (per peer
+    row for gathers and exchanges), so callers see exactly their
+    payload. ``flat`` itself is never written: the in-place all-reduce
+    runs on a padded copy."""
     if flat.dim() != 1:
         raise ValueError(f"emit_flat takes a flat payload, got "
                          f"{tuple(flat.shape)}")
-    n_elems = flat.numel()
+    if kind not in SERVE_KINDS:
+        raise ValueError(f"unknown serving kind {kind!r}: expected one of "
+                         f"{SERVE_KINDS}")
+    group = 1 if kind == "all_reduce" else ctx.world_size
+    rows = group if kind == "all_to_all" else 1
+    if flat.numel() % rows:
+        raise ValueError(f"an all_to_all payload of {flat.numel()} elements "
+                         f"does not split into {rows} peer rows")
+    row = flat.numel() // rows
     itemsize = flat.element_size()
-    sp = plan_slices(n_elems * itemsize, ctx.comm)
+    sp = plan_slices(row * itemsize, ctx.comm)
     elems = max(1, sp.slice_bytes // itemsize)
     # the plan's slice count IS the emitted-collective count
     # (dispatch.logit_payload_slices) — never recompute it
     n = sp.n_slices
-    if n * elems < n_elems:
+    if n * elems < row:
         raise ValueError(
             f"slice_bytes={ctx.comm.slice_bytes} is not a multiple of the "
             f"{itemsize}-byte element: {n} slices hold {n * elems} of "
-            f"{n_elems} elements")
-    buf = flat.new_zeros(n * elems)
-    buf[:n_elems].copy_(flat)
-    outs = emit_through_channels(list(buf.view(n, elems).unbind(0)), ctx,
-                                 kind, group=group)
-    if kind == "all_gather":
-        g = outs[0].view(group, -1) if n == 1 else \
-            torch.cat([o.view(group, -1) for o in outs], dim=1)
-        return g[:, :n_elems].reshape(-1)
-    return buf[:n_elems]
+            f"{row} elements")
+    buf = flat.new_zeros(rows, n * elems)
+    buf[:, :row].copy_(flat.view(rows, row))
+    # one row: views of buf (the all-reduce sums in place); more: copies
+    outs = emit_through_channels(
+        [buf[:, i * elems:(i + 1) * elems].reshape(-1) for i in range(n)],
+        ctx, kind, group=group)
+    if kind == "all_reduce":
+        return buf[0, :row]
+    g = outs[0].view(group, -1) if n == 1 else \
+        torch.cat([o.view(group, -1) for o in outs], dim=1)
+    return g[:, :row].reshape(-1)
 
 
 def raw_emit(flat: torch.Tensor, ctx: SyncContext,
@@ -423,7 +448,9 @@ def raw_emit(flat: torch.Tensor, ctx: SyncContext,
     element and concatenating peer-major commute with slicing); only the
     emission differs. With no ring (one peer, no process group) the
     payload is its own result; given a ring, the collective is issued at
-    any ring size, 1 included. ``flat`` itself is never written."""
+    any ring size, 1 included. ``flat`` itself is never written. An
+    ``all_to_all`` payload is a peer-major ``(ring, len / ring)`` block,
+    exchanged by one ``all_to_all_single``."""
     if kind not in SERVE_KINDS:
         raise ValueError(f"unknown serving kind {kind!r}: expected one of "
                          f"{SERVE_KINDS}")
@@ -436,6 +463,10 @@ def raw_emit(flat: torch.Tensor, ctx: SyncContext,
     if kind == "all_reduce":
         out = flat.clone()
         dist.all_reduce(out, group=group)
+        return out
+    if kind == "all_to_all":
+        out = torch.empty_like(flat)
+        dist.all_to_all_single(out, flat.contiguous(), group=group)
         return out
     out = flat.new_empty(ctx.ring.world_size * flat.numel())
     dist.all_gather_into_tensor(out, flat.contiguous(), group=group)

@@ -16,13 +16,14 @@ ring-buffer slices to channels round-robin (paper §IV-C) or, under
 ``comm.flush="ready"``, contiguously; :class:`ChannelFill` is the
 per-channel fill watermark that flush-when-ready polls.
 
-A channel issues three kinds: ``all_reduce`` (the gradient exchange
+A channel issues four kinds: ``all_reduce`` (the gradient exchange
 and the serving logit reduction, in place), ``all_gather`` (the serving
 prefill's gathering write, peer-major like the reference's tiled
-gather) and ``reduce_scatter`` (the ZeRO-1 exchange: each peer keeps
-the sum of its contiguous 1/ring chunk). The rest come with the modes
-that use them: ``all_to_all`` with moe (ROADMAP.md Queue 1 item 5), the
-pod-aware split collectives with the two-level topology (item 8).
+gather), ``reduce_scatter`` (the ZeRO-1 exchange: each peer keeps
+the sum of its contiguous 1/ring chunk) and ``all_to_all`` (the moe
+expert exchange: row ``p`` of a peer-major block goes to peer ``p``).
+The pod-aware split collectives come with the two-level topology
+(ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -101,10 +102,22 @@ class CommChannel:
                                           async_op=True), out
 
     def all_to_all(self, x: torch.Tensor):
-        raise NotImplementedError(
-            f"channel {self.index}: all_to_all is the moe expert exchange, "
-            "which comes with moe (ROADMAP.md Queue 1 item 5, 'The other "
-            "model families')")
+        """Peer-major exchange over the ring: the flat ``x`` is a
+        ``(world, m)`` block whose row ``p`` is this peer's payload for
+        peer ``p``; row ``p`` of the fresh ``out`` is peer ``p``'s payload
+        for this peer (the reference's tiled ``all_to_all``, the moe
+        expert dispatch and combine). Issued asynchronously on this
+        channel's communicator; returns ``(work, out)``, and ``out`` is
+        valid once the work is waited on."""
+        x = x.reshape(-1)
+        world = dist.get_world_size(self.group)
+        if x.numel() % world:
+            raise ValueError(f"channel {self.index}: an all-to-all of "
+                             f"{x.numel()} elements does not split over "
+                             f"{world} peers")
+        out = torch.empty_like(x)
+        return dist.all_to_all_single(out, x, group=self.group,
+                                      async_op=True), out
 
     def _pod_unported(self, what: str):
         return NotImplementedError(

@@ -37,6 +37,13 @@ CLI::
       --device cpu --requests 4 --max-new 4 --batch 2
   python -m repro_torch.launch.serve --arch recurrentgemma-9b-reduced \
       --device cpu --requests 4 --max-new 4 --batch 2
+  # moe: the expert stage through the all_to_all wire (any mode but the
+  # one-peer gspmd path, which runs it locally)
+  python -m repro_torch.launch.serve --arch mixtral-8x7b-reduced \
+      --device cpu --comm-mode hadronio
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch mixtral-8x7b-reduced --device cpu --comm-mode hadronio \
+      --requests 6 --max-new 4 --batch 2
 
 The recurrent families (rwkv6, recurrentgemma) serve equal-length
 buckets of prompts, so requests of distinct lengths run one per wave.

@@ -1,4 +1,4 @@
-"""Model API of the port (dense, ssm and hybrid families):
+"""Model API of the port (dense, moe, ssm and hybrid families):
 
   specs(cfg)                                   -> ParamSpec tree
   init(gen, cfg, device=)                      -> params
@@ -10,10 +10,12 @@
 Counterpart of ``repro/models/api.py``. ``batch`` is a dict: train
 {"tokens", "labels": (B,S) int, "loss_mask"?: (B,S)}; prefill
 {"tokens": (B,S) int, "last_pos"?: (B,)}; decode {"token": (B,),
-"pos": () or (B,)}. The ssm family (rwkv6) and the hybrid family
-(recurrentgemma) serve: their cache is a recurrent state (plus rolling
-local-attention pages for the hybrid), fixed in size, and ``loss`` is
-dense-only until training them is ported. Other families raise
+"pos": () or (B,)}. The moe family runs the dense stack with
+``models/moe`` in place of the MLP and keeps the dense KV cache. The
+ssm family (rwkv6) and the hybrid family (recurrentgemma) serve: their
+cache is a recurrent state (plus rolling local-attention pages for the
+hybrid), fixed in size. ``loss`` is dense-only until training the other
+families is ported. The encdec and vlm families raise
 ``NotImplementedError`` naming the ROADMAP queue entry that brings them.
 """
 from __future__ import annotations
@@ -36,7 +38,7 @@ from repro_torch.models.layers import (apply_norm, cross_entropy,
 Tree = Any
 
 
-SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig,
@@ -59,7 +61,7 @@ def specs(cfg: ModelConfig) -> Tree:
     elif cfg.family == "hybrid":
         out["layers"] = hyb.hybrid_stack_specs(cfg)
     else:
-        out["layers"] = tfm.stack_specs(cfg)
+        out["layers"] = tfm.stack_specs(cfg, cfg.family)
     return out
 
 
@@ -75,21 +77,21 @@ def loss(params: Tree, batch: dict, cfg: ModelConfig):
     dict {"xent", "aux"} of the reference (``aux`` is the MoE balance
     loss, zero for the dense family). Attention is the plain
     ``attend_chunked``, which autograd differentiates. Dense only: the
-    ssm and hybrid families serve but do not train yet."""
+    moe, ssm and hybrid families serve but do not train yet."""
     _check_family(cfg, ("dense",))
     x = embed_tokens(params["embed"], batch["tokens"],
                      torch_dtype(cfg.compute_dtype))
-    x, _ = tfm.apply_stack(params["layers"], x, cfg, mode="train")
+    x, _, aux = tfm.apply_stack(params["layers"], x, cfg, mode="train")
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     logits = lm_logits(params["embed"], x)
     xent = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=xent.device)
     return xent + aux, {"xent": xent, "aux": aux}
 
 
 def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-           cache=None, pos=None, attend=None, scan=None):
-    """The family stack. Returns (x, cache)."""
+           cache=None, pos=None, attend=None, scan=None, expert_fn=None):
+    """The family stack. Returns (x, cache). ``expert_fn`` replaces the
+    moe expert stage; the other families have none."""
     if cfg.family == "ssm":
         x = apply_norm(params["ln_in"], x, "layernorm")
         return rwkv.apply_rwkv_stack(params["layers"], x, cfg, state=cache,
@@ -98,27 +100,33 @@ def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         return hyb.apply_hybrid_stack(params["layers"], x, cfg, mode=mode,
                                       cache=cache, pos=pos, attend=attend,
                                       scan=scan)
-    return tfm.apply_stack(params["layers"], x, cfg, mode=mode, cache=cache,
-                           pos=pos, attend=attend)
+    x, cache, _ = tfm.apply_stack(params["layers"], x, cfg, mode=mode,
+                                  kind=cfg.family, cache=cache, pos=pos,
+                                  attend=attend, expert_fn=expert_fn)
+    return x, cache
 
 
 def prefill(params: Tree, batch: dict, cfg: ModelConfig,
             logits_fn: Optional[Callable] = None,
             attend: Optional[Callable] = None,
-            scan: Optional[Callable] = None):
+            scan: Optional[Callable] = None,
+            expert_fn: Optional[Callable] = None):
     """Last-token logits (B, V) and the cache. ``logits_fn`` replaces
     the LM head (signature of :func:`layers.lm_logits`; the serving
     dispatch passes its tensor-parallel head). ``attend`` replaces the
     prefill attention (default: the CUDA kernel via
     ``kernels.ops.flash_attention``) and ``scan`` the family's recurrence
     (default: ``kernels.ops.wkv6`` for ssm, ``ops.rglru`` for hybrid);
-    the plain versions in ``kernels.ref`` give the plain path."""
+    the plain versions in ``kernels.ref`` give the plain path.
+    ``expert_fn`` replaces the moe expert stage
+    (``models/moe.apply_experts``; the serving dispatch passes its
+    expert-parallel exchange)."""
     _check_family(cfg)
     head = logits_fn or lm_logits
     x = embed_tokens(params["embed"], batch["tokens"],
                      torch_dtype(cfg.compute_dtype))
     x, cache = _trunk(params, x, cfg, mode="prefill", attend=attend,
-                      scan=scan)
+                      scan=scan, expert_fn=expert_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     if "last_pos" in batch:     # per-request prompt end (serving engine)
         rows = torch.arange(x.shape[0], device=x.device)
@@ -129,17 +137,19 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig,
 
 
 def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
-                logits_fn: Optional[Callable] = None):
+                logits_fn: Optional[Callable] = None,
+                expert_fn: Optional[Callable] = None):
     """One token for the whole batch against ``cache``. batch: {"token":
     (B,), "pos": () or (B,)}. Attention pages are written in place;
     recurrent states come back as new tensors (rwkv6's decode runs the
-    WKV6 kernel at T=1; the hybrid's is the one-line RG-LRU update)."""
+    WKV6 kernel at T=1; the hybrid's is the one-line RG-LRU update).
+    ``logits_fn`` and ``expert_fn`` as in :func:`prefill`."""
     _check_family(cfg)
     head = logits_fn or lm_logits
     x = embed_tokens(params["embed"], batch["token"][:, None],
                      torch_dtype(cfg.compute_dtype))
     x, cache = _trunk(params, x, cfg, mode="decode", cache=cache,
-                      pos=batch["pos"])
+                      pos=batch["pos"], expert_fn=expert_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     return head(params["embed"], x)[:, 0], cache
 

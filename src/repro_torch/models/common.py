@@ -81,10 +81,17 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+DRAW_ELEMS = 1 << 31      # f32 elements drawn at once (8 GiB)
+
+
 def init_params(gen: torch.Generator, specs: Tree, dtype: str,
                 device: torch.device) -> Tree:
     """Materialize a ParamSpec tree on ``device``. Normal draws are made
-    in f32 on the generator's device, then cast and moved."""
+    in f32 on the generator's device, then cast and moved, in runs of at
+    most ``DRAW_ELEMS`` elements in storage order: a stacked expert leaf
+    of a full-width moe model is tens of GB in f32. A leaf under the
+    bound is one draw, so every dense and recurrent model's weights are
+    those of one draw per leaf."""
     dt = torch_dtype(dtype)
     leaves = []
     for path, spec in tree_paths(specs):
@@ -93,8 +100,13 @@ def init_params(gen: torch.Generator, specs: Tree, dtype: str,
         elif spec.init == "ones":
             x = torch.ones(spec.shape, dtype=dt, device=device)
         else:
-            x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                            device=gen.device)
-            x = (x * (0.02 * spec.scale)).to(device=device, dtype=dt)
+            x = torch.empty(spec.shape, dtype=dt, device=device)
+            flat = x.view(-1)
+            for lo in range(0, flat.numel(), DRAW_ELEMS):
+                part = flat[lo:lo + DRAW_ELEMS]
+                part.copy_(torch.randn(part.numel(), generator=gen,
+                                       dtype=torch.float32,
+                                       device=gen.device)
+                           .mul_(0.02 * spec.scale))
         leaves.append((path, x))
     return tree_from_paths(leaves)

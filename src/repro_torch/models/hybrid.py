@@ -183,7 +183,7 @@ def _apply_kind(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         if cache is None:
             cache = _cache_entry(cfg, kind, (x.shape[0],), x.dtype, x.device)
         return apply_recurrent_block(p, x, cfg, state=cache, scan=scan)
-    x, nk, nv = tfm.apply_block(
+    x, nk, nv, _ = tfm.apply_block(
         p, x, cfg, mode=mode, window=cfg.local_window, attend=attend,
         cache_k=cache["k"] if cache else None,
         cache_v=cache["v"] if cache else None, pos=pos)

@@ -1,12 +1,10 @@
 """Shared layers: RMS norm and layer norm, RoPE, embeddings, LM head,
-cross entropy, SwiGLU MLP.
+cross entropy, the SwiGLU and GELU MLPs.
 
 Counterpart of ``repro/models/layers.py``. Functions
 are pure and take their parameters as dict subtrees built from the
 matching ``*_specs`` helpers. The reference's activation-sharding hook
 (``shard_fn``) has no counterpart: a single card holds every tensor.
-Other norm and MLP kinds raise ``NotImplementedError`` until the
-families that use them are ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -18,10 +16,10 @@ import torch.nn.functional as F
 from repro_torch.models.common import ParamSpec
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1: "
-        "'The other model families')")
+def _check_kind(what: str, kind: str, kinds: tuple) -> None:
+    if kind not in kinds:
+        raise ValueError(f"unknown {what} kind {kind!r}: expected one of "
+                         f"{kinds}")
 
 
 # ---------------------------------------------------------------------------
@@ -33,8 +31,7 @@ NORM_KINDS = ("rmsnorm", "layernorm")
 
 
 def norm_specs(d: int, kind: str) -> dict:
-    if kind not in NORM_KINDS:
-        raise _unported(f"norm kind {kind!r}")
+    _check_kind("norm", kind, NORM_KINDS)
     out = {"scale": ParamSpec((d,), ("embed",), init="ones")}
     if kind == "layernorm":
         out["bias"] = ParamSpec((d,), ("embed",), init="zeros")
@@ -46,8 +43,7 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str,
     """RMS norm, or layer norm with scale and bias (population variance,
     the reference's ``eps=1e-6`` default, not PyTorch's 1e-5), computed
     in f32 and returned in ``x``'s dtype."""
-    if kind not in NORM_KINDS:
-        raise _unported(f"norm kind {kind!r}")
+    _check_kind("norm", kind, NORM_KINDS)
     xf = x.float()
     if kind == "rmsnorm":
         var = xf.square().mean(dim=-1, keepdim=True)
@@ -124,19 +120,38 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+MLP_KINDS = ("swiglu", "gelu")
+
+
 def mlp_specs(d: int, f: int, kind: str, depth_scale: float) -> dict:
-    if kind != "swiglu":
-        raise _unported(f"mlp kind {kind!r}")
+    """swiglu: ``wi, wg, wo``; gelu (starcoder2): ``wi, bi, wo, bo``."""
+    _check_kind("mlp", kind, MLP_KINDS)
+    if kind == "swiglu":
+        return {
+            "wi": ParamSpec((d, f), ("embed", "mlp")),
+            "wg": ParamSpec((d, f), ("embed", "mlp")),
+            "wo": ParamSpec((f, d), ("mlp", "embed"), scale=depth_scale),
+        }
     return {
         "wi": ParamSpec((d, f), ("embed", "mlp")),
-        "wg": ParamSpec((d, f), ("embed", "mlp")),
+        "bi": ParamSpec((f,), ("mlp",), init="zeros"),
         "wo": ParamSpec((f, d), ("mlp", "embed"), scale=depth_scale),
+        "bo": ParamSpec((d,), ("embed",), init="zeros"),
     }
 
 
 def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
-        raise _unported(f"mlp kind {kind!r}")
+    """The gelu form is ``jax.nn.gelu``'s default, the tanh
+    approximation (PyTorch's default is the erf form); ``bo`` is added
+    after the down-projection."""
+    _check_kind("mlp", kind, MLP_KINDS)
     h = torch.matmul(x, p["wi"].to(x.dtype))
-    g = torch.matmul(x, p["wg"].to(x.dtype))
-    return torch.matmul(F.silu(g) * h, p["wo"].to(x.dtype))
+    if kind == "swiglu":
+        g = torch.matmul(x, p["wg"].to(x.dtype))
+        h = F.silu(g) * h
+    else:
+        h = F.gelu(h + p["bi"].to(x.dtype), approximate="tanh")
+    out = torch.matmul(h, p["wo"].to(x.dtype))
+    if "bo" in p:
+        out = out + p["bo"].to(x.dtype)
+    return out

@@ -1,8 +1,12 @@
-"""Decoder-only transformer stack, dense family.
+"""Decoder-only transformer stack, dense and moe families.
 
 Counterpart of ``repro/models/transformer.py``. Parameters are stacked
 along a leading ``layers`` dim as in the reference; a Python loop over
-the layers replaces ``lax.scan``.
+the layers replaces ``lax.scan``. A block's ``kind`` is ``dense`` (its
+MLP) or ``moe`` (``models/moe.apply_moe`` in the MLP's place, whose
+balance loss each block returns and the stack sums); ``expert_fn``
+replaces the moe expert stage alone (the serving dispatch's
+expert-parallel exchange).
 
 ``mode``:
   train   — full sequence, causal (optionally windowed), no cache.
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import stacked, tree_map
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
                                        norm_specs)
@@ -40,28 +45,35 @@ def depth_scale(cfg: ModelConfig) -> float:
     return 1.0 / (2.0 * max(cfg.num_layers, 1)) ** 0.5
 
 
-def block_specs(cfg: ModelConfig) -> dict:
-    return {
+def block_specs(cfg: ModelConfig, kind: str = "dense") -> dict:
+    s = {
         "ln1": norm_specs(cfg.d_model, cfg.norm_kind),
         "ln2": norm_specs(cfg.d_model, cfg.norm_kind),
         "attn": att.attention_specs(cfg.d_model, cfg.num_heads,
                                     cfg.num_kv_heads, cfg.head_dim,
                                     cfg.qkv_bias, depth_scale(cfg)),
-        "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_kind,
-                         depth_scale(cfg)),
     }
+    if kind == "moe":
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_kind,
+                             depth_scale(cfg))
+    return s
 
 
-def stack_specs(cfg: ModelConfig) -> dict:
-    return tree_map(lambda s: stacked(s, cfg.num_layers), block_specs(cfg))
+def stack_specs(cfg: ModelConfig, kind: str = "dense") -> dict:
+    return tree_map(lambda s: stacked(s, cfg.num_layers),
+                    block_specs(cfg, kind))
 
 
 def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                window: int, attend: Callable,
+                window: int, attend: Callable, kind: str = "dense",
                 cache_k: Optional[torch.Tensor] = None,
                 cache_v: Optional[torch.Tensor] = None,
-                pos: Optional[torch.Tensor] = None):
-    """Returns (x, new_cache_k, new_cache_v)."""
+                pos: Optional[torch.Tensor] = None,
+                expert_fn: Optional[Callable] = None):
+    """Returns (x, new_cache_k, new_cache_v, aux): ``aux`` is the moe
+    block's balance loss, None for a dense block."""
     s = x.shape[1]
     h = apply_norm(p["ln1"], x, cfg.norm_kind)
     if mode != "decode":
@@ -88,35 +100,45 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
             else:
                 new_k, new_v = k, v
     x = x + att.out_project(p["attn"], out)
-    x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_kind),
-                      cfg.mlp_kind)
-    return x, new_k, new_v
+    h = apply_norm(p["ln2"], x, cfg.norm_kind)
+    if kind == "moe":
+        y, aux = moe_mod.apply_moe(p["moe"], h, cfg, expert_fn=expert_fn)
+    else:
+        y, aux = apply_mlp(p["mlp"], h, cfg.mlp_kind), None
+    return x + y, new_k, new_v, aux
 
 
 def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                mode: str, cache: Optional[dict] = None,
+                mode: str, kind: str = "dense",
+                cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None,
-                attend: Optional[Callable] = None):
-    """Run the block over the stacked params. Returns (x, cache):
+                attend: Optional[Callable] = None,
+                expert_fn: Optional[Callable] = None):
+    """Run the block over the stacked params. Returns (x, cache, aux):
     ``cache`` is {"k","v"}: (L,B,S,KV,Dh) for prefill (new) and decode
-    (the given cache, updated in place); None in train mode."""
+    (the given cache, updated in place), None in train mode; ``aux`` is
+    the blocks' balance losses summed (zero for dense)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if attend is None:
         attend = att.attend_chunked if mode == "train" \
             else ops.flash_attention
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.num_layers):
         p = tree_map(lambda t: t[layer], params)
         ck = cache["k"][layer] if mode == "decode" else None
         cv = cache["v"][layer] if mode == "decode" else None
-        x, nk, nv = apply_block(p, x, cfg, mode=mode,
-                                window=cfg.sliding_window, attend=attend,
-                                cache_k=ck, cache_v=cv, pos=pos)
+        x, nk, nv, a = apply_block(p, x, cfg, mode=mode, kind=kind,
+                                   window=cfg.sliding_window, attend=attend,
+                                   cache_k=ck, cache_v=cv, pos=pos,
+                                   expert_fn=expert_fn)
+        if a is not None:
+            aux = aux + a
         ks.append(nk)
         vs.append(nv)
     if mode == "train":
-        return x, None
+        return x, None, aux
     if mode == "prefill":
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return x, cache
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
+    return x, cache, aux

@@ -11,6 +11,8 @@ is each leaf's batch axis, declared here:
 family        cache leaves                                    batch axis
 ============  ==============================================  =========
 dense         KV pages ``{"k","v"}: (L, B, S, KV, Dh)``       1
+moe           the same KV pages as dense (the expert          1
+              stage keeps no state across steps)
 ssm           rwkv6 state ``wkv (L, B, H, hs, hs)``,          1
               ``tm_x`` / ``cm_x (L, B, 1, D)``
 hybrid        MIXED: the ``groups`` subtree stacks each       1
@@ -19,7 +21,8 @@ hybrid        MIXED: the ``groups`` subtree stacks each       1
               ``(B, ...)``
 ============  ==============================================  =========
 
-The other families' layouts come with them (ROADMAP.md, Queue 1).
+The encdec and vlm layouts come with those families (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ def _hybrid_mixed(path: Tuple[str, ...], leaf: Any) -> int:
 
 CACHE_LAYOUTS: dict[str, LayoutFn] = {
     "dense": _stacked_axis1,
+    "moe": _stacked_axis1,
     "ssm": _stacked_axis1,
     "hybrid": _hybrid_mixed,
 }

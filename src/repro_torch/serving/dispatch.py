@@ -15,6 +15,17 @@ their collectives through ``CommBackend.serve_emit``:
 * **decode** — tensor-parallel LM head: each peer computes partial
   logits from its contiguous ``d_model`` shard and the partial sums are
   all-reduced through the wire.
+* **moe expert parallelism** — when the ring divides the expert count
+  (and the step is not the pure local path), the expert stage runs
+  expert-parallel in prefill and decode: the dispatched ``(B, E, C, D)``
+  buffer is exchanged peer-major (``all_to_all``: each peer receives
+  every peer's rows of its own slice of the expert axis), the peer runs
+  its ``E / ring`` experts on them, and the reverse exchange brings the
+  outputs home. Otherwise the expert stage runs locally. As in the
+  reference, the exchanged buffer and the expert weights are f32 on this
+  path (``buf.astype(f32)``, ``wslice = mp[w].astype(f32)``), while the
+  local stage computes in the compute dtype: the two are bit for bit
+  equal on f32 configs only (ROADMAP.md Queue 3).
 
 The ring is a ``core/channels.Ring`` (the reference's mesh): one process
 per peer, its rank the peer's place. The hadronio family emits through
@@ -42,6 +53,7 @@ from repro_torch.core.backends import SyncContext, get_backend
 from repro_torch.core.channels import Ring
 from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.models import api
+from repro_torch.models import moe
 from repro_torch.models.common import tree_from_paths, tree_paths
 from repro_torch.serving import cache_layout
 
@@ -83,8 +95,33 @@ def make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
                       rank=0 if one else ring.rank, channel_indices=chans,
                       ring=ring)
     n_shards = ctx.world_size
-    # the pure-local reference path: nothing to wire
+    # the pure-local reference path: nothing to wire (the same gate for
+    # the TP head, the gathering write and the expert exchange)
     pure_local = n_shards == 1 and not chans and comm.mode == "gspmd"
+
+    # -- moe expert-parallel stage (the expert exchange) ----------------
+
+    use_ep = (cfg.family == "moe" and not pure_local
+              and cfg.moe.num_experts % n_shards == 0)
+    ep = cfg.moe.num_experts // n_shards if use_ep else 0
+
+    def ep_experts(mp: dict, buf: torch.Tensor, _cfg) -> torch.Tensor:
+        """The expert stage over the ring: exchange the dispatched buffer
+        peer-major (peer p gets every peer's rows of experts
+        ``p*ep .. p*ep+ep-1``), run this peer's expert slice in f32,
+        exchange the outputs back."""
+        b, e, cap, d = buf.shape
+        snd = buf.float().reshape(b, n_shards, ep, cap, d).movedim(1, 0)
+        got = backend.serve_emit(snd.reshape(-1), ctx, "all_to_all")
+        lo = ctx.rank * ep
+        wslice = {w: mp[w][lo:lo + ep].float() for w in ("wi", "wg", "wo")}
+        out = moe.apply_experts(wslice, got.view(n_shards * b, ep, cap, d),
+                                cfg)
+        back = backend.serve_emit(out.reshape(-1), ctx, "all_to_all")
+        back = back.view(n_shards, b, ep, cap, d).movedim(0, 1)
+        return back.reshape(b, e, cap, d).to(buf.dtype)
+
+    expert_fn = ep_experts if use_ep else None
 
     # -- tensor-parallel LM head (the serving logit reduction) ----------
 
@@ -114,7 +151,7 @@ def make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
         bs = b // n_shards
         lo = ctx.rank * bs
         local = {k: v[lo:lo + bs] for k, v in batch.items()}
-        logits, cache = api.prefill(params, local, cfg)
+        logits, cache = api.prefill(params, local, cfg, expert_fn=expert_fn)
         if pure_local:
             return logits, cache
 
@@ -142,7 +179,8 @@ def make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
 
     def decode(params: dict, cache: dict, dec: dict):
         return api.decode_step(params, cache, dec, cfg,
-                               logits_fn=None if pure_local else tp_head)
+                               logits_fn=None if pure_local else tp_head,
+                               expert_fn=expert_fn)
 
     return ServeStep(prefill=prefill, decode=decode, n_shards=n_shards,
                      comm=comm, channel_indices=chans)
@@ -153,3 +191,15 @@ def logit_payload_slices(cfg: ModelConfig, batch: int,
     """How many ring-buffer slices one decode logit reduction carves into
     (the collectives per decode step under ``aggregate="slice"``)."""
     return plan_slices(batch * cfg.vocab_size * 4, comm).n_slices
+
+
+def expert_exchange_slices(cfg: ModelConfig, batch: int, seq: int,
+                           comm: CommConfig, n_shards: int = 1) -> int:
+    """How many ring-buffer slices one expert exchange carves into: the
+    per-peer row of the f32 ``(batch, E, C, D)`` buffer of a call with
+    ``batch`` rows of ``seq`` tokens per peer. Under
+    ``aggregate="slice"`` a moe layer issues twice this many
+    ``all_to_all`` collectives per call (dispatch and combine)."""
+    row = batch * cfg.moe.num_experts * moe.capacity(seq, cfg) \
+        * cfg.d_model * 4 // n_shards
+    return plan_slices(row, comm).n_slices

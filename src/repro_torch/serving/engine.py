@@ -2,11 +2,11 @@
 
 Counterpart of ``repro/serving/engine.py``.
 
-* Attention families: prompts are **right-padded** to the batch maximum
-  and tracked with per-request ``pos`` vectors: pad slots are never
-  attended (validity mask ``j <= pos``) and the first generated token
-  overwrites the first pad slot, so mixed-length batches are exact per
-  row.
+* Attention families (dense, moe): prompts are **right-padded** to the
+  batch maximum and tracked with per-request ``pos`` vectors: pad slots
+  are never attended (validity mask ``j <= pos``) and the first
+  generated token overwrites the first pad slot, so mixed-length
+  batches are exact per row.
 * Recurrent families (ssm, hybrid): the recurrence would absorb pad
   tokens, so requests are grouped into **equal-length buckets** of at
   most ``max_batch`` (exact, no pads, no ``last_pos``), one wave per

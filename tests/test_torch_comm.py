@@ -168,8 +168,8 @@ def test_finish_refuses_incomplete_emission(ring):
     pipeline.stage_slices(st, 0, torch.zeros(8))
     with pytest.raises(RuntimeError, match="incomplete"):
         pipeline.finish_emission(st)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        pipeline.begin_emission(_ctx(ring), 2, "all_to_all")
+    with pytest.raises(ValueError, match="unknown emission kind"):
+        pipeline.begin_emission(_ctx(ring), 2, "all_to_some")
 
 
 def _jax_reduce(comm: JCommConfig, slices: np.ndarray, ef: np.ndarray):

@@ -185,11 +185,11 @@ def test_configs_resolve_and_unported_raise():
         assert getattr(full, f) == getattr(ref, f), f
         assert getattr(red, f) == getattr(jax_config(ARCH), f), f
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+        get_config("whisper-tiny")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.specs(dataclasses.replace(red, family="moe"))
+        api.specs(dataclasses.replace(red, family="encdec"))
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

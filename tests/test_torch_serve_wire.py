@@ -15,6 +15,14 @@ summed over the ring: at 2 peers ``a + b == b + a`` exactly, but at 4
 gloo's ring all-reduce starts each chunk's sum at a different peer, and
 slicing moves an element's chunk, so the f32 sums may associate
 differently: rtol 1e-6 with atol 1e-6 of the largest logit.
+
+The moe expert exchange (``mixtral-8x7b-reduced``, 4 experts): every
+mode but the pure local ``gspmd`` path runs the expert stage
+expert-parallel through the ``all_to_all`` wire, at ring size 1 and on
+gloo rings of 2 and 4 peers. An exchange is data movement and each
+expert's GEMM runs on the same rows, so prefill logits and caches are
+bitwise equal to the one-peer local path's; the ``all_to_all_single``
+collectives are counted against the slice plan.
 """
 import dataclasses
 import itertools
@@ -213,7 +221,7 @@ def test_logit_payload_slices_matches_jax(arch, batch, slice_bytes):
 
 
 @pytest.mark.parametrize("path", ["slice", "channel", "raw"])
-@pytest.mark.parametrize("kind", ["all_reduce", "all_gather"])
+@pytest.mark.parametrize("kind", ["all_reduce", "all_gather", "all_to_all"])
 @pytest.mark.parametrize("n", [1, 511, 512, 513, 10_000])
 def test_emit_exact_and_trimmed(ring, path, kind, n):
     """At ring size 1 the sliced and unsliced emissions return exactly
@@ -250,7 +258,7 @@ def test_sliced_wire_needs_a_ring(qwen):
     with pytest.raises(ValueError, match="ring"):
         pipeline.raw_emit(flat, SyncContext(_comm("sockets"), world_size=2),
                           "all_reduce")
-    with pytest.raises(NotImplementedError, match="moe"):
+    with pytest.raises(ValueError, match="ring"):
         pipeline.emit_flat(flat, ctx, "all_to_all")
     with pytest.raises(ValueError, match="multiple"):   # 250 per 1001 B
         pipeline.emit_flat(torch.ones(10_001), SyncContext(CommConfig(
@@ -429,15 +437,16 @@ _WORKER = textwrap.dedent('''
 ''')
 
 
-def _ring_run(tmp_path, world, data):
-    """Run the worker on ``world`` gloo ranks; every rank's results."""
+def _ring_run(tmp_path, world, data, worker=None):
+    """Run ``worker`` (default the serving worker above) on ``world``
+    gloo ranks; every rank's results."""
     inp = tmp_path / "in.pkl"
     with open(inp, "wb") as f:
         pickle.dump(data, f)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(r), str(world),
+        [sys.executable, "-c", worker or _WORKER, str(r), str(world),
          str(tmp_path / "store"), str(inp), str(tmp_path / f"out{r}.pkl")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
@@ -538,3 +547,199 @@ def test_ring_of_two_peers(qwen, tmp_path):
         want = [tuple(r.tokens.tolist())
                 for r in sorted(g.run(threads=False), key=lambda r: r.uid)]
         assert res["tokens", arch] == want, arch
+
+
+# -- the moe expert exchange (all_to_all) -------------------------------------
+
+MOE = "mixtral-8x7b-reduced"
+MOE_SLICE = 4096
+MOE_MODES = (("gspmd", "slice"), ("sockets", "slice"), ("vma", "slice"),
+             ("hadronio", "slice"), ("hadronio", "channel"),
+             ("hadronio_overlap", "slice"))
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    jcfg, tcfg = jax_config(MOE), get_config(MOE)
+    jp = japi.init(jax.random.PRNGKey(1), jcfg)
+    return jcfg, tcfg, jp, from_numpy_params(jax.tree.map(np.asarray, jp),
+                                             "cpu")
+
+
+def _moe_comm(mode, aggregate="slice"):
+    return CommConfig(mode=mode, slice_bytes=MOE_SLICE, channels=4,
+                      aggregate=aggregate)
+
+
+def _exchanges(cfg, mode, aggregate, batch, seq, world):
+    """The ``all_to_all_single`` calls one serve call makes: two
+    exchanges per moe layer, each one collective unsliced, one per ring
+    slice (``aggregate="slice"``) or per channel used (``"channel"``)
+    sliced."""
+    comm = _moe_comm(mode, aggregate)
+    n = dispatch.expert_exchange_slices(cfg, batch, seq, comm, world)
+    per = 1 if mode in ("gspmd", "sockets", "vma") else \
+        n if aggregate == "slice" else min(comm.channels, n)
+    return 2 * cfg.num_layers * per
+
+
+@pytest.mark.parametrize("mode,aggregate", MOE_MODES[1:])
+def test_moe_expert_exchange_matches_local_and_jax(mixtral, ring, mode,
+                                                   aggregate, monkeypatch):
+    """Ring size 1: every mode but the pure local gspmd path runs the
+    expert stage through the exchange; the logits are bitwise the local
+    path's and within TOL of the JAX serve step's (which exchanges
+    too), and the exchanges are counted."""
+    jcfg, tcfg, jp, tp = mixtral
+    ref_p, ref_d = _port_logits(tcfg, tp, _moe_comm("gspmd"), None)
+    calls = []
+    real = dist.all_to_all_single
+    monkeypatch.setattr(dist, "all_to_all_single",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    got_p, got_d = _port_logits(tcfg, tp, _moe_comm(mode, aggregate), ring)
+    assert torch.equal(got_p, ref_p) and torch.equal(got_d, ref_d)
+    assert len(calls) == sum(_exchanges(tcfg, mode, aggregate, 2, s, 1)
+                             for s in (8, 1))
+    step = jdispatch.make_serve_step(jcfg, JCommConfig(
+        mode=mode, slice_bytes=MOE_SLICE, channels=4, aggregate=aggregate,
+        hierarchical=False))
+    toks, lens = _inputs(jcfg.vocab_size)
+    lp, cache = step.prefill(jp, {"tokens": jnp.asarray(toks),
+                                  "last_pos": jnp.asarray(lens - 1)})
+    ld, _ = step.decode(jp, japi.grow_cache(jcfg, cache, 32), {
+        "token": jnp.argmax(lp, -1).astype(jnp.int32),
+        "pos": jnp.asarray(lens)})
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(lp), **TOL)
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(ld), **TOL)
+
+
+def test_moe_group_tokens_match_jax(mixtral, ring):
+    """Greedy tokens of the hadronio group (2 threaded loops, the
+    expert exchange on each loop's channels) equal the JAX group's;
+    prompts plus new tokens run past the reduced window of 16."""
+    jcfg, tcfg, jp, tp = mixtral
+    reqs = _group_requests(tcfg.vocab_size)
+    assert max(len(p) + m for _, p, m in reqs) > tcfg.sliding_window
+    g = jax_group(jcfg, jp, JServeConfig(
+        event_loops=1, poll="busy", max_batch=2, max_len=48,
+        comm=_jcomm("hadronio")))
+    g.submit([JRequest(u, p, max_new=m) for u, p, m in reqs])
+    want = [tuple(r.tokens.tolist())
+            for r in sorted(g.run(threads=False), key=lambda r: r.uid)]
+    tg = make_engine_group(tcfg, tp, ServeConfig(
+        event_loops=2, poll="busy", max_batch=2, max_len=48,
+        comm=_comm("hadronio")), device="cpu", ring=ring)
+    tg.submit([Request(u, p, max_new=m) for u, p, m in reqs])
+    got = sorted(tg.run(threads=True), key=lambda r: r.uid)
+    assert [tuple(r.tokens.tolist()) for r in got] == want
+
+
+def test_cli_serves_moe_through_hadronio(capsys):
+    rc = serve_cli.main(["--arch", MOE, "--device", "cpu", "--requests",
+                         "3", "--max-new", "2", "--batch", "2",
+                         "--comm-mode", "hadronio"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "[serve] 3 requests, 6 tokens" in out and "comm=hadronio" in out
+
+
+_MOE_WORKER = textwrap.dedent('''
+    import pickle, sys
+    import torch, torch.distributed as dist
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.channels import Ring
+    from repro_torch.models import api
+    from repro_torch.models.convert import from_numpy_params
+    from repro_torch.serving import dispatch
+
+    rank, world, store, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
+                                    *sys.argv[3:])
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    try:
+        ring = Ring(channels=4)
+        with open(inp, "rb") as f:
+            data = pickle.load(f)
+        cfg = get_config("mixtral-8x7b-reduced")
+        params = from_numpy_params(data["params"], "cpu")
+        calls = [0]
+        real = dist.all_to_all_single
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return real(*a, **kw)
+        dist.all_to_all_single = counted
+        as_t = lambda d: {k: torch.as_tensor(v) for k, v in d.items()}
+        res = {}
+        for mode, aggregate in data["modes"]:
+            step = dispatch.make_serve_step(cfg, CommConfig(
+                mode=mode, slice_bytes=data["slice_bytes"], channels=4,
+                aggregate=aggregate), ring=ring)
+            assert step.n_shards == world
+            calls[0] = 0
+            lp, cache = step.prefill(params, as_t(data["prefill"]))
+            n_prefill = calls[0]
+            kv = [cache[k].clone().numpy() for k in ("k", "v")]
+            calls[0] = 0
+            ld, _ = step.decode(params, api.grow_cache(cfg, cache, 32),
+                                as_t(data["decode"]))
+            res["logits", mode, aggregate] = (lp.numpy(), ld.numpy(), *kv)
+            res["exchanges", mode, aggregate] = (n_prefill, calls[0])
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+''')
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_moe_rings_exchange_experts(mixtral, tmp_path, world):
+    """gloo rings of 2 and 4 peers, 4 request rows, every mode (gspmd
+    too: past one peer it is not the pure local path): prefill logits
+    and the gathered KV cache are bitwise the local path's on each
+    peer's rows (each peer prefills its rows, its experts' inputs come
+    from every peer); decode logits, summed over the ring by the TP
+    head, are within TOL of the local path's, bitwise across modes at 2
+    peers and within rtol 1e-6 (atol 1e-6 of the largest logit) at 4
+    (gloo's order); the exchanges are as the slice plan predicts (each
+    peer's prefill carries its 4 / world rows, decode all 4)."""
+    _, tcfg, jp, tp = mixtral
+    toks = np.zeros((4, 8), np.int64)
+    lens = np.array([5, 8, 7, 6])
+    for r in range(4):
+        toks[r, :lens[r]] = (np.arange(lens[r]) * (r + 3)) % 256
+    pre = {"tokens": toks, "last_pos": lens - 1}
+    # the local expert stage on each peer's rows, gathered (a lone row's
+    # LM head is a matrix-vector product, which may round otherwise than
+    # the 4-row product)
+    bs = 4 // world
+    parts = [api.prefill(tp, {k: torch.as_tensor(v[r:r + bs])
+                              for k, v in pre.items()}, tcfg)
+             for r in range(0, 4, bs)]
+    lp = torch.cat([l for l, _ in parts])
+    cache = {k: torch.cat([c[k] for _, c in parts], dim=1)
+             for k in ("k", "v")}
+    dec = {"token": lp.argmax(-1).numpy(), "pos": lens}
+    ld, _ = api.decode_step(tp, api.grow_cache(tcfg, {
+        k: v.clone() for k, v in cache.items()}, 32), {
+        k: torch.as_tensor(v) for k, v in dec.items()}, tcfg)
+    res = _ring_run(tmp_path, world, {
+        "params": jax.tree.map(np.asarray, jp), "modes": MOE_MODES,
+        "slice_bytes": MOE_SLICE, "prefill": pre, "decode": dec},
+        _MOE_WORKER)
+    ref_d = res["logits", "gspmd", "slice"][1]
+    for mode, aggregate in MOE_MODES:
+        got_p, got_d, got_k, got_v = res["logits", mode, aggregate]
+        np.testing.assert_array_equal(got_p, lp.numpy())
+        np.testing.assert_array_equal(got_k, cache["k"].numpy())
+        np.testing.assert_array_equal(got_v, cache["v"].numpy())
+        np.testing.assert_allclose(got_d, ld.numpy(), **TOL)
+        if world == 2:
+            np.testing.assert_array_equal(got_d, ref_d)
+        else:
+            np.testing.assert_allclose(got_d, ref_d, rtol=1e-6,
+                                       atol=1e-6 * np.abs(ref_d).max())
+        assert res["exchanges", mode, aggregate] == tuple(
+            _exchanges(tcfg, mode, aggregate, b, s, world)
+            for b, s in ((4 // world, 8), (4, 1))), (mode, aggregate)
