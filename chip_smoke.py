@@ -30,7 +30,10 @@ non-zero (no phase's failure is caught):
    function, at the shapes the main paths give them, beside the roofline
    bound (flash also at phase 7's Dh-128 shapes: B=2, S=1024, (H, KV) =
    (20, 20), (24, 2), (48, 8), (64, 8), and S=4096 and mixtral's served
-   S=4090, (32, 8) window 4096).
+   S=4090, (32, 8) window 4096; and at phase 8's: whisper-tiny's
+   encoder, B=2, S=1500, H=KV=6, Dh=64 non-causal, against SDPA with
+   ``is_causal=False``, and llava's prefill, B=2, S=3904, (32, 8),
+   Dh=128 causal).
    Every timing is queued behind a device-side spin, so it times
    the card, not the host's launch rate (the WKV6 decode step, ~3 us, over
    500 calls);
@@ -44,7 +47,7 @@ non-zero (no phase's failure is caught):
    logits, and that those logits match the plain-attention path;
 4b. serve the same requests over a ring of peers: a one-peer NCCL group
    (``HashStore``), one ``Ring`` of 4 channel communicators, shared by
-   phases 4b-7. ``hadronio`` through the sliced serving wire
+   phases 4b-8. ``hadronio`` through the sliced serving wire
    (``pipeline.emit_flat``: the prefill's gathering write and the decode
    logit reduction carved into 4 MiB ring slices, each an NCCL
    collective on its loop's own channel), 2 threaded loops, busy polling,
@@ -160,7 +163,26 @@ non-zero (no phase's failure is caught):
    within 1e-3 rel_l2 of the plain one. Reports prefill (B=2, S=1024) and
    decode (B=2) times, wall and device, kernels, busy share and peak
    memory of each model (of the exchange path too);
-8. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+8. the encoder-decoder and vision-prefix families at full width, bf16,
+   random weights from the card's generator, memory released before
+   each: whisper-tiny (4 encoder + 4 decoder layers, 1500 frames) and
+   llava-next-mistral-7b (32 layers, 2880 patches) whole, serving phase
+   4's 8 prompts, 16 new tokens each, ``--batch 2``, 2 event loops, busy
+   polling, ``gspmd``, ``--max-len 2048``; the engine feeds the stub
+   frontends' zero frames or patches. Checks every request's token
+   count; the flash launches of every prefill call, recorded per call
+   (whisper: 4 non-causal at S=1500 in the encoder and 4 causal in the
+   decoder; llava: 32 causal at S = 2880 + prompt); served first tokens
+   replayed from the kernel path's logits (the reference's first-token
+   rows: the batch's last position for whisper, row ``len - 1`` of the
+   prefixed sequence for llava); the first layer's bf16 attention on the
+   served batch (whisper's encoder, non-causal) within phase 3's row
+   bound; phase 4's logit rule, whisper whole and llava at 4 layers; the
+   longest pair again through ``hadronio`` over the ring, with the same
+   tokens and launches. Reports prefill (B=2, 1024 tokens plus the
+   frames or patches) and decode (B=2) times, wall and device, kernels,
+   busy share and peak memory;
+9. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -971,7 +993,7 @@ def serve_decoder(gen, smi, arch, ring, *, num_layers=None, lens=None,
         lp, _ = api.prefill(params, batch, cfg, attend=attend)
         q, k, v = seen[0]
         w = cfg.sliding_window
-        check_rows(f"{cfg.name} layer 0 attention on the served batch "
+        check_rows(f"{cfg.name} layer 0 attention on the served prompts "
                    f"{tuple(q.shape)} KV={k.shape[2]} window={w}: kernel "
                    f"vs plain", ops.flash_attention(q, k, v, window=w),
                    ref.flash_attention(q, k, v, window=w))
@@ -1089,6 +1111,239 @@ def serve_decoder(gen, smi, arch, ring, *, num_layers=None, lens=None,
                              "plain path")
     del p2, outs, lp2
     return flash
+
+
+class FlashCalls:
+    """Records (S, causal) of every ``ops.flash_attention`` call the
+    models make, by replacing the module attribute they look up at call
+    time with a recording wrapper. The wrapper counts the kernel's
+    launches itself: ``ops`` adds each launch to whatever its module
+    attribute ``flash_attention`` is at that moment. Thread-safe: the
+    threaded event loops record together."""
+
+    def __init__(self):
+        import threading
+        from repro_torch.kernels import ops
+        self.ops, self.real = ops, ops.flash_attention
+        self.lock = threading.Lock()
+        self.calls: list = []
+
+        def recorded(q, k, v, *, causal=True, window=0):
+            with self.lock:
+                self.calls.append((q.shape[1], causal))
+            return self.real(q, k, v, causal=causal, window=window)
+        recorded.launches = 0
+        self.wrapper = ops.flash_attention = recorded
+
+    def reset(self) -> None:
+        with self.lock:
+            self.calls = []
+            self.wrapper.launches = 0
+
+    def check(self, cfg, prefills: int) -> dict:
+        """Per prefill call: one non-causal launch per encoder layer at
+        S = num_frames (encdec) and one causal launch per decoder layer,
+        every call a launch. Returns {"non-causal", "causal",
+        "launches"}."""
+        with self.lock:
+            calls, launches = list(self.calls), self.wrapper.launches
+        enc = [s for s, causal in calls if not causal]
+        dec = [s for s, causal in calls if causal]
+        got = {"non-causal": len(enc), "causal": len(dec),
+               "launches": launches}
+        assert got == {"non-causal": cfg.encoder_layers * prefills,
+                       "causal": cfg.num_layers * prefills,
+                       "launches": len(calls)}, (got, prefills)
+        assert all(s == cfg.num_frames for s in enc), enc
+        assert all(s > cfg.num_patches for s in dec), dec
+        return got
+
+    def restore(self) -> None:
+        self.ops.flash_attention = self.real
+
+
+def serve_encdec_vlm(gen, smi, arch, ring, lens, *, check_layers=None,
+                     max_len=2048) -> int:
+    """Phase 8 for one model at full width, bf16, random weights from the
+    card's generator: 8 requests (prompt lengths ``lens``, 16 new tokens,
+    greedy) through the event-loop group (2 loops, 2 slots each,
+    ``gspmd`` at ring size 1), the stub frontend's zero frames or patches
+    fed by the engine. Checks token counts; per prefill call one
+    non-causal flash launch per encoder layer at S = num_frames and one
+    causal launch per decoder layer; first tokens replayed from the
+    kernel path's logits; the first layer's bf16 attention on the served
+    batch within phase 3's row bound; phase 4's logit rule (at
+    ``check_layers`` of the layers, default all): f32 kernel vs plain
+    within 1e-3 rel_l2, bf16 kernel vs f32 no farther than twice the bf16
+    plain path plus 5e-3; the longest pair again through ``hadronio``
+    over ``ring`` with the same tokens. Times prefill (B=2, 1024 tokens)
+    and decode (B=2), wall and device, and reports peak memory. Returns
+    the flash launches of the served runs."""
+    from repro_torch.configs.base import CommConfig, ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import api
+    from repro_torch.models.attention import attend_chunked
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import Request, dispatch, make_engine_group
+    dev = gen.device
+    cfg = get_config(arch)
+    release_memory(f"before {cfg.name}")
+    t0 = time.perf_counter()
+    params = api.init(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    stub = (f"{cfg.num_frames} frames" if cfg.family == "encdec"
+            else f"{cfg.num_patches} patches")
+    print(f"[init] {cfg.name}: {cfg.family}, {cfg.encoder_layers} encoder "
+          f"+ {cfg.num_layers} decoder layers, {stub}, "
+          f"{cfg.param_count() / 1e9:.3f}B params {cfg.param_dtype} in "
+          f"{time.perf_counter() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    local = dispatch.make_serve_step(cfg, CommConfig(mode="gspmd",
+                                                     channels=4))
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                    max_new=16) for i, n in enumerate(lens)]
+    pair = [reqs[0], reqs[2]]         # loop 0's first wave
+    flash = FlashCalls()
+    try:
+        group = make_engine_group(cfg, params, ServeConfig(
+            event_loops=2, poll="busy", max_batch=2, max_len=max_len,
+            comm=CommConfig(mode="gspmd", channels=4)), seed=0, device=dev)
+        flash.reset()
+        t0 = time.perf_counter()
+        group.submit(reqs)
+        results = sorted(group.run(threads=True), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        engines = [l.engine for l in group.loops]
+        prefills = sum(e.prefills for e in engines)
+        got = flash.check(cfg, prefills)
+        st = group.poll_stats()
+        n_tok = sum(len(r.tokens) for r in results)
+        print(f"[serve] {cfg.name}: {len(results)} requests (prompts "
+              f"{list(lens)}), {n_tok} tokens in {dt:.3f}s = "
+              f"{n_tok / dt:.1f} tok/s | prefill calls {prefills} "
+              f"(admission rounds {sum(e.admit_prefills for e in engines)})"
+              f", decode steps {sum(e.decode_steps for e in engines)}, "
+              f"flash {got} | poll spins={st.spins} parks={st.parks} | "
+              f"{smi}")
+        assert [r.uid for r in results] == list(range(len(reqs)))
+        assert all(len(r.tokens) == 16 for r in results), \
+            [len(r.tokens) for r in results]
+        assert all(0 <= t < cfg.vocab_size for r in results
+                   for t in r.tokens)
+        launches = got["launches"]
+        del group, engines          # the engines hold the params
+
+        # the same pair through the sliced hadronio wire over the ring
+        wired = make_engine_group(cfg, params, ServeConfig(
+            event_loops=1, poll="busy", max_batch=2, max_len=max_len,
+            comm=CommConfig(mode="hadronio", channels=4)), seed=0,
+            device=dev, ring=ring)
+        flash.reset()
+        t0 = time.perf_counter()
+        wired.submit(pair)
+        wres = sorted(wired.run(threads=False), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        dt_w = time.perf_counter() - t0
+        eng = wired.loops[0].engine
+        got_w = flash.check(cfg, eng.prefills)
+        print(f"[serve-ring] {cfg.name} hadronio over a ring of "
+              f"{ring.world_size}: uids 0, 2 (prompts "
+              f"{[len(r.prompt) for r in pair]}) in {dt_w:.3f}s, prefill "
+              f"calls {eng.prefills}, decode steps {eng.decode_steps}, "
+              f"flash {got_w} | {smi}")
+        assert [r.tokens.tolist() for r in wres] == \
+            [results[0].tokens.tolist(), results[2].tokens.tolist()], \
+            "hadronio-served tokens differ from gspmd's"
+        launches += got_w["launches"]
+        del wired, eng
+    finally:
+        flash.restore()
+
+    # loop 0's first wave replays its served first tokens from the
+    # kernel path's prefill logits (the reference's first-token rows)
+    batch = dict(right_padded(pair, dev), **api.stub_inputs(cfg, 2, dev))
+    lk, _ = local.prefill(params, batch)
+    first = lk.argmax(-1).tolist()
+    assert first == [int(results[0].tokens[0]), int(results[2].tokens[0])], \
+        (first, results[0].tokens[:1], results[2].tokens[:1])
+    assert lk.shape == (2, cfg.vocab_size) and bool(torch.isfinite(lk).all())
+    print(f"[check] {cfg.name} first tokens {first} replayed from the "
+          f"kernel path's prefill logits (max |logit| "
+          f"{float(lk.float().abs().max()):.3e}) | {smi}")
+
+    # prefill B=2, 1024 tokens (plus the frames or patches) and decode B=2
+    big = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                  (2, 1024)), device=dev),
+           **api.stub_inputs(cfg, 2, dev)}
+    _, cache = local.prefill(params, big)
+    cache = api.grow_cache(cfg, cache, max_len)
+    dec = {"token": torch.zeros(2, dtype=torch.long, device=dev),
+           "pos": torch.tensor([1024, 1024], device=dev)}
+    step_times(smi, cfg.name, local, params, big, dec, cache)
+    del cache
+    torch.cuda.synchronize()
+    print(f"[memory] {cfg.name}: peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated "
+          f"({base_gb:.2f} GB before the run) | {smi}")
+
+    # phase 4's logit rule on the served batch, at ``check_layers`` of
+    # the layers; the first layer's attention (whisper: the encoder's,
+    # non-causal) held to phase 3's row bound, kernel vs plain. llava's
+    # served rows are patch rows (the reference's quirk), and with the
+    # stub's zero patches every such row is exactly zero through every
+    # layer, so its logits are zero: the check takes random patch
+    # embeddings and reads each prompt's last token instead
+    cfg_c, p_c = cfg, params
+    if cfg.family == "vlm":
+        batch = dict(batch, last_pos=batch["last_pos"] + cfg.num_patches,
+                     patches=torch.randn(batch["patches"].shape,
+                                         generator=gen, device=dev).to(
+                         batch["patches"].dtype))
+    if check_layers:
+        cfg_c = dataclasses.replace(cfg, num_layers=check_layers)
+        p_c = dict(params, layers=tree_map(lambda t: t[:check_layers],
+                                           params["layers"]))
+    lk, _ = api.prefill(p_c, batch, cfg_c)
+    seen = []
+
+    def attend(q, k, v, **kw):
+        if not seen:
+            seen.append((q, k, v, kw))
+        return attend_chunked(q, k, v, **kw)
+
+    lp, _ = api.prefill(p_c, batch, cfg_c, attend=attend)
+    q, k, v, kw = seen[0]
+    check_rows(f"{cfg.name} layer 0 attention on the served prompts "
+               f"{tuple(q.shape)} KV={k.shape[2]} {kw}: kernel vs plain",
+               ops.flash_attention(q, k, v, **kw),
+               ref.flash_attention(q, k, v, **kw))
+    del seen, q, k, v
+    cfg32 = dataclasses.replace(cfg_c, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), p_c)
+    l32, _ = api.prefill(p32, batch, cfg32, attend=attend_chunked)
+    lk32, _ = api.prefill(p32, batch, cfg32)
+    del p32, p_c
+    e32, ek, ep = rel_l2(lk32, l32), rel_l2(lk, l32), rel_l2(lp, l32)
+    ok = e32 <= 1e-3 and ek <= 2 * ep + 5e-3
+    print(f"[check] {cfg.name} ({cfg_c.num_layers} of {cfg.num_layers} "
+          f"decoder layers) prefill logits of "
+          f"{tuple(batch['tokens'].shape)}"
+          f"{' (random patches)' if cfg.family == 'vlm' else ''}: f32 "
+          f"kernel vs plain rel_l2="
+          f"{e32:.3e} (bound 1e-3); bf16 vs f32 rel_l2 kernel={ek:.3e} "
+          f"plain={ep:.3e} (bound 2x plain + 5e-3); bf16 kernel vs plain "
+          f"max_abs_err={float((lk.float() - lp.float()).abs().max()):.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{cfg.name}: prefill logits of the kernel "
+                             "path disagree with the plain path")
+    del params, lk, lp, l32, lk32, local
+    return launches
 
 
 # phase 5c: the rest of the hadronio family, each trained 5 steps
@@ -1755,26 +2010,27 @@ def main() -> int:
     # before (SDPA, the library yardstick, runs on expanded heads)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def flash_times(b, s, h, kv, dh, window):
+    def flash_times(b, s, h, kv, dh, window, causal=True):
         q, k, v = qkv(b, s, h, dh, bf16, kv)
         ke, ve = expand_kv(k, h), expand_kv(v, h)
         shape = f"B={b} S={s} H={h} Dh={dh}"
         for heads, kk, vv in (("KV=" + str(kv), k, v), ("expanded", ke, ve)):
-            name = f"bf16 {shape} {heads} window={window} (timed shape)"
-            got = ops.flash_attention(q, kk, vv, window=window)
-            want = ref.flash_attention(q, kk, vv, window=window)
+            name = (f"bf16 {shape} {heads} window={window} causal={causal} "
+                    "(timed shape)")
+            got = ops.flash_attention(q, kk, vv, causal=causal, window=window)
+            want = ref.flash_attention(q, kk, vv, causal=causal,
+                                       window=window)
             err = check_close(name, got, want, 3e-2, 5e-2)
             row = check_rows(name, got, want)
             if kk is k:
                 t = {"err": err, "row_err": row}
         del got, want
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ke, ve))
-        run = {"ms": lambda: ops.flash_attention(q, k, v, window=window),
-               "expanded_ms": lambda: ops.flash_attention(q, ke, ve,
-                                                          window=window),
-               "plain_ms": lambda: ref.flash_attention(q, k, v,
-                                                       window=window),
-               "library_ms": lambda: sdpa(qt, kt, vt, is_causal=True),
+        kw = dict(causal=causal, window=window)
+        run = {"ms": lambda: ops.flash_attention(q, k, v, **kw),
+               "expanded_ms": lambda: ops.flash_attention(q, ke, ve, **kw),
+               "plain_ms": lambda: ref.flash_attention(q, k, v, **kw),
+               "library_ms": lambda: sdpa(qt, kt, vt, is_causal=causal),
                "copies_ms": lambda: (expand_kv(k, h), expand_kv(v, h))}
         for key in ("ms", "expanded_ms", "plain_ms", "library_ms",
                     "copies_ms"):
@@ -1783,10 +2039,11 @@ def main() -> int:
         t["ms_again"] = time_ms(run["ms"], queued=True)
         t["expanded_ms_again"] = time_ms(run["expanded_ms"], queued=True)
         t["bound_ms"], t["bound_by"] = attn_bound_ms(
-            b, s, h, dh, True, window, 2, H100_BF16_FLOPS, kv_heads=kv)
+            b, s, h, dh, causal, window, 2, H100_BF16_FLOPS, kv_heads=kv)
         t["bound_expanded_ms"], t["bound_expanded_by"] = attn_bound_ms(
-            b, s, h, dh, True, window, 2, H100_BF16_FLOPS)
-        print(f"[time] flash_attention {shape} bf16 causal window {window}: "
+            b, s, h, dh, causal, window, 2, H100_BF16_FLOPS)
+        mode = "causal" if causal else "non-causal"
+        print(f"[time] flash_attention {shape} bf16 {mode} window {window}: "
               f"KV={kv} in place {t['ms']:.4f} / {t['ms_again']:.4f} ms "
               f"(bound {t['bound_ms']:.4f} ms, {t['bound_by']}); expanded "
               f"{t['expanded_ms']:.4f} / {t['expanded_ms_again']:.4f} ms "
@@ -1807,6 +2064,15 @@ def main() -> int:
         2, s_, h, kv, 128, w) for s_, h, kv, w in (
             (1024, 20, 20, 0), (1024, 24, 2, 0), (1024, 48, 8, 0),
             (1024, 64, 8, 0), (4096, 32, 8, 4096), (4090, 32, 8, 4096))}
+    # phase 8's prefill shapes: whisper-tiny's encoder, non-causal over
+    # its 1500 frames (a ragged last tile, every KV tile for every query
+    # tile), and llava's causal prefill of its 2880-patch prefix plus
+    # 1024 tokens at GQA 32/8 (the timed serve step's shape)
+    fa_encvlm = {
+        "B=2 S=1500 H=6 KV=6 Dh=64 non-causal": flash_times(
+            2, 1500, 6, 6, 64, 0, causal=False),
+        "B=2 S=3904 H=32 KV=8 Dh=128 causal": flash_times(
+            2, 3904, 32, 8, 128, 0)}
     # the row bound fails a wrong kernel: the plain version with one
     # 64-key tile hidden from every query (its key positions past S)
     q, k, v = qkv(2, 4090, 32, 128, bf16, 8)
@@ -2211,8 +2477,8 @@ def main() -> int:
                              "the plain attention path")
 
     # -- 4b. serve qwen2-0.5b over a ring (one peer, NCCL) -------------------
-    # one group for phases 4b-7: the serve ring here, the Trainers' rings
-    # in phase 5 and the hadronio runs of phases 6 and 7
+    # one group for phases 4b-8: the serve ring here, the Trainers' rings
+    # in phase 5 and the hadronio runs of phases 6, 7 and 8
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     ring = Ring(channels=4)
@@ -2434,17 +2700,23 @@ def main() -> int:
                                max_len=8192)
     fam_flash += serve_decoder(gen, smi, "dbrx-132b", ring, num_layers=4,
                                lens=(1024, 128) * 4)
+
+    # -- 8. the encoder-decoder and vision-prefix families -------------------
+    encvlm_flash = serve_encdec_vlm(gen, smi, "whisper-tiny", ring,
+                                    dense_lens)
+    encvlm_flash += serve_encdec_vlm(gen, smi, "llava-next-mistral-7b", ring,
+                                     dense_lens, check_layers=4)
     del ring
     dist.destroy_process_group()
 
-    # -- 8. result lines ------------------------------------------------------
+    # -- 9. result lines ------------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches + ring_flash + rg_launches["flash_attention"]
-         + fam_flash,
+         + fam_flash + encvlm_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
@@ -2452,7 +2724,11 @@ def main() -> int:
              shape: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "err",
                                        "row_err")}
-             for shape, t in fa128.items()}},
+             for shape, t in fa128.items()}, "encdec_vlm": {
+             shape: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "err",
+                                       "row_err")}
+             for shape, t in fa_encvlm.items()}},
         {"name": "pack_slices", "route": "cuda", "source": ring_src,
          "replaces": "src/repro/kernels/ring_pack.py:61",
          "launches": train_launches["pack_slices"]

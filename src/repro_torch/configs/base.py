@@ -28,7 +28,7 @@ class ModelConfig:
     """Architecture hyperparameters (per-arch modules hold the numbers)."""
 
     name: str
-    family: str               # dense | moe | ssm | hybrid are ported
+    family: str               # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -56,6 +56,14 @@ class ModelConfig:
     rwkv_head_size: int = 64
     rwkv_decay_lora: int = 64
     rwkv_mix_lora: int = 32
+
+    # encdec (whisper): encoder depth, and the frame count of the stub
+    # frontend's (batch, num_frames, d_model) embeddings
+    encoder_layers: int = 0
+    num_frames: int = 1500
+
+    # vlm (llava): patch-embedding prefix length (anyres: 5 tiles x 576)
+    num_patches: int = 0
 
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -104,7 +112,12 @@ class ModelConfig:
                          if pat[i % len(pat)] == "local_attn")
             return n + n_attn * (att + mlp + 2 * d) \
                 + (L - n_attn) * (rec + mlp + 2 * d)
-        return n + L * (att + mlp_total + 2 * d)
+        total = n + L * (att + mlp_total + 2 * d)
+        if self.family == "encdec":
+            # encoder layers, and one cross attention per decoder layer
+            total += self.encoder_layers * (att + mlp + 2 * d)
+            total += L * (att + d)
+        return total
 
     def active_param_count(self) -> int:
         """Parameters one token runs through: the total less the experts
@@ -282,10 +295,11 @@ class RunConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """The CPU-sized variant: same family and topology, tiny dims, f32 —
-    the rule of ``repro.configs.base.reduced`` for the ported families
-    (a hybrid keeps two full block-pattern groups and no tail; a moe
-    config keeps at most 4 experts and top-2, with ``capacity_factor``
-    equal to its expert count, so no token is dropped)."""
+    the rule of ``repro.configs.base.reduced`` (a hybrid keeps two full
+    block-pattern groups and no tail; a moe config keeps at most 4
+    experts and top-2, with ``capacity_factor`` equal to its expert
+    count, so no token is dropped; an encdec config keeps at most 2
+    encoder layers and 8 frames, a vlm config at most 8 patches)."""
     num_heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
     moe = None
     if cfg.moe is not None:
@@ -305,5 +319,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         sliding_window=min(cfg.sliding_window, 16) if cfg.sliding_window
         else 0,
         local_window=16, moe=moe,
+        encoder_layers=min(cfg.encoder_layers, 2), num_frames=8,
+        num_patches=min(cfg.num_patches, 8),
         param_dtype="float32", compute_dtype="float32")
 

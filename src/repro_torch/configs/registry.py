@@ -1,12 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Counterpart of ``repro/configs/registry.py``. Ported so far: the dense
-``qwen2-0.5b``, ``qwen1.5-4b``, ``starcoder2-3b`` and ``qwen1.5-110b``,
-the moe ``mixtral-8x7b`` and ``dbrx-132b``, the ssm ``rwkv6-7b`` and the
-hybrid ``recurrentgemma-9b``; the reference's other ids (whisper's
-encdec and llava's vlm) are known here and raise
-``NotImplementedError`` naming the ROADMAP queue entry that brings
-their family.
+Counterpart of ``repro/configs/registry.py``: every id of the
+reference — the dense ``qwen2-0.5b``, ``qwen1.5-4b``, ``starcoder2-3b``
+and ``qwen1.5-110b``, the moe ``mixtral-8x7b`` and ``dbrx-132b``, the
+ssm ``rwkv6-7b``, the hybrid ``recurrentgemma-9b``, the encdec
+``whisper-tiny`` and the vlm ``llava-next-mistral-7b``.
 """
 from __future__ import annotations
 
@@ -23,10 +21,9 @@ _ARCH_MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "rwkv6-7b": "rwkv6_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-tiny": "whisper_tiny",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
-
-# reference ids whose family is not ported yet
-_NOT_PORTED = ("whisper-tiny", "llava-next-mistral-7b")
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
 
@@ -35,10 +32,6 @@ def get_config(arch: str) -> ModelConfig:
     """Resolve ``--arch`` ids; ``<id>-reduced`` yields the smoke variant."""
     want_reduced = arch.endswith("-reduced")
     base = arch[: -len("-reduced")] if want_reduced else arch
-    if base in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP.md, "
-            "Queue 1: 'The other model families')")
     if base not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[base]}")

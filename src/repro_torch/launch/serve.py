@@ -44,6 +44,12 @@ CLI::
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch mixtral-8x7b-reduced --device cpu --comm-mode hadronio \
       --requests 6 --max-new 4 --batch 2
+  # encdec (zero frame embeddings) and vlm (a zero patch prefix); on
+  # the card at full width: --arch whisper-tiny, llava-next-mistral-7b
+  python -m repro_torch.launch.serve --arch whisper-tiny-reduced \
+      --device cpu --requests 6 --max-new 4 --batch 2
+  python -m repro_torch.launch.serve --arch llava-next-mistral-7b-reduced \
+      --device cpu --requests 6 --max-new 4 --batch 2
 
 The recurrent families (rwkv6, recurrentgemma) serve equal-length
 buckets of prompts, so requests of distinct lengths run one per wave.
@@ -83,7 +89,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", required=True,
                    help=f"registry id: {', '.join(ARCH_IDS)}, each also "
-                        "with -reduced")
+                        "with -reduced (the CPU-sized variant); the "
+                        "encdec and vlm frontends are stubs fed zeros")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--max-new", type=int, default=16)

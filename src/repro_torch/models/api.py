@@ -1,4 +1,4 @@
-"""Model API of the port (dense, moe, ssm and hybrid families):
+"""Model API of the port (every family of the reference):
 
   specs(cfg)                                   -> ParamSpec tree
   init(gen, cfg, device=)                      -> params
@@ -9,14 +9,25 @@
 
 Counterpart of ``repro/models/api.py``. ``batch`` is a dict: train
 {"tokens", "labels": (B,S) int, "loss_mask"?: (B,S)}; prefill
-{"tokens": (B,S) int, "last_pos"?: (B,)}; decode {"token": (B,),
-"pos": () or (B,)}. The moe family runs the dense stack with
-``models/moe`` in place of the MLP and keeps the dense KV cache. The
-ssm family (rwkv6) and the hybrid family (recurrentgemma) serve: their
-cache is a recurrent state (plus rolling local-attention pages for the
-hybrid), fixed in size. ``loss`` is dense-only until training the other
-families is ported. The encdec and vlm families raise
-``NotImplementedError`` naming the ROADMAP queue entry that brings them.
+{"tokens": (B,S) int, "last_pos"?: (B,), "frames"|"patches"?}; decode
+{"token": (B,), "pos": () or (B,)}. The moe family runs the dense stack
+with ``models/moe`` in place of the MLP and keeps the dense KV cache.
+The ssm family (rwkv6) and the hybrid family (recurrentgemma) serve:
+their cache is a recurrent state (plus rolling local-attention pages
+for the hybrid), fixed in size. The encdec family (whisper,
+``models/whisper``) takes frame embeddings (B, num_frames, D) and keeps
+``{"self": {"k", "v"}, "cross_k", "cross_v"}``; the vlm family (llava)
+prepends patch embeddings (B, num_patches, D) to the tokens, runs the
+dense stack, and keeps the prefix in the first ``num_patches`` KV slots.
+The modality frontends are stubs, as in the reference: frames and
+patches arrive as embeddings (``stub_inputs``). ``loss`` is dense-only
+until training the other families is ported.
+
+Two quirks of the reference are kept, so that served tokens equal its
+own: an encdec prefill reads the logits of the LAST position of the
+padded batch, whatever ``last_pos`` says; a vlm prefill reads row
+``last_pos`` of the prefixed sequence, so ``last_pos = len - 1`` (the
+engine's) lands in the patch prefix (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -30,7 +41,8 @@ from repro_torch.models import attention as att
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import init_params
+from repro_torch.models import whisper as whi
+from repro_torch.models.common import init_params, tree_map
 from repro_torch.models.layers import (apply_norm, cross_entropy,
                                        embedding_specs, embed_tokens,
                                        lm_logits, norm_specs)
@@ -38,20 +50,9 @@ from repro_torch.models.layers import (apply_norm, cross_entropy,
 Tree = Any
 
 
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig,
-                  families: tuple = SERVED_FAMILIES) -> None:
-    if cfg.family not in families:
-        what = "" if families == SERVED_FAMILIES else " for training"
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch{what} yet "
-            "(ROADMAP.md, Queue 1: 'The other model families')")
-
-
 def specs(cfg: ModelConfig) -> Tree:
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        return whi.whisper_specs(cfg)
     out = {"embed": embedding_specs(cfg.vocab_size, cfg.d_model,
                                     cfg.tie_embeddings),
            "ln_f": norm_specs(cfg.d_model, cfg.norm_kind)}
@@ -77,8 +78,11 @@ def loss(params: Tree, batch: dict, cfg: ModelConfig):
     dict {"xent", "aux"} of the reference (``aux`` is the MoE balance
     loss, zero for the dense family). Attention is the plain
     ``attend_chunked``, which autograd differentiates. Dense only: the
-    moe, ssm and hybrid families serve but do not train yet."""
-    _check_family(cfg, ("dense",))
+    other families serve but do not train yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch for "
+            "training yet (ROADMAP.md, Queue 1: 'The other model families')")
     x = embed_tokens(params["embed"], batch["tokens"],
                      torch_dtype(cfg.compute_dtype))
     x, _, aux = tfm.apply_stack(params["layers"], x, cfg, mode="train")
@@ -106,6 +110,22 @@ def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     return x, cache
 
 
+def stub_inputs(cfg: ModelConfig, batch: int,
+                device: DeviceLike = None) -> dict:
+    """The stub frontends' prefill inputs, as the reference's engine
+    feeds them: zero frame embeddings (B, num_frames, D) for encdec,
+    zero patch embeddings (B, num_patches, D) for vlm, in the compute
+    dtype; nothing for the other families."""
+    names = {"encdec": ("frames", cfg.num_frames),
+             "vlm": ("patches", cfg.num_patches)}
+    if cfg.family not in names:
+        return {}
+    name, n = names[cfg.family]
+    return {name: torch.zeros((batch, n, cfg.d_model),
+                              dtype=torch_dtype(cfg.compute_dtype),
+                              device=resolve_device(device))}
+
+
 def prefill(params: Tree, batch: dict, cfg: ModelConfig,
             logits_fn: Optional[Callable] = None,
             attend: Optional[Callable] = None,
@@ -121,14 +141,26 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig,
     ``expert_fn`` replaces the moe expert stage
     (``models/moe.apply_experts``; the serving dispatch passes its
     expert-parallel exchange)."""
-    _check_family(cfg)
     head = logits_fn or lm_logits
-    x = embed_tokens(params["embed"], batch["tokens"],
-                     torch_dtype(cfg.compute_dtype))
+    dt = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], batch["tokens"], dt)
+    if cfg.family == "encdec":
+        enc = whi.encode(params, batch["frames"].to(dt), cfg, attend=attend)
+        cross_k, cross_v = whi.cross_kv(params, enc, cfg)
+        x = x + params["pos_dec"].to(dt)[None, :x.shape[1]]
+        x, cache = whi.decode_stack(params, x, cfg, mode="prefill",
+                                    cross_k=cross_k, cross_v=cross_v,
+                                    attend=attend)
+        # the reference's quirk: the last position, not ``last_pos``
+        return head(params["embed"], x[:, -1:])[:, 0], {
+            "self": cache, "cross_k": cross_k, "cross_v": cross_v}
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(dt), x], dim=1)
     x, cache = _trunk(params, x, cfg, mode="prefill", attend=attend,
                       scan=scan, expert_fn=expert_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     if "last_pos" in batch:     # per-request prompt end (serving engine)
+        # vlm: a row of the prefixed sequence (the reference's quirk)
         rows = torch.arange(x.shape[0], device=x.device)
         x_last = x[rows, batch["last_pos"]][:, None]
     else:
@@ -144,38 +176,57 @@ def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
     recurrent states come back as new tensors (rwkv6's decode runs the
     WKV6 kernel at T=1; the hybrid's is the one-line RG-LRU update).
     ``logits_fn`` and ``expert_fn`` as in :func:`prefill`."""
-    _check_family(cfg)
     head = logits_fn or lm_logits
-    x = embed_tokens(params["embed"], batch["token"][:, None],
-                     torch_dtype(cfg.compute_dtype))
-    x, cache = _trunk(params, x, cfg, mode="decode", cache=cache,
-                      pos=batch["pos"], expert_fn=expert_fn)
+    dt = torch_dtype(cfg.compute_dtype)
+    pos = batch["pos"]
+    x = embed_tokens(params["embed"], batch["token"][:, None], dt)
+    if cfg.family == "encdec":
+        # (B, 1, D) per row for a (B,) pos; (1, 1, D) for a 0-d one
+        x = x + params["pos_dec"][pos.reshape(-1)].to(dt)[:, None]
+        x, _ = whi.decode_stack(params, x, cfg, mode="decode",
+                                cross_k=cache["cross_k"],
+                                cross_v=cache["cross_v"],
+                                cache=cache["self"], pos=pos)
+        return head(params["embed"], x)[:, 0], cache
+    if cfg.family == "vlm":
+        pos = pos + cfg.num_patches   # cache slots 0..P-1 hold the prefix
+    x, cache = _trunk(params, x, cfg, mode="decode", cache=cache, pos=pos,
+                      expert_fn=expert_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     return head(params["embed"], x)[:, 0], cache
 
 
 def _cache_len(cfg: ModelConfig, max_len: int) -> int:
-    return min(max_len, cfg.sliding_window) if cfg.sliding_window \
+    """KV slots of a decode cache: the rolling window or ``max_len``,
+    plus the vlm prefix (encdec: the self-attention cache, at most
+    ``WHISPER_MAX_POS``)."""
+    if cfg.family == "encdec":
+        return min(max_len, whi.WHISPER_MAX_POS)
+    n = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
+    return n + cfg.num_patches
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Tree:
-    _check_family(cfg)
     dt, dev = torch_dtype(cfg.compute_dtype), resolve_device(device)
     if cfg.family == "ssm":
         return rwkv.init_state(cfg, batch, dt, dev)
     if cfg.family == "hybrid":
         return hyb.init_hybrid_cache(cfg, batch, dt, dev)
-    return att.init_kv_cache(cfg.num_layers, batch, _cache_len(cfg, max_len),
-                             cfg.num_kv_heads, cfg.head_dim, dt, dev)
+    kv = att.init_kv_cache(cfg.num_layers, batch, _cache_len(cfg, max_len),
+                           cfg.num_kv_heads, cfg.head_dim, dt, dev)
+    if cfg.family != "encdec":
+        return kv
+    cross = att.init_kv_cache(cfg.num_layers, batch, cfg.num_frames,
+                              cfg.num_kv_heads, cfg.head_dim, dt, dev)
+    return {"self": kv, "cross_k": cross["k"], "cross_v": cross["v"]}
 
 
 def grow_cache(cfg: ModelConfig, cache: Tree, max_len: int) -> Tree:
     """Pad prefill KV caches (sized to the prompt) to ``max_len`` decode
-    slots; rolling-window caches and recurrent states are already
-    fixed-size."""
-    _check_family(cfg)
+    slots (plus the vlm prefix); rolling-window caches, recurrent states
+    and encdec's cross K/V are already fixed-size."""
     if cfg.family in ("ssm", "hybrid"):
         return cache
     tgt = _cache_len(cfg, max_len)
@@ -187,4 +238,6 @@ def grow_cache(cfg: ModelConfig, cache: Tree, max_len: int) -> Tree:
         out[:, :, :x.shape[2]] = x
         return out
 
-    return {k: grow(v) for k, v in cache.items()}
+    if cfg.family == "encdec":
+        return dict(cache, self=tree_map(grow, cache["self"]))
+    return tree_map(grow, cache)

@@ -1,12 +1,12 @@
-"""Decoder-only transformer stack, dense and moe families.
+"""Decoder-only transformer stack, dense, moe and vlm families.
 
 Counterpart of ``repro/models/transformer.py``. Parameters are stacked
 along a leading ``layers`` dim as in the reference; a Python loop over
-the layers replaces ``lax.scan``. A block's ``kind`` is ``dense`` (its
-MLP) or ``moe`` (``models/moe.apply_moe`` in the MLP's place, whose
-balance loss each block returns and the stack sums); ``expert_fn``
-replaces the moe expert stage alone (the serving dispatch's
-expert-parallel exchange).
+the layers replaces ``lax.scan``. A block's ``kind`` is the family:
+``moe`` (``models/moe.apply_moe`` in the MLP's place, whose
+balance loss each block returns and the stack sums) or any other (its
+MLP); ``expert_fn`` replaces the moe expert stage alone (the serving
+dispatch's expert-parallel exchange).
 
 ``mode``:
   train   — full sequence, causal (optionally windowed), no cache.

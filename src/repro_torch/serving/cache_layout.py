@@ -19,10 +19,11 @@ hybrid        MIXED: the ``groups`` subtree stacks each       1
               pattern entry ``(n_groups, B, ...)``; the
               unstacked ``tail*`` entries lead with batch     0
               ``(B, ...)``
+encdec        whisper ``self`` KV ``(L, B, S, KV, Dh)`` plus  1
+              ``cross_k`` / ``cross_v (L, B, frames, ...)``
+vlm           llava KV pages with the vision prefix folded    1
+              into the leading slots ``(L, B, P + S, ...)``
 ============  ==============================================  =========
-
-The encdec and vlm layouts come with those families (ROADMAP.md,
-Queue 1).
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ LayoutFn = Callable[[Tuple[str, ...], Any], int]
 
 
 def _stacked_axis1(path: Tuple[str, ...], leaf: Any) -> int:
-    """Layer-stacked state (KV pages, rwkv6 state): batch at axis 1."""
+    """Layer-stacked state (KV pages, cross K/V, rwkv6 state): batch at
+    axis 1."""
     return 1
 
 
@@ -50,16 +52,21 @@ CACHE_LAYOUTS: dict[str, LayoutFn] = {
     "moe": _stacked_axis1,
     "ssm": _stacked_axis1,
     "hybrid": _hybrid_mixed,
+    "encdec": _stacked_axis1,
+    "vlm": _stacked_axis1,
 }
 
 
 def layout_for(family: str) -> LayoutFn:
+    """The family's resolver; a family without one fails when its serve
+    step is built, not when a gathered cache is carved wrongly."""
     try:
         return CACHE_LAYOUTS[family]
     except KeyError:
-        raise NotImplementedError(
-            f"family {family!r} declares no cache layout in repro_torch yet "
-            "(ROADMAP.md, Queue 1: 'The other model families')") from None
+        raise ValueError(
+            f"family {family!r} declares no cache layout: register its "
+            "batch axes in repro_torch.serving.cache_layout.CACHE_LAYOUTS"
+        ) from None
 
 
 def batch_axes(family: str, cache: dict) -> list:

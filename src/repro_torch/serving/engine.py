@@ -2,11 +2,13 @@
 
 Counterpart of ``repro/serving/engine.py``.
 
-* Attention families (dense, moe): prompts are **right-padded** to the
-  batch maximum and tracked with per-request ``pos`` vectors: pad slots
-  are never attended (validity mask ``j <= pos``) and the first
-  generated token overwrites the first pad slot, so mixed-length
-  batches are exact per row.
+* Attention families (dense, moe, encdec, vlm): prompts are
+  **right-padded** to the batch maximum and tracked with per-request
+  ``pos`` vectors: pad slots are never attended (validity mask
+  ``j <= pos``) and the first generated token overwrites the first pad
+  slot, so mixed-length batches are exact per row — but for the first
+  token of encdec and vlm rows, which ``models/api.prefill`` reads where
+  the reference does (its docstring).
 * Recurrent families (ssm, hybrid): the recurrence would absorb pad
   tokens, so requests are grouped into **equal-length buckets** of at
   most ``max_batch`` (exact, no pads, no ``last_pos``), one wave per
@@ -43,6 +45,7 @@ from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core.channels import Ring
 from repro_torch.models import api
+from repro_torch.models.common import tree_paths
 from repro_torch.serving import dispatch
 from repro_torch.serving.event_loop import (EventLoop, EventLoopGroup,
                                             Poller, channel_affinity)
@@ -162,9 +165,12 @@ class DecodeEngine:
         return results
 
     def _prefill_batch(self, toks: np.ndarray, lens: np.ndarray) -> dict:
+        """Tokens, ``last_pos`` (attention families) and the stub
+        frontends' zero frames or patches (encdec, vlm)."""
         dev = self.device
         batch = {"tokens": torch.as_tensor(toks, dtype=torch.long,
-                                           device=dev)}
+                                           device=dev),
+                 **api.stub_inputs(self.cfg, toks.shape[0], dev)}
         if not self._recurrent:
             batch["last_pos"] = torch.as_tensor(np.maximum(lens - 1, 0),
                                                 dtype=torch.long, device=dev)
@@ -321,10 +327,12 @@ class DecodeEngine:
             cache1 = api.grow_cache(self.cfg, cache1, self.max_len)
             rsel = torch.as_tensor(live_rows, device=self.device)
             ssel = torch.as_tensor(live_slots, device=self.device)
-            # attention caches carry batch at axis 1 (L, B, S, KV, Dh);
-            # the freed rows are overwritten in place
-            for name, c in cache.items():
-                c[:, ssel] = cache1[name][:, rsel]
+            # attention caches carry batch at axis 1 (L, B, S, KV, Dh),
+            # encdec's nested self-attention and cross K/V too; the
+            # freed rows are overwritten in place
+            new = dict(tree_paths(cache1))
+            for path, c in tree_paths(cache):
+                c[:, ssel] = new[path][:, rsel]
             tok = tok.clone()
             tok[ssel] = t_arr[rsel]
             pos = pos.clone()

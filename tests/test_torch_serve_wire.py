@@ -52,6 +52,7 @@ from repro_torch.core.backends import SyncContext, available_modes, pipeline
 from repro_torch.core.channels import Ring
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import api
+from repro_torch.models.common import tree_paths
 from repro_torch.models.convert import from_numpy_params
 from repro_torch.serving import Request, dispatch, make_engine_group
 
@@ -344,6 +345,40 @@ def test_recurrent_families_serve_through_hadronio(ring, arch, replace):
         assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("arch", ["whisper-tiny-reduced",
+                                  "llava-next-mistral-7b-reduced"])
+def test_encdec_vlm_serve_through_hadronio(ring, arch):
+    """whisper's nested cache (``self.k``, ``self.v``, ``cross_k``,
+    ``cross_v``) and llava's prefixed KV pages through the sliced
+    gathering write and TP head, the prefill batch carrying frames or
+    patches: logits and every cache leaf equal gspmd's bit for bit, and
+    the tree comes back nested."""
+    cfg = get_config(arch)
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks, lens = _inputs(cfg.vocab_size)
+    emb = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, cfg.num_frames if cfg.family == "encdec"
+              else cfg.num_patches, cfg.d_model)).astype(np.float32))
+    batch = {"tokens": torch.as_tensor(toks).long(),
+             "last_pos": torch.as_tensor(lens - 1).long(),
+             "frames" if cfg.family == "encdec" else "patches": emb}
+    out = {}
+    for mode in ("gspmd", "hadronio"):
+        step = dispatch.make_serve_step(cfg, _comm(mode, aggregate="channel"),
+                                        ring=ring, channel_indices=(1, 2))
+        lp, cache = step.prefill(params, batch)
+        pre = [t.clone() for _, t in tree_paths(cache)]
+        ld, _ = step.decode(params, api.grow_cache(cfg, cache, 16), {
+            "token": lp.argmax(-1), "pos": torch.as_tensor(lens).long()})
+        out[mode] = (cache, [lp, ld] + pre)
+    assert [p for p, _ in tree_paths(out["hadronio"][0])] == \
+        [p for p, _ in tree_paths(out["gspmd"][0])]
+    if cfg.family == "encdec":
+        assert set(out["hadronio"][0]["self"]) == {"k", "v"}
+    for got, want in zip(out["hadronio"][1], out["gspmd"][1]):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 def test_cli_serves_through_hadronio(capsys):
     rc = serve_cli.main(["--arch", ARCH, "--device", "cpu", "--requests",
                          "3", "--max-new", "2", "--batch", "2",
@@ -425,7 +460,7 @@ _WORKER = textwrap.dedent('''
                                device="cpu", ring=ring)
             res["solo", 4] = tuple(eng.generate([reqs[4]])[0].tokens.tolist())
         else:
-            for arch, kw in data["recurrent"]:
+            for arch, kw in data["families"]:
                 rcfg = dataclasses.replace(get_config(arch), **kw)
                 rp = api.init(torch.Generator().manual_seed(0), rcfg,
                               device="cpu")
@@ -520,15 +555,19 @@ def test_ring_of_four_peers(qwen, tmp_path):
     assert res["solo", 4] == first[4]
 
 
-RECURRENT = [("rwkv6-7b-reduced", {}),
-             ("recurrentgemma-9b-reduced", {"num_layers": 8})]
+FAMILIES = [("rwkv6-7b-reduced", {}),
+            ("recurrentgemma-9b-reduced", {"num_layers": 8}),
+            ("whisper-tiny-reduced", {}),
+            ("llava-next-mistral-7b-reduced", {})]
 
 
 def test_ring_of_two_peers(qwen, tmp_path):
     """Two peers: decode logits bitwise across modes (a + b == b + a);
-    rwkv6 and recurrentgemma (with its tail entries, batch at axis 0)
-    serve through the hadronio wire with the tokens of one peer."""
-    data = dict(_ring_data(qwen), recurrent=RECURRENT)
+    rwkv6, recurrentgemma (with its tail entries, batch at axis 0),
+    whisper (its nested cache, the frames split by rows) and llava (the
+    patch prefix) serve through the hadronio wire with the tokens of one
+    peer."""
+    data = dict(_ring_data(qwen), families=FAMILIES)
     res = _ring_run(tmp_path, 2, data)
     ref_p, ref_d = res["logits", "gspmd"]
     for key in ("sockets", "vma", "hadronio", "hadronio(1, 3)",
@@ -536,7 +575,7 @@ def test_ring_of_two_peers(qwen, tmp_path):
         got_p, got_d = res["logits", key]
         np.testing.assert_array_equal(got_p, ref_p)
         np.testing.assert_array_equal(got_d, ref_d)
-    for arch, kw in RECURRENT:
+    for arch, kw in FAMILIES:
         cfg = dataclasses.replace(get_config(arch), **kw)
         params = api.init(torch.Generator().manual_seed(0), cfg,
                           device="cpu")
