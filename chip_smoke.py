@@ -47,7 +47,7 @@ non-zero (no phase's failure is caught):
    logits, and that those logits match the plain-attention path;
 4b. serve the same requests over a ring of peers: a one-peer NCCL group
    (``HashStore``), one ``Ring`` of 4 channel communicators, shared by
-   phases 4b-8. ``hadronio`` through the sliced serving wire
+   phases 4b-9. ``hadronio`` through the sliced serving wire
    (``pipeline.emit_flat``: the prefill's gathering write and the decode
    logit reduction carved into 4 MiB ring slices, each an NCCL
    collective on its loop's own channel), 2 threaded loops, busy polling,
@@ -62,8 +62,9 @@ non-zero (no phase's failure is caught):
 5. train qwen2-0.5b at full width (random weights from seed 0) through
    ``launch.train.Trainer`` -> ``steps.make_train_step`` ->
    ``tac.sync_grads`` -> ``HadronioBackend.sync`` ->
-   ``pipeline.reduce_slices`` (ring-pack kernel -> one NCCL all-reduce
-   per slice through 4 channel communicators -> unpack kernel) ->
+   ``pipeline.pack_wire`` + ``pipeline.reduce_wire`` (ring-pack kernel
+   -> one NCCL all-reduce per slice through 4 channel communicators ->
+   unpack kernel) ->
    AdamW, on the one-peer NCCL group: synthetic data from seed 0,
    ``seq_len`` 1024, ``global_batch`` 4, 5 steps, ``hadronio`` with
    ``compress=bf16``, ``pack=pallas``, ``aggregate=slice``,
@@ -113,7 +114,8 @@ non-zero (no phase's failure is caught):
    after use (its channel communicators destroyed), and the cache is
    emptied before each new ring, whose communicators NCCL allocates
    outside PyTorch's allocator; ``[memory]`` lines print the card's free
-   memory there. The directory is removed at the end, whatever happened;
+   memory there. The directory (with the checkpoint phase 9 serves) is
+   removed when the script exits, whatever happened;
 6. serve rwkv6-7b (WKV6 kernel) and recurrentgemma-9b (RG-LRU kernel,
    flash at head_dim 256) at full width, bf16, random weights from the
    card's generator, through the same path: 8 requests in four pairs of
@@ -182,7 +184,27 @@ non-zero (no phase's failure is caught):
    tokens and launches. Reports prefill (B=2, 1024 tokens plus the
    frames or patches) and decode (B=2) times, wall and device, kernels,
    busy share and peak memory;
-9. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+9. train the families (``api.loss`` of every family in its train mode,
+   which launches no kernel): mixtral-8x7b at 1 of 32 layers (B=4,
+   S=1024), rwkv6-7b at 4 of 32 and recurrentgemma-9b at 3 of 38 (one
+   whole group, with its whole untied 256,000-row vocabulary) at B=2,
+   S=512, full width, bf16, 3 steps each through a donating ``Trainer``
+   (its steps update the state in place, as the CLI's and the
+   reference's do) with ``hadronio``/``bf16``/``pallas`` on the one-peer
+   ring. Checks finite losses, one pack and one unpack launch a step and
+   no flash, WKV6 or RG-LRU launch; reports the median step time, one
+   profiled step (device time, kernels, busy share) and the peak memory
+   beside the step's reckoned state. Then at each of moe, ssm, hybrid,
+   encdec and vlm's ``-reduced`` configs (f32) the card's loss, aux and
+   every gradient leaf against the port's CPU run on the same params
+   and batch (atol = rtol = 1e-4), and whisper-tiny whole (1500 frames,
+   the encoder in train mode) through one loss and backward: finite, no
+   flash launch. Last, ``launch.serve --ckpt`` serves qwen2-0.5b from
+   phase 5d's checkpoint: the restored params bitwise equal to its
+   files, the restore line printed, 4 requests served with flash in
+   every prefill, their tokens equal to an in-process engine group's on
+   the same restored params, whose prefill logits are finite;
+10. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -1599,7 +1621,10 @@ def train_fault_tolerant(smi, cfg, train_run, dev) -> dict:
     uninterrupted run; (d) a ``hadronio_rs`` state saved and restored at
     ring size 1; (e) checkpoint bytes, save and restore seconds, and the
     step time with an asynchronous save in flight. Returns the ring
-    kernels' launches."""
+    kernels' launches and (c)'s checkpoint directory, which phase 9
+    serves; the temporary directory is removed when the script exits,
+    whatever happened."""
+    import atexit
     import shutil
     import tempfile
     import torch.distributed as dist
@@ -1631,6 +1656,8 @@ def train_fault_tolerant(smi, cfg, train_run, dev) -> dict:
     ckpt_bytes = cfg.param_count() * (2 + 4 + 4 + 4)
     tmp = tempfile.mkdtemp(prefix="ckpt-smoke-",
                            dir=checkpoint_root(3 * ckpt_bytes))
+    # phase 9 serves 5d.c's checkpoint: the directory goes at exit
+    atexit.register(shutil.rmtree, tmp, True)
     env = {k: os.environ.get(k) for k in FAULT_ENV}
     try:
         # -- a. a token shard, read through --data
@@ -1855,9 +1882,271 @@ def train_fault_tolerant(smi, cfg, train_run, dev) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        shutil.rmtree(tmp)
     torch.cuda.empty_cache()
+    return total, ck
+
+
+# phase 9: (arch, layers kept, global batch, seq_len) — full width, cut
+# depth; the recurrent families run a smaller B x S, since their plain
+# scans keep a state per step for the backward
+TRAIN_FAMILIES = (("mixtral-8x7b", 1, 4, 1024),
+                  ("rwkv6-7b", 4, 2, 512),
+                  ("recurrentgemma-9b", 3, 2, 512))
+PARITY_ARCHS = ("mixtral-8x7b", "rwkv6-7b", "recurrentgemma-9b",
+                "whisper-tiny", "llava-next-mistral-7b")
+# the state bytes per parameter at the peak of a donated
+# hadronio/bf16/pallas step, read off the code: bf16 params (2), f32
+# moments (8) and EF (4) live throughout; through the exchange the local
+# bf16 grads (2), the new EF (4), and two of the f32 packed vector, the
+# bf16 wire, the f32 unpacked sum and the bf16 synced tree, at most 4 + 2
+# (the packed vector goes once packed, the wire once unpacked). The
+# update writes into the donated params and moments a chunk at a time,
+# so it holds less: the state, the new EF and the synced tree (20).
+STEP_BYTES_PER_PARAM = 2 + 8 + 4 + 2 + 4 + 4 + 2
+
+
+def family_batch(cfg, b: int, s: int, seed: int, device) -> dict:
+    """A train batch of ``cfg``'s family from a numpy seed: tokens and
+    labels, plus frames (encdec) or patches (vlm) of N(0, 1) in f32."""
+    rng = np.random.default_rng(seed)
+    out = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+           for k in ("tokens", "labels")}
+    extra = {"encdec": ("frames", cfg.num_frames),
+             "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if extra:
+        out[extra[0]] = torch.from_numpy(rng.standard_normal(
+            (b, extra[1], cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def loss_and_grads(params, batch, cfg):
+    """``api.loss`` and its gradient tree, by autograd over fresh leaves
+    that alias ``params``."""
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, aux = api.loss(leaves, batch, cfg)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, \
+        tree_map(lambda t: t.grad, leaves)
+
+
+def train_families(smi, dev) -> dict:
+    """Phase 9a: each of ``TRAIN_FAMILIES`` at full width and cut depth,
+    bf16, 3 steps through a donating ``Trainer`` (hadronio/bf16/pallas
+    on the one-peer NCCL ring, synthetic data, seed 0). Checks finite losses,
+    one pack and one unpack launch a step, and no flash, WKV6 or RG-LRU
+    launch (train mode runs the plain attention and scans); reports the
+    median step time, one profiled step (device time, kernels, busy
+    share) and the peak memory over what was live before the run.
+    Returns the ring kernels' launches."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import Trainer
+    wrappers = (ops.pack_slices, ops.unpack_slices, ops.flash_attention,
+                ops.wkv6, ops.rglru)
+    total = {"pack_slices": 0, "unpack_slices": 0}
+    for arch, layers, b, s in TRAIN_FAMILIES:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        run = RunConfig(model=cfg, shape=ShapeConfig("smoke", "train", s, b),
+                        comm=CommConfig(mode="hadronio", channels=4,
+                                        compress="bf16", pack="pallas"),
+                        total_steps=3, warmup_steps=1, seed=0)
+        n = cfg.param_count()
+        release_memory(f"before training {arch}")
+        print(f"[train-fam] {arch}: {layers} of {full.num_layers} layers, "
+              f"vocabulary {cfg.vocab_size} rows, {n / 1e9:.3f} B params; "
+              f"the step's peak state at {STEP_BYTES_PER_PARAM} B/param: "
+              f"{n * STEP_BYTES_PER_PARAM / 1e9:.1f} GB")
+        trainer = Trainer(run, device=dev, log_every=10, donate=True)
+        # the run holds the only reference to the state it consumes
+        states = [trainer.init_state()]
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers:
+            w.launches = 0
+        o = trainer.run_loop(states.pop())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = {w.__name__: w.launches for w in wrappers}
+        step_ms = statistics.median(o["step_s"]) * 1e3
+        print(f"[train-fam] {arch} ({layers} of {full.num_layers} layers, "
+              f"B={b} S={s}) hadronio/bf16/pallas: losses "
+              f"{[round(x, 4) for x in o['losses']]}, step ms "
+              f"{[round(x * 1e3, 1) for x in o['step_s']]} (median "
+              f"{step_ms:.1f}), launches {got} (per step: pack "
+              f"{got['pack_slices'] / 3:g}, unpack "
+              f"{got['unpack_slices'] / 3:g}), peak memory {peak:.2f} GB "
+              f"({peak - live:.2f} GB above the {live:.2f} GB live before "
+              f"the run; {peak * 1e9 / n:.1f} B/param) | {smi}")
+        assert all(np.isfinite(o["losses"])), (arch, o["losses"])
+        assert got == {"pack_slices": 3, "unpack_slices": 3,
+                       "flash_attention": 0, "wkv6": 0, "rglru": 0}, \
+            (arch, got)
+        assert o["state"].step == 3, arch
+        for k in total:
+            total[k] += got[k]
+        end = o.pop("state")
+        batch = trainer.batch(3)
+        busy, n_k, ranked, _ = profile_device(
+            lambda: trainer.step_fn(end, batch), top=6)
+        if busy is None:
+            print(f"[profile] train step {arch}: device time not measured "
+                  "(the profiler recorded no device events)")
+        else:
+            print(f"[profile] train step {arch}: {n_k} kernels, {busy:.3f} "
+                  f"ms on the device of {step_ms:.3f} ms per step "
+                  f"({busy / step_ms:.1%} busy); top: " + "; ".join(
+                      f"{name[:90]} {ms:.3f}" for name, ms in ranked))
+        trainer.close()
+        del trainer, o, end, batch
     return total
+
+
+def train_parity(smi, gen, dev) -> None:
+    """Phase 9b: at each of ``PARITY_ARCHS``' ``-reduced`` configs (f32)
+    the card's ``api.loss``, aux and every gradient leaf of one backward
+    against the port's CPU run on the same params and batch, at the
+    port's model tolerance (atol = rtol = 1e-4: the devices sum in other
+    orders, TF32 is off); then whisper-tiny whole (bf16, 1500 frames, a
+    448-token decoder batch of 2): finite loss and gradients, and no
+    flash launch (the encoder's train mode takes the plain attention)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map, tree_paths
+    from repro_torch.optim.adamw import global_norm
+    for i, arch in enumerate(PARITY_ARCHS):
+        cfg = get_config(arch + "-reduced")
+        params = api.init(torch.Generator().manual_seed(i), cfg, device="cpu")
+        batch = family_batch(cfg, 2, 64, i, "cpu")
+        res = {}
+        for d in ("cpu", dev):
+            p = tree_map(lambda t: t.to(d), params)
+            loss, aux, grads = loss_and_grads(
+                p, {k: v.to(d) for k, v in batch.items()}, cfg)
+            res[str(d)] = (loss.cpu(), {k: v.cpu() for k, v in aux.items()},
+                           global_norm(grads).cpu(),
+                           [(path, g.cpu()) for path, g in tree_paths(grads)])
+        (lc, ac, gc_, lc_g), (lg, ag, gg, lg_g) = res["cpu"], res[str(dev)]
+        check_close(f"{arch}-reduced loss, card vs CPU", lg, lc, 1e-4, 1e-4)
+        assert sorted(ag) == sorted(ac), (ag, ac)
+        for k in ac:
+            check_close(f"{arch}-reduced aux {k}, card vs CPU", ag[k], ac[k],
+                        1e-4, 1e-4, verbose=False)
+        assert [path for path, _ in lg_g] == [path for path, _ in lc_g]
+        worst = max((check_close(f"{arch}-reduced grad {path}, card vs CPU",
+                                 g, want, 1e-4, 1e-4, verbose=False), path)
+                    for (path, g), (_, want) in zip(lg_g, lc_g))
+        print(f"[train-parity] {arch}-reduced: loss card {float(lg):.7f} "
+              f"cpu {float(lc):.7f}, aux {({k: float(v) for k, v in ag.items()})}"
+              f", grad norm card {float(gg):.7f} cpu {float(gc_):.7f}; "
+              f"all {len(lg_g)} gradient leaves within atol = rtol = 1e-4, "
+              f"largest |diff| {worst[0]:.3e} ({worst[1]})")
+    cfg = get_config("whisper-tiny")
+    params = api.init(gen, cfg, device=dev)
+    batch = family_batch(cfg, 2, 448, 0, dev)
+    ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [p for p, g in tree_paths(grads) if not bool(
+        torch.isfinite(g).all())]
+    print(f"[train-parity] whisper-tiny whole (frames (2, 1500, 384), 448 "
+          f"tokens): loss {float(loss):.4f}, grad norm "
+          f"{float(global_norm(grads)):.4f}, {wall:.2f} s for the first "
+          f"loss and backward, flash launches "
+          f"{ops.flash_attention.launches} | {smi}")
+    assert bool(torch.isfinite(loss)) and not bad, (float(loss), bad)
+    assert ops.flash_attention.launches == 0
+    del params, grads
+
+
+def serve_from_checkpoint(smi, ckpt, ring, dev) -> int:
+    """Phase 9c: ``launch.serve --ckpt`` on qwen2-0.5b, pointed at phase
+    5d's checkpoint directory: the params it restores equal the LATEST
+    step's files bitwise (read here with numpy), it prints the restore
+    line, and it serves 4 requests whose prefills run flash (24 layers a
+    call). Their tokens equal those of an in-process engine group (the
+    CLI's serve config, on ``ring``) on the same restored params, and
+    a prefill of the first prompt gives finite logits. Returns the CLI
+    run's flash launches."""
+    import contextlib
+    import io
+    from repro_torch.checkpoint import CheckpointStore, leaf_files
+    from repro_torch.configs.base import CommConfig, ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.models import api
+    from repro_torch.serving import make_engine_group
+    cfg = get_config("qwen2-0.5b")
+    store = CheckpointStore(ckpt)
+    step = store.latest_step()
+    params = serve_cli.load_params(cfg, ckpt=ckpt, batch=2, max_len=2048,
+                                   seed=0, device=dev)
+    pairs = []
+    for name, t in leaf_files(TrainState(params, None, step)):
+        if not torch.is_tensor(t):
+            continue
+        arr = np.load(os.path.join(store.step_dir(step), name))
+        want = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
+            if arr.dtype.kind == "V" else torch.from_numpy(arr)  # bf16 bits
+        pairs.append((t.cpu(), want))
+    check_bitwise(f"qwen2-0.5b params restored by launch.serve --ckpt vs "
+                  f"step {step}'s files ({len(pairs)} leaves)", pairs)
+    del pairs
+    ops.flash_attention.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve_cli.main(["--arch", "qwen2-0.5b", "--ckpt", ckpt,
+                             "--requests", "4", "--max-new", "8", "--batch",
+                             "2", "--max-len", "2048", "--event-loops", "2",
+                             "--device", dev.type])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.flash_attention.launches
+    for line in out.getvalue().splitlines():
+        print(f"[serve-ckpt]   {line}")
+    print(f"[serve-ckpt] qwen2-0.5b --ckpt (phase 5d, LATEST {step}): rc {rc},"
+          f" {wall:.2f} s, flash launches {launches} | {smi}")
+    assert rc == 0 and f"[serve] restored params from step {step}" \
+        in out.getvalue() and "[serve] 4 requests, 32 tokens" \
+        in out.getvalue(), out.getvalue()
+    assert launches and launches % cfg.num_layers == 0, launches
+    # the same requests through an in-process group on the restored
+    # params, with the CLI's defaults (gspmd, busy polling)
+    served = {int(m[1]): [int(t) for t in m[2].split(",")] for m in
+              re.finditer(r"uid=(\d+) prompt_len=\d+ -> \[([^\]]*)\]",
+                          out.getvalue())}
+    group = make_engine_group(cfg, params, ServeConfig(
+        event_loops=2, poll="busy", max_batch=2, max_len=2048,
+        comm=CommConfig(mode="gspmd", channels=4)), seed=0, device=dev,
+        ring=ring)
+    reqs = serve_cli.make_requests(cfg, 4, max_new=8, temperature=0.0,
+                                   seed=0)
+    group.submit(reqs)
+    mine = {r.uid: r.tokens.tolist() for r in group.run(threads=True)}
+    with torch.no_grad():
+        logits, _ = api.prefill(params, {"tokens": torch.as_tensor(
+            reqs[0].prompt, device=dev)[None]}, cfg)
+    torch.cuda.synchronize()
+    print(f"[serve-ckpt] tokens of the CLI {served}; of an in-process "
+          f"group on the same params {mine}; prefill logits of request 0 "
+          f"{tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}, top token "
+          f"{int(logits[0].argmax())}")
+    assert len(served) == 4 and served == mine, (served, mine)
+    assert logits.shape == (1, cfg.vocab_size) and \
+        bool(torch.isfinite(logits).all())
+    del params, group, logits
+    return launches
 
 
 def main() -> int:
@@ -2477,8 +2766,8 @@ def main() -> int:
                              "the plain attention path")
 
     # -- 4b. serve qwen2-0.5b over a ring (one peer, NCCL) -------------------
-    # one group for phases 4b-8: the serve ring here, the Trainers' rings
-    # in phase 5 and the hadronio runs of phases 6, 7 and 8
+    # one group for phases 4b-9: the serve ring here, the Trainers' rings
+    # in phases 5 and 9 and the hadronio runs of phases 6, 7 and 8
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     ring = Ring(channels=4)
@@ -2671,7 +2960,7 @@ def main() -> int:
     del start, trainer
 
     # -- 5d. the fault-tolerant trainer ---------------------------------------
-    ft_launches = train_fault_tolerant(smi, cfg, train_run, dev)
+    ft_launches, ft_ckpt = train_fault_tolerant(smi, cfg, train_run, dev)
 
     # -- 6. serve rwkv6-7b and recurrentgemma-9b at full width ---------------
     rwkv_launches = serve_recurrent(
@@ -2706,17 +2995,23 @@ def main() -> int:
                                     dense_lens)
     encvlm_flash += serve_encdec_vlm(gen, smi, "llava-next-mistral-7b", ring,
                                      dense_lens, check_layers=4)
+
+    # -- 9. train the families ------------------------------------------------
+    fam_train = train_families(smi, dev)
+    release_memory("before the card-vs-CPU losses")
+    train_parity(smi, gen, dev)
+    ckpt_flash = serve_from_checkpoint(smi, ft_ckpt, ring, dev)
     del ring
     dist.destroy_process_group()
 
-    # -- 9. result lines ------------------------------------------------------
+    # -- 10. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches + ring_flash + rg_launches["flash_attention"]
-         + fam_flash + encvlm_flash,
+         + fam_flash + encvlm_flash + ckpt_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
@@ -2733,7 +3028,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/ring_pack.py:61",
          "launches": train_launches["pack_slices"]
          + vma_launches["pack_slices"] + family_launches["pack_slices"]
-         + ft_launches["pack_slices"],
+         + ft_launches["pack_slices"] + fam_train["pack_slices"],
          "max_abs_err": pack_err,
          "ms": rp["pack_ef"]["ms"], "plain_ms": rp["pack_ef"]["plain_ms"],
          "bound_ms": rp["pack_ef"]["bound_ms"], "bound_by": "bytes",
@@ -2743,7 +3038,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/ring_pack.py:100",
          "launches": train_launches["unpack_slices"]
          + vma_launches["unpack_slices"] + family_launches["unpack_slices"]
-         + ft_launches["unpack_slices"],
+         + ft_launches["unpack_slices"] + fam_train["unpack_slices"],
          "max_abs_err": unpack_err,
          "ms": rp["unpack"]["ms"], "plain_ms": rp["unpack"]["plain_ms"],
          "bound_ms": rp["unpack"]["bound_ms"], "bound_by": "bytes",

@@ -86,10 +86,13 @@ class StateSpecs(NamedTuple):
 class UpdateContext:
     """Ring facts ``apply_update`` needs beyond the sync result (the
     ring size is ``ring.world_size``; ``eff_shards`` is the ZeRO-1
-    scatter-group size). ``memo`` keeps what :meth:`cached` built for
-    the life of the step function that owns this context."""
+    scatter-group size; ``donate``: the step's caller gave its state up,
+    so the update may write into the params and moments it was given).
+    ``memo`` keeps what :meth:`cached` built for the life of the step
+    function that owns this context."""
     ring: Ring
     eff_shards: int = 1
+    donate: bool = False
     memo: dict = field(default_factory=dict, compare=False, repr=False)
 
     def cached(self, key, build: Callable[[], Any]):
@@ -147,9 +150,11 @@ class CommBackend(abc.ABC):
     def apply_update(self, params: Tree, opt: adamw.AdamState,
                      res: SyncResult, run: RunConfig, uctx: UpdateContext):
         """(new_params, new_opt, metrics) from a SyncResult. Default: tree
-        AdamW on the synced gradient tree. ``metrics`` holds scalars that
-        are equal on every ring peer (``grad_norm``, ``lr``)."""
-        return adamw.update(res.grads, opt, params, run)
+        AdamW on the synced gradient tree, in place under
+        ``uctx.donate``. ``metrics`` holds scalars that are equal on
+        every ring peer (``grad_norm``, ``lr``)."""
+        return adamw.update(res.grads, opt, params, run,
+                            inplace=uctx.donate)
 
     def validate(self, comm: CommConfig) -> None:
         """Reject config combinations this strategy cannot honor (called

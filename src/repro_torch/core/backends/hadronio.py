@@ -23,8 +23,11 @@ class HadronioBackend(CommBackend):
 
     def sync(self, grads, ctx: SyncContext) -> SyncResult:
         plan = agg.make_plan(grads, ctx.comm, dtype=torch.float32)
-        flat = agg.pack(grads, plan)
-        slices = agg.as_slices(flat, plan)
-        red, new_ef = pipeline.reduce_slices(slices, ctx)
+        # the packed f32 vector lives through the pack stage alone: the
+        # emission and the unpack hold only the wire and the residual
+        wire, new_ef, scale = pipeline.pack_wire(
+            agg.as_slices(agg.pack(grads, plan), plan), ctx.ef, ctx.comm)
+        red = pipeline.reduce_wire(wire, scale, ctx)
+        del wire
         synced = agg.unpack(agg.from_slices(red, plan), plan, grads)
         return SyncResult(synced, plan=plan, ef=new_ef)

@@ -38,7 +38,8 @@ module owns the wire stages:
   modes: the scattering read keyed to the flush that produced the
   bytes).
 * :func:`reduce_slices` — pack stage + per-slice all-reduce + unpack
-  stage over the channel schedule.
+  stage over the channel schedule; :func:`reduce_wire` is its part after
+  the pack stage.
 * :func:`scatter_slices` — the ZeRO-1 exchange: pack stage + per-slice
   reduce-scatter + unpack stage; each peer keeps its ring-ordered chunk
   of every slice (:func:`scatter_group`). A coalesced reduce-scatter
@@ -478,11 +479,20 @@ def reduce_slices(slices: torch.Tensor, ctx: SyncContext):
     the channel pool at the configured flush granularity. slices: (n, S)
     f32. Returns (reduced (n, S) f32, new_ef)."""
     wire, new_ef, scale = pack_wire(slices, ctx.ef, ctx.comm)
+    return reduce_wire(wire, scale, ctx), new_ef
+
+
+def reduce_wire(wire: torch.Tensor, scale: Optional[torch.Tensor],
+                ctx: SyncContext) -> torch.Tensor:
+    """The second half of :func:`reduce_slices`: the per-slice
+    all-reduce of :func:`pack_wire`'s ``(wire, scale)`` and the unpack
+    stage. Returns the reduced (n, S) f32. A caller that packs and
+    reduces in two calls lets the f32 slices go before the emission."""
     if scale is not None:
         # int8: all-gather + local dequant-sum (one fused exchange)
-        return comp.int8_allreduce(wire, scale, ctx.ring.group), new_ef
+        return comp.int8_allreduce(wire, scale, ctx.ring.group)
     emit_through_channels(list(wire.unbind(0)), ctx, "all_reduce")
-    return unpack_wire(wire, ctx.comm), new_ef
+    return unpack_wire(wire, ctx.comm)
 
 
 def scatter_group(ctx: SyncContext):

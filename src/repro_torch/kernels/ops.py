@@ -12,6 +12,7 @@ went through the kernel.
 from __future__ import annotations
 
 import threading
+from typing import Callable, Optional
 
 import torch
 
@@ -38,6 +39,23 @@ def _no_autograd(name: str, *tensors) -> None:
             f"{name}: the CUDA kernel has no backward, so its output would "
             "carry no gradient; train through the plain version (as train "
             "mode does) or call the kernel under torch.no_grad()")
+
+
+MODES = ("train", "prefill", "decode")
+
+
+def train_or_kernel(mode: str, given: Optional[Callable], plain: Callable,
+                    kernel: Callable) -> Callable:
+    """The function a model stack runs in ``mode``: ``given`` when the
+    caller passed one, else ``plain`` in train mode (autograd
+    differentiates it; the kernels have no backward) and the ``kernel``
+    wrapper in prefill and decode. An unknown mode raises. Every stack
+    picks through here, so no train mode reaches a kernel by default,
+    not even where the CPU would hide it (a wrapper sends a CPU tensor
+    to its plain version before it checks autograd)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    return given or (plain if mode == "train" else kernel)
 
 
 def _device_of(*tensors) -> str:

@@ -1,12 +1,12 @@
-"""Serving launcher of the port: init params from a seed, run the
-event-loop serving subsystem (EventLoopGroup of decode engines over the
-CommBackend wire and a ring of peers), print the reference CLI's
-summary lines.
+"""Serving launcher of the port: load params from a train checkpoint
+(``--ckpt``) or init them from a seed, run the event-loop serving
+subsystem (EventLoopGroup of decode engines over the CommBackend wire
+and a ring of peers), print the reference CLI's summary lines.
 
 Counterpart of ``repro/launch/serve.py`` in its single-tenant,
-unsupervised form (tenants, the supervisor, pods, checkpoints and the
-telemetry flags come in later slices: ROADMAP.md). Runs on the card
-unless ``--device cpu`` is given.
+unsupervised form (tenants, the supervisor, pods and the telemetry
+flags come in later slices: ROADMAP.md). Runs on the card unless
+``--device cpu`` is given.
 
 The ring is one process per peer. The CLI joins an existing
 ``torch.distributed`` default group; without one it makes one: from the
@@ -29,6 +29,13 @@ CLI::
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch qwen2-0.5b-reduced --device cpu --comm-mode hadronio \
       --requests 6 --max-new 4 --batch 2
+
+  # params from a train checkpoint: the LATEST step of a directory that
+  # launch.train (or the reference's trainer) wrote, f32 or bf16
+  python -m repro_torch.launch.train --arch mixtral-8x7b-reduced \
+      --device cpu --steps 3 --global-batch 4 --seq-len 32 --ckpt /tmp/run1
+  python -m repro_torch.launch.serve --arch mixtral-8x7b-reduced \
+      --device cpu --ckpt /tmp/run1
 
   # CPU-sized smoke runs (any registry id, with -reduced)
   python -m repro_torch.launch.serve --arch qwen2-0.5b-reduced \
@@ -59,16 +66,20 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.compat import resolve_device
-from repro_torch.configs.base import CommConfig, ServeConfig
+from repro_torch.checkpoint import CheckpointStore
+from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.configs.base import (CommConfig, RunConfig, ServeConfig,
+                                      ShapeConfig)
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.backends import available_modes
 from repro_torch.core.channels import Ring
+from repro_torch.launch import steps
 from repro_torch.models import api
 from repro_torch.serving import Request, make_engine_group
 
@@ -85,6 +96,31 @@ def make_requests(cfg, n: int, *, max_new: int, temperature: float,
             for i in range(n)]
 
 
+def load_params(cfg, *, ckpt: str, batch: int, max_len: int, seed: int,
+                device: DeviceLike = None,
+                log: Callable[[str], None] = print):
+    """The params of ``ckpt``'s LATEST train checkpoint on ``device``,
+    else (no ``ckpt``, or no LATEST in it) params from ``seed``, as the
+    reference's ``load_params``. The restore's ``like`` tree is the
+    reference's: the train state of a ``"decode"`` shape of ``max_len``
+    x ``batch`` under the default comm config. Only its params and step
+    are read (serving needs nothing else, and so a checkpoint of any
+    comm mode serves); a leaf that is missing or of another shape
+    raises. ``log`` gets the restore line."""
+    dev = resolve_device(device)
+    store = CheckpointStore(ckpt) if ckpt else None
+    step = store.latest_step() if store else None
+    if step is None:
+        return api.init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    run = RunConfig(model=cfg, shape=ShapeConfig("serve", "decode", max_len,
+                                                 batch))
+    like = steps.abstract_state(run)._replace(opt=None, ef=None)
+    state = store.restore(step, like, device=dev)
+    log(f"[serve] restored params from step {step}")
+    return state.params
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", required=True,
@@ -96,6 +132,9 @@ def main(argv=None) -> int:
     p.add_argument("--max-new", type=int, default=16)
     p.add_argument("--max-len", type=int, default=256)
     p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--ckpt", default="",
+                   help="train checkpoint directory: serve the params of "
+                        "its LATEST step (without one, init from --seed)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--event-loops", type=int, default=1,
                    help="EventLoopGroup size; each loop owns a disjoint "
@@ -146,8 +185,10 @@ def main(argv=None) -> int:
                                     rank=0, world_size=1)
     try:
         ring = Ring(channels=args.channels)
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = api.init(gen, cfg, device=device)
+        params = load_params(cfg, ckpt=args.ckpt, batch=args.batch,
+                             max_len=args.max_len, seed=args.seed,
+                             device=device, log=print if ring.rank == 0
+                             else lambda line: None)
         group = make_engine_group(cfg, params, serve, seed=args.seed,
                                   device=device, ring=ring)
         reqs = make_requests(cfg, args.requests, max_new=args.max_new,

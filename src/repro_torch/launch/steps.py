@@ -25,7 +25,12 @@ f32 mean. The exchange runs once per step, after the accumulation.
 
 A step is ``step_fn(state, batch) -> (state, metrics)`` with ``batch``
 {"tokens", "labels"} on the device; metrics are 0-d tensors plus the
-Python float ``lr``. ``abstract_state`` is the state's layout as
+Python float ``lr``. A step built with ``donate=True`` consumes the
+state it is given, as the reference's ``Trainer`` donates its state to
+the jitted step: the tree AdamW writes the new params and moments into
+that state's tensors, so one copy of them lives instead of two (the
+ZeRO-1 backends' flat update still makes new shards). The caller must
+not read the given state again. ``abstract_state`` is the state's layout as
 ``meta`` tensors (the ``like`` tree of a checkpoint restore) and
 ``ring_rows`` names the checkpoint leaves each peer holds one row of.
 """
@@ -169,7 +174,8 @@ def ring_rows(name: str) -> bool:
                                               ".opt_.nu.npy")
 
 
-def make_train_step_tac(run: RunConfig, ring: Ring):
+def make_train_step_tac(run: RunConfig, ring: Ring, *,
+                        donate: bool = False):
     """The TAC step over ``ring``: every process runs it on its own
     shard of the global batch."""
     comm = run.comm
@@ -177,12 +183,13 @@ def make_train_step_tac(run: RunConfig, ring: Ring):
     backend.validate(comm)
     n_shards = ring.world_size
     uctx = UpdateContext(ring=ring, eff_shards=scatter_group_size(
-        n_shards, 1, comm))
+        n_shards, 1, comm), donate=donate)
 
     def step_fn(state: TrainState, batch: dict):
         # local loss scaled so the ring sum of the grads is the global mean
         loss, grads = _accumulate_grads(state.params, batch, run, n_shards)
         res = tac.sync_grads(grads, comm, ring=ring, ef=state.ef)
+        del grads       # the local gradients are dead once synced
         # the loss epilogue after the sync emission, as in the reference
         dist.all_reduce(loss, group=ring.group)
         new_params, new_opt, metrics = backend.apply_update(
@@ -193,7 +200,8 @@ def make_train_step_tac(run: RunConfig, ring: Ring):
     return step_fn
 
 
-def make_train_step_gspmd(run: RunConfig, ring: Ring):
+def make_train_step_gspmd(run: RunConfig, ring: Ring, *,
+                          donate: bool = False):
     """Local gradients and a tree AdamW, no exchange: one peer only."""
     if ring.world_size != 1:
         raise NotImplementedError(
@@ -204,18 +212,19 @@ def make_train_step_gspmd(run: RunConfig, ring: Ring):
     def step_fn(state: TrainState, batch: dict):
         loss, grads = _accumulate_grads(state.params, batch, run, 1)
         new_params, new_opt, metrics = adamw.update(
-            grads, state.opt, state.params, run)
+            grads, state.opt, state.params, run, inplace=donate)
         return TrainState(new_params, new_opt, state.step + 1,
                           state.ef), dict(metrics, loss=loss)
 
     return step_fn
 
 
-def make_train_step(run: RunConfig, ring: Ring):
+def make_train_step(run: RunConfig, ring: Ring, *, donate: bool = False):
     """Dispatch on the registered backend's step family (callers never
-    change, and no mode names appear here)."""
+    change, and no mode names appear here). ``donate``: the step
+    consumes its state (module docstring)."""
     backend = get_backend(run.comm.mode)
     backend.validate(run.comm)
     if backend.manual:
-        return make_train_step_tac(run, ring)
-    return make_train_step_gspmd(run, ring)
+        return make_train_step_tac(run, ring, donate=donate)
+    return make_train_step_gspmd(run, ring, donate=donate)

@@ -105,9 +105,15 @@ def _maybe_inject_fault(step: int):
 
 
 class Trainer:
+    """``donate``: each step consumes the state it is given
+    (``steps.make_train_step``), so the state passed to :meth:`run_loop`
+    must not be read again; the reference's Trainer always donates, and
+    so does the CLI."""
+
     def __init__(self, run: RunConfig, *, device: DeviceLike = None,
                  log_every: int = 10, watchdog_secs: float = 0.0,
-                 log_fn: Callable[[str], None] = print):
+                 log_fn: Callable[[str], None] = print,
+                 donate: bool = False):
         self.run = run
         self.device = resolve_device(device)
         self.log_every = log_every
@@ -126,7 +132,8 @@ class Trainer:
                                  global_batch=run.shape.global_batch,
                                  host_index=self.ring.rank,
                                  num_hosts=self.ring.world_size)
-            self.step_fn = steps_mod.make_train_step(run, self.ring)
+            self.step_fn = steps_mod.make_train_step(run, self.ring,
+                                                     donate=donate)
             if run.checkpoint_dir:
                 self.store = CheckpointStore(
                     run.checkpoint_dir, keep=run.keep_checkpoints,
@@ -348,7 +355,8 @@ def main(argv=None) -> int:
         run = build_run(args)
         out = train_with_restarts(
             lambda: Trainer(run, device=args.device,
-                            watchdog_secs=args.watchdog_secs, log_fn=log),
+                            watchdog_secs=args.watchdog_secs, log_fn=log,
+                            donate=True),
             max_restarts=args.max_restarts, log_fn=log)
     finally:
         if own_group:

@@ -20,8 +20,9 @@ for the hybrid), fixed in size. The encdec family (whisper,
 prepends patch embeddings (B, num_patches, D) to the tokens, runs the
 dense stack, and keeps the prefix in the first ``num_patches`` KV slots.
 The modality frontends are stubs, as in the reference: frames and
-patches arrive as embeddings (``stub_inputs``). ``loss`` is dense-only
-until training the other families is ported.
+patches arrive as embeddings (``stub_inputs``; a train batch of those
+families carries them as ``"frames"`` or ``"patches"``). ``loss`` trains
+every family through its stack's train mode, which launches no kernel.
 
 Two quirks of the reference are kept, so that served tokens equal its
 own: an encdec prefill reads the logits of the LAST position of the
@@ -74,40 +75,58 @@ def init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def loss(params: Tree, batch: dict, cfg: ModelConfig):
-    """Token-mean cross entropy of next-token prediction, and the aux
-    dict {"xent", "aux"} of the reference (``aux`` is the MoE balance
-    loss, zero for the dense family). Attention is the plain
-    ``attend_chunked``, which autograd differentiates. Dense only: the
-    other families serve but do not train yet."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch for "
-            "training yet (ROADMAP.md, Queue 1: 'The other model families')")
-    x = embed_tokens(params["embed"], batch["tokens"],
-                     torch_dtype(cfg.compute_dtype))
-    x, _, aux = tfm.apply_stack(params["layers"], x, cfg, mode="train")
+    """Token-mean cross entropy of next-token prediction and the
+    reference's aux dict: {"xent", "aux"}, ``aux`` the moe balance plus
+    z-loss (zero for the other families) added to the loss; {"xent"}
+    alone for encdec. Every family runs its stack's train mode: plain
+    PyTorch that autograd differentiates (``attend_chunked``,
+    ``kernels.ref.wkv6``, ``kernels.ref.rglru``), no kernel, since the
+    kernels have no backward. A vlm batch's ``"patches"`` are prepended
+    and their rows dropped before the head; an encdec batch's
+    ``"frames"`` feed the encoder."""
+    dt = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(params["embed"], batch["tokens"], dt)
+    head = lambda x: lm_logits(params["embed"], x)
+    xent = lambda logits: cross_entropy(logits, batch["labels"],
+                                        batch.get("loss_mask"))
+    if cfg.family == "encdec":
+        enc = whi.encode(params, batch["frames"].to(dt), cfg, mode="train")
+        cross_k, cross_v = whi.cross_kv(params, enc, cfg)
+        x = x + params["pos_dec"].to(dt)[None, :x.shape[1]]
+        x, _ = whi.decode_stack(params, x, cfg, mode="train",
+                                cross_k=cross_k, cross_v=cross_v)
+        l = xent(head(x))
+        return l, {"xent": l}
+    prefix = 0
+    if cfg.family == "vlm":
+        prefix = batch["patches"].shape[1]
+        x = torch.cat([batch["patches"].to(dt), x], dim=1)
+    x, _, aux = _trunk(params, x, cfg, mode="train")
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
-    logits = lm_logits(params["embed"], x)
-    xent = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
-    return xent + aux, {"xent": xent, "aux": aux}
+    l = xent(head(x[:, prefix:]))
+    return l + aux, {"xent": l, "aux": aux}
 
 
 def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
            cache=None, pos=None, attend=None, scan=None, expert_fn=None):
-    """The family stack. Returns (x, cache). ``expert_fn`` replaces the
-    moe expert stage; the other families have none."""
+    """The family stack. Returns (x, cache, aux): ``aux`` is the moe
+    blocks' summed balance loss, zero for the other families.
+    ``expert_fn`` replaces the moe expert stage; the other families
+    have none."""
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = apply_norm(params["ln_in"], x, "layernorm")
-        return rwkv.apply_rwkv_stack(params["layers"], x, cfg, state=cache,
-                                     scan=scan)
+        x, state = rwkv.apply_rwkv_stack(params["layers"], x, cfg,
+                                         mode=mode, state=cache, scan=scan)
+        return x, state, zero()
     if cfg.family == "hybrid":
-        return hyb.apply_hybrid_stack(params["layers"], x, cfg, mode=mode,
-                                      cache=cache, pos=pos, attend=attend,
-                                      scan=scan)
-    x, cache, _ = tfm.apply_stack(params["layers"], x, cfg, mode=mode,
-                                  kind=cfg.family, cache=cache, pos=pos,
-                                  attend=attend, expert_fn=expert_fn)
-    return x, cache
+        x, cache = hyb.apply_hybrid_stack(params["layers"], x, cfg,
+                                          mode=mode, cache=cache, pos=pos,
+                                          attend=attend, scan=scan)
+        return x, cache, zero()
+    return tfm.apply_stack(params["layers"], x, cfg, mode=mode,
+                           kind=cfg.family, cache=cache, pos=pos,
+                           attend=attend, expert_fn=expert_fn)
 
 
 def stub_inputs(cfg: ModelConfig, batch: int,
@@ -156,8 +175,8 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig,
             "self": cache, "cross_k": cross_k, "cross_v": cross_v}
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(dt), x], dim=1)
-    x, cache = _trunk(params, x, cfg, mode="prefill", attend=attend,
-                      scan=scan, expert_fn=expert_fn)
+    x, cache, _ = _trunk(params, x, cfg, mode="prefill", attend=attend,
+                         scan=scan, expert_fn=expert_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     if "last_pos" in batch:     # per-request prompt end (serving engine)
         # vlm: a row of the prefixed sequence (the reference's quirk)
@@ -190,8 +209,8 @@ def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
         return head(params["embed"], x)[:, 0], cache
     if cfg.family == "vlm":
         pos = pos + cfg.num_patches   # cache slots 0..P-1 hold the prefix
-    x, cache = _trunk(params, x, cfg, mode="decode", cache=cache, pos=pos,
-                      expert_fn=expert_fn)
+    x, cache, _ = _trunk(params, x, cfg, mode="decode", cache=cache,
+                         pos=pos, expert_fn=expert_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     return head(params["embed"], x)[:, 0], cache
 

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.compat import torch_dtype
 
@@ -71,6 +72,15 @@ def tree_from_paths(pairs) -> dict:
             node = node.setdefault(k, {})
         node[last] = leaf
     return out
+
+
+def remat(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its activations recomputed in the backward
+    instead of kept (``jax.checkpoint``'s counterpart): the train modes
+    of the recurrent stacks wrap each layer or group in it. Memory
+    changes, values do not."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kwargs)
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:

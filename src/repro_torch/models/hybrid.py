@@ -14,15 +14,21 @@ where the reference runs ``lax.associative_scan`` and names the Pallas
 kernel as the fused production path; a decode step (T = 1) is the
 one-line update, as in the reference. Local-attention prefill runs the
 flash kernel through ``transformer.apply_block`` with
-``window=cfg.local_window``. ``attend`` and ``scan`` replace the two
-kernels with functions of the same signatures (the plain versions hold
-the kernels against the plain path).
+``window=cfg.local_window``. Train mode launches neither kernel (they
+have no backward, nor have the reference's): the scan is the plain
+``kernels.ref.rglru`` and the attention the plain
+``attention.attend_chunked``, which autograd differentiates; each whole
+group is recomputed in the backward (``common.remat``, the reference's
+``jax.checkpoint`` of its group body), and no cache is returned.
+``attend`` and ``scan`` replace the two of either mode with functions of
+the same signatures (the plain versions hold the kernels against the
+plain path).
 
 Parameters and caches: the pattern's blocks are stacked over the
 ``n_groups`` whole groups under ``groups`` (leading dim n_groups, then
 batch), and the remaining layers are unstacked ``tail<i>_<kind>``
 entries (leading dim batch). A Python loop over groups replaces
-``scan_or_unroll``; there is no train mode here (ROADMAP.md, Queue 1).
+``scan_or_unroll``.
 """
 from __future__ import annotations
 
@@ -32,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as att
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import ParamSpec, stacked, tree_map
+from repro_torch.models.common import ParamSpec, remat, stacked, tree_map
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
                                        norm_specs)
 
@@ -191,30 +198,53 @@ def _apply_kind(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     return x, {"k": nk, "v": nv}
 
 
+def _apply_group(pg: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                 cache: Optional[dict], **kw):
+    """One group of ``block_pattern``: (x, {b<i>_<kind>: new state})."""
+    new = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        key = f"b{i}_{kind}"
+        x, new[key] = _apply_kind(pg[key], x, cfg, kind,
+                                  cache=cache.get(key) if cache else None,
+                                  **kw)
+    return x, new
+
+
+def _train_group(pg: dict, x: torch.Tensor, cfg: ModelConfig,
+                 **kw) -> torch.Tensor:
+    return _apply_group(pg, x, cfg, cache=None, mode="train", pos=None,
+                        **kw)[0]
+
+
 def apply_hybrid_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                        mode: str, cache: Optional[dict] = None,
                        pos: Optional[torch.Tensor] = None,
                        attend: Optional[Callable] = None,
                        scan: Optional[Callable] = None):
-    """Prefill (``cache`` None: zero recurrent states) or decode (one
-    token against ``cache``). Returns (x, new_cache) in the layout of
-    :func:`init_hybrid_cache`."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"hybrid stack: unknown mode {mode!r} (training "
-                         "the family is not ported yet)")
-    attend = attend or ops.flash_attention
-    scan = scan or ops.rglru
+    """Train (no cache; each group recomputed in the backward), prefill
+    (``cache`` None: zero recurrent states) or decode (one token against
+    ``cache``). Returns (x, new_cache) in the layout of
+    :func:`init_hybrid_cache`; the cache is None in train mode."""
+    attend = ops.train_or_kernel(mode, attend, att.attend_chunked,
+                                 ops.flash_attention)
+    scan = ops.train_or_kernel(mode, scan, ref.rglru, ops.rglru)
     n_groups, tail = _group_layout(cfg)
+    if mode == "train":
+        kw = dict(attend=attend, scan=scan)
+        for g in range(n_groups):
+            x = remat(_train_group, tree_map(lambda a: a[g],
+                                             params["groups"]), x, cfg, **kw)
+        for i, kind in enumerate(tail):
+            x, _ = _apply_kind(params[f"tail{i}_{kind}"], x, cfg, kind,
+                               mode=mode, cache=None, pos=None, **kw)
+        return x, None
     kw = dict(mode=mode, pos=pos, attend=attend, scan=scan)
     keys = [f"b{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
     per_group = []
     for g in range(n_groups):
         pg = tree_map(lambda a: a[g], params["groups"])
-        cg = tree_map(lambda a: a[g], cache["groups"]) if cache else {}
-        new = {}
-        for key, kind in zip(keys, cfg.block_pattern):
-            x, new[key] = _apply_kind(pg[key], x, cfg, kind,
-                                      cache=cg.get(key), **kw)
+        cg = tree_map(lambda a: a[g], cache["groups"]) if cache else None
+        x, new = _apply_group(pg, x, cfg, cache=cg, **kw)
         per_group.append(new)
     out = {"groups": {key: {leaf: torch.stack([ng[key][leaf]
                                                for ng in per_group])

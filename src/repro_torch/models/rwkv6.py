@@ -7,15 +7,19 @@ size hs), state S in R^{hs x hs}::
     S_t = diag(w_t) S_{t-1} + k_t (x) v_t
     y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t)
 
-with w_t = exp(-exp(w0 + lora_w(x_t))) in (0, 1). Every scan, in prefill
-(T = S) and in decode (T = 1), goes through ``kernels.ops.wkv6`` — the
-hand-written CUDA kernel on a card, the plain :func:`_wkv_scan` on CPU
-tensors — where the reference runs its ``lax.scan`` and names the Pallas
-kernel as the production path. ``scan`` replaces it with another
-function of the same signature (``kernels.ref.wkv6`` holds the kernel
-against the plain path). A Python loop over the layers replaces
-``scan_or_unroll``; there is no train mode here (training the family
-comes later: ROADMAP.md, Queue 1).
+with w_t = exp(-exp(w0 + lora_w(x_t))) in (0, 1). Every serving scan, in
+prefill (T = S) and in decode (T = 1), goes through ``kernels.ops.wkv6``
+— the hand-written CUDA kernel on a card, the plain :func:`_wkv_scan` on
+CPU tensors — where the reference runs its ``lax.scan`` and names the
+Pallas kernel as the production path. Train mode runs the plain
+``kernels.ref.wkv6``, which autograd differentiates (the kernel has no
+backward, nor has the reference's), and recomputes each layer in the
+backward (``common.remat``, the reference's ``jax.checkpoint``): the
+step loop keeps a state per step for the backward, so without it every
+layer's T-step graph would live at once. ``scan`` replaces the scan of
+either mode with another function of the same signature
+(``kernels.ref.wkv6`` holds the kernel against the plain path). A
+Python loop over the layers replaces ``scan_or_unroll``.
 
 Casts follow the reference exactly, since in bf16 another order of
 casts is another model: the decay log ``w0 + lora`` is summed in f32
@@ -31,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
-from repro_torch.models.common import ParamSpec, stacked, tree_map
+from repro_torch.kernels import ops, ref
+from repro_torch.models.common import ParamSpec, remat, stacked, tree_map
 from repro_torch.models.layers import apply_norm, norm_specs
 
 N_MIX = 5  # r, k, v, g, w token-shift interpolations
@@ -166,18 +170,25 @@ def init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def apply_rwkv_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                     state: Optional[dict] = None,
+                     mode: str, state: Optional[dict] = None,
                      scan: Optional[Callable] = None):
     """Run the blocks over the stacked params, threading each layer's
-    state (zeros when ``state`` is None, as for a prefill). Returns
-    (x, new_state) with the layout of :func:`init_state`."""
+    state (zeros when ``state`` is None, as for a prefill and in train
+    mode). ``mode`` is train, prefill or decode: train defaults ``scan``
+    to the plain ``kernels.ref.wkv6`` and recomputes each layer in the
+    backward, the others default it to the kernel. Returns (x,
+    new_state) with the layout of :func:`init_state`."""
+    scan = ops.train_or_kernel(mode, scan, ref.wkv6, ops.wkv6)
     if state is None:
         state = init_state(cfg, x.shape[0], x.dtype, x.device)
-    scan = scan or ops.wkv6
+    train = mode == "train"
     new = []
     for layer in range(cfg.num_layers):
         p = tree_map(lambda a: a[layer], params)
         st = {k: v[layer] for k, v in state.items()}
-        x, ns = apply_rwkv_block(p, x, cfg, state=st, scan=scan)
+        if train:
+            x, ns = remat(apply_rwkv_block, p, x, cfg, state=st, scan=scan)
+        else:
+            x, ns = apply_rwkv_block(p, x, cfg, state=st, scan=scan)
         new.append(ns)
     return x, {k: torch.stack([ns[k] for ns in new]) for k in state}

@@ -118,11 +118,8 @@ def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ``cache`` is {"k","v"}: (L,B,S,KV,Dh) for prefill (new) and decode
     (the given cache, updated in place), None in train mode; ``aux`` is
     the blocks' balance losses summed (zero for dense)."""
-    if mode not in ("train", "prefill", "decode"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if attend is None:
-        attend = att.attend_chunked if mode == "train" \
-            else ops.flash_attention
+    attend = ops.train_or_kernel(mode, attend, att.attend_chunked,
+                                 ops.flash_attention)
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(cfg.num_layers):

@@ -14,7 +14,10 @@ Attention:
   on CPU tensors), with K/V at their KV heads as
   ``transformer.apply_block`` passes them. The reference runs its jnp
   ``attend_chunked`` there, for which the Pallas flash kernel is the
-  named production version;
+  named production version. Train mode defaults ``attend`` to that
+  plain ``attention.attend_chunked``, which autograd differentiates
+  (the kernel has no backward): non-causal in the encoder, causal in
+  the decoder;
 * cross attention is the plain ``attend_direct`` over the expanded
   cross K/V, as in the reference: queries and keys differ in length,
   which the flash kernel (there and here) does not take;
@@ -113,10 +116,13 @@ def _cross_attn(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return att.out_project(p, out)
 
 
-def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
+           mode: str = "prefill",
            attend: Optional[Callable] = None) -> torch.Tensor:
-    """frames: (B, F, D) embeddings -> the encoder output (B, F, D)."""
-    attend = attend or ops.flash_attention
+    """frames: (B, F, D) embeddings -> the encoder output (B, F, D).
+    ``mode`` train takes the plain attention, prefill the kernel."""
+    attend = ops.train_or_kernel(mode, attend, att.attend_chunked,
+                                 ops.flash_attention)
     x = frames + params["pos_enc"].to(frames.dtype)[None, :frames.shape[1]]
     for i in range(cfg.encoder_layers):
         p = params[f"enc{i}"]
@@ -151,12 +157,12 @@ def decode_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  pos: Optional[torch.Tensor] = None,
                  attend: Optional[Callable] = None):
     """x: the embedded decoder input (B, S, D); cross_k/v: (L, B, F, KV,
-    Dh). ``mode`` is prefill (returns the new self-attention cache
-    ``{"k", "v"}: (L, B, S, KV, Dh)``) or decode (``cache`` written in
-    place at ``pos``, 0-d or (B,), and returned)."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"unknown mode {mode!r}")
-    attend = attend or ops.flash_attention
+    Dh). ``mode`` is train (the plain attention, no cache: returns
+    None), prefill (returns the new self-attention cache ``{"k", "v"}:
+    (L, B, S, KV, Dh)``) or decode (``cache`` written in place at
+    ``pos``, 0-d or (B,), and returned)."""
+    attend = ops.train_or_kernel(mode, attend, att.attend_chunked,
+                                 ops.flash_attention)
     new_k, new_v = [], []
     for i in range(cfg.num_layers):
         p = params[f"dec{i}"]
@@ -177,6 +183,8 @@ def decode_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         new_k.append(nk)
         new_v.append(nv)
     x = apply_norm(params["ln_dec"], x, "layernorm")
+    if mode == "train":
+        return x, None
     if mode == "decode":
         return x, cache
     return x, {"k": torch.stack(new_k), "v": torch.stack(new_v)}

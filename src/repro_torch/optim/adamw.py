@@ -48,35 +48,63 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.stack(leaves).sum().sqrt()
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float):
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), norm
+# elements of a leaf that one pass of the update takes: its f32
+# temporaries stay this small whatever the leaf (a 256k-row embedding is
+# 1 B elements); every operation is elementwise, so the values do not
+# depend on it
+CHUNK = 1 << 24
 
 
 def update(grads: Tree, state: AdamState, params: Tree,
-           cfg: RunConfig) -> tuple[Tree, AdamState, dict]:
+           cfg: RunConfig, *, inplace: bool = False) -> tuple[Tree,
+                                                              AdamState,
+                                                              dict]:
     """Returns (new_params, new_state, metrics). ``grads`` may be any
-    dtype; the math is f32. Weight decay is decoupled and skipped for
-    1-D params (norm scales, biases), as in the reference."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    dtype; the math is f32. The gradients are clipped by their global
+    norm; weight decay is decoupled and skipped for 1-D params (norm
+    scales, biases), as in the reference. ``inplace`` writes the new
+    params and moments into the tensors of ``params`` and ``state``
+    (the caller gives them up, as the reference's jit donates its train
+    state), so no second copy of them lives; the values are the same bit
+    for bit. Either way each leaf is updated ``CHUNK`` elements at a
+    time, its clipped f32 gradient included."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
     count = state.count + 1
     lr = schedule(cfg, count)
-    b1, b2 = cfg.beta1, cfg.beta2
     # bias corrections as f32 values (exact as Python floats)
-    c1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** float(count))
-    c2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** float(count))
-
-    def upd(g, m, v, p):
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g.square()
-        step = (m / c1) / ((v / c2).sqrt() + cfg.eps)
-        pf = p.float()
-        if p.dim() >= 2:
-            step = step + cfg.weight_decay * pf
-        return (pf - lr * step).to(p.dtype), m, v
-
-    out = tree_map(upd, grads, state.mu, state.nu, params)
-    pick = lambda k: tree_map(lambda t: t[k], out)
-    return pick(0), AdamState(pick(1), pick(2), count), \
+    c1 = float(1.0 - torch.tensor(cfg.beta1, dtype=torch.float32)
+               ** float(count))
+    c2 = float(1.0 - torch.tensor(cfg.beta2, dtype=torch.float32)
+               ** float(count))
+    mu, nu = state.mu, state.nu
+    if not inplace:
+        params, mu, nu = (tree_map(torch.clone, t) for t in (params, mu, nu))
+    for (_, g), (_, m), (_, v), (_, p) in zip(
+            tree_paths(grads), tree_paths(mu), tree_paths(nu),
+            tree_paths(params)):
+        decay = p.dim() >= 2
+        g = g.reshape(-1)
+        m, v, p = (t.view(-1) for t in (m, v, p))
+        for i in range(0, p.numel(), CHUNK):
+            s = slice(i, i + CHUNK)
+            _adam_(g[s], m[s], v[s], p[s], scale, lr, c1, c2, cfg, decay)
+    return params, AdamState(mu, nu, count), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def _adam_(g, m, v, p, scale, lr: float, c1: float, c2: float,
+           cfg: RunConfig, decay: bool) -> None:
+    """One chunk's update, written into ``m``, ``v`` and ``p``: the
+    reference's f32 operations in its order, each rounded as there."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * scale                     # the clipped gradient
+    m.mul_(b1).add_(g * (1 - b1))
+    v.mul_(b2).add_(g.square().mul_(1 - b2))
+    del g
+    step = m.div(c1).div_(v.div(c2).sqrt_().add_(cfg.eps))
+    pf = p.float()                            # p itself when p is f32
+    if decay:
+        step.add_(pf * cfg.weight_decay)
+    p.copy_(pf.sub_(step.mul_(lr)))

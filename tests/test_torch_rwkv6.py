@@ -200,11 +200,23 @@ def test_batch_axes_and_param_count_match_jax(rwkv):
             jax.random.PRNGKey(0), jcfg))[0])
 
 
-def test_training_the_family_raises(rwkv):
+def test_family_trains(rwkv):
+    """``api.loss`` trains the family through the plain scan (held
+    against the reference in ``test_torch_train_families.py``): a finite
+    loss and a zero aux."""
     _, tcfg, _, tp = rwkv
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training"):
-        api.loss(tp, {"tokens": toks, "labels": toks}, tcfg)
+    loss, aux = api.loss(tp, {"tokens": toks, "labels": toks}, tcfg)
+    assert torch.isfinite(loss) and float(aux["aux"]) == 0
+
+
+def test_training_the_family_raises(rwkv):
+    """Training through a stack mode that does not exist raises (the
+    family itself trains: :func:`test_family_trains`)."""
+    _, tcfg, _, tp = rwkv
+    x = torch.zeros((1, 4, tcfg.d_model))
+    with pytest.raises(ValueError, match="unknown mode"):
+        trwkv.apply_rwkv_stack(tp["layers"], x, tcfg, mode="training")
 
 
 # -- (f) the casts and epsilons that make this the reference's model ---------
