@@ -204,7 +204,30 @@ non-zero (no phase's failure is caught):
    files, the restore line printed, 4 requests served with flash in
    every prefill, their tokens equal to an in-process engine group's on
    the same restored params, whose prefill logits are finite;
-10. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+10. multi-tenant serving and the chaos plane: (a) qwen2-0.5b (tenant
+   ``chat``, weight 2) and rwkv6-7b (``rnn``, weight 1) whole, at full
+   width, bf16, in ONE event-loop group (``gspmd``, busy polling,
+   threaded drains, one loop each): 6 requests alternating between the
+   tenants, 8 new tokens each. Checks the dispatch log (the stride
+   sequence chat chat rnn chat rnn rnn) and fairness counters, each
+   tenant's tokens against a single-tenant group's on the same params
+   and requests, one flash launch per layer per qwen prefill and one
+   WKV6 launch per layer per rwkv prefill and decode step; then
+   ``launch.serve --tenant chat=qwen2-0.5b:2 --tenant rnn=rwkv6-7b:1``
+   as a subprocess, its fairness line checked. (b) the chaos harness
+   (``serving/chaos.py``) on qwen2-0.5b whole through ``hadronio`` over
+   phase 4b's ring at 4 MiB slices, 4 channels, ``aggregate=channel``,
+   ``flush=ready``, 2 loops drained inline: a fault-free baseline of 8
+   requests (prompts 64..512 tokens, 8..16 new tokens; run twice, the
+   second timed), then each of the six scenarios at seed 11 and
+   ``dropped_flush`` again. Checks
+   every scenario's tokens against the baseline, a non-empty fired
+   trace, one flash launch per layer per prefill call (storm admissions
+   included), and per scenario the stalls, delays, drops, allocations,
+   migrated channels and storm uids; the replay's fired and drain
+   traces identical. Prints each scenario's RTT p50/p99/p99.9, its
+   p99.9 inflation over the baseline and its wall time;
+11. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -2149,6 +2172,250 @@ def serve_from_checkpoint(smi, ckpt, ring, dev) -> int:
     return launches
 
 
+def serve_tenants(gen, smi) -> dict:
+    """Phase 10a: two families side by side in ONE event-loop group:
+    tenants ``chat`` (qwen2-0.5b, weight 2, one loop) and ``rnn``
+    (rwkv6-7b, weight 1, one loop), whole, at full width, bf16, weights
+    from the card's generator, ``gspmd``, busy polling, threaded drains.
+    Six requests alternate between the tenants (qwen prompts of 64..1024
+    tokens, rwkv prompts 512, 512 and 256), 8 new tokens each, greedy.
+    Checks the dispatch log (the 2:1 stride sequence) and the fairness
+    counters, that each tenant's tokens equal a single-tenant group's on
+    the same params and requests, and that every qwen prefill launched
+    flash (one per layer) and every rwkv prefill and decode step WKV6
+    (one per layer). Then runs ``launch.serve --tenant`` with the same
+    two models as a subprocess and checks its fairness line. Returns the
+    group run's launches by wrapper."""
+    from repro_torch.configs.base import (CommConfig, ServeConfig,
+                                          TenantConfig)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serving import Request, make_engine_group
+    dev = gen.device
+    cfgs = {"chat": get_config("qwen2-0.5b"), "rnn": get_config("rwkv6-7b")}
+    t0 = time.perf_counter()
+    params = {n: api.init(gen, c, device=dev) for n, c in cfgs.items()}
+    torch.cuda.synchronize()
+    print(f"[init] tenants: " + ", ".join(
+        f"{n}={c.name} {c.param_count() / 1e9:.3f}B {c.param_dtype}"
+        for n, c in cfgs.items())
+        + f" in {time.perf_counter() - t0:.2f}s")
+    comm = CommConfig(mode="gspmd", channels=4)
+    serve = ServeConfig(
+        event_loops=2, poll="busy", max_batch=2, max_len=1536, comm=comm,
+        tenants=(TenantConfig("chat", arch=cfgs["chat"].name, weight=2),
+                 TenantConfig("rnn", arch=cfgs["rnn"].name, weight=1)))
+    group = make_engine_group(cfgs, params, serve, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    rnn_lens = iter((512, 512, 256))
+    reqs = []
+    for uid in range(6):
+        name = ("chat", "rnn")[uid % 2]
+        n = int(rng.integers(64, 1025)) if name == "chat" else next(rnn_lens)
+        reqs.append(Request(uid, rng.integers(0, cfgs[name].vocab_size, n),
+                            max_new=8, tenant=name))
+    wrappers = (ops.flash_attention, ops.wkv6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    group.submit(reqs)
+    results = sorted(group.run(threads=True), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {w.__name__: w.launches for w in wrappers}
+    chat, rnn = (l.engine for l in group.loops)
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[tenants] chat={cfgs['chat'].name}:2 rnn={cfgs['rnn'].name}:1, "
+          f"prompts {[len(r.prompt) for r in reqs]}: {n_tok} tokens in "
+          f"{dt:.3f}s = {n_tok / dt:.1f} tok/s | dispatch "
+          f"{list(group.dispatch_log)} fairness {group.fairness_counters} | "
+          f"chat prefill calls {chat.prefills}, rnn prefill calls "
+          f"{rnn.prefills} decode steps {rnn.decode_steps}, launches {got} "
+          f"| peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"| {smi}")
+    assert group.dispatch_log == ["chat", "chat", "rnn", "chat", "rnn",
+                                  "rnn"], list(group.dispatch_log)
+    assert group.fairness_counters == {"chat": 3, "rnn": 3}
+    assert [r.uid for r in results] == list(range(6))
+    assert all(len(r.tokens) == 8 for r in results)
+    assert got == {"flash_attention": cfgs["chat"].num_layers * chat.prefills,
+                   "wkv6": cfgs["rnn"].num_layers
+                   * (rnn.prefills + rnn.decode_steps)}, got
+    assert chat.prefills >= 2 and rnn.prefills == 2 and rnn.decode_steps
+    for name, cfg in cfgs.items():
+        solo = make_engine_group(cfg, params[name], ServeConfig(
+            event_loops=1, poll="busy", max_batch=2, max_len=1536,
+            comm=comm), seed=0, device=dev)
+        solo.submit([Request(r.uid, r.prompt, max_new=r.max_new)
+                     for r in reqs if r.tenant == name])
+        alone = {r.uid: r.tokens.tolist() for r in solo.run(threads=False)}
+        mine = {r.uid: r.tokens.tolist() for r in results if r.uid in alone}
+        print(f"[tenants] {name} tokens in the group {mine}; alone {alone}")
+        assert mine == alone, name
+    del group, solo, params
+    release_memory("before the tenant CLI")
+
+    # the --tenant CLI as a user runs it
+    argv = [sys.executable, "-m", "repro_torch.launch.serve",
+            "--tenant", f"chat={cfgs['chat'].name}:2",
+            "--tenant", f"rnn={cfgs['rnn'].name}:1",
+            "--requests", "6", "--max-new", "4", "--device", dev.type]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, cwd=here, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        print(f"[tenants-cli]   {line}")
+    print(f"[tenants-cli] {' '.join(argv[1:])}: rc {run.returncode}, "
+          f"{wall:.2f} s | {smi}")
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert ("[serve] tenants: fairness={'chat': 3, 'rnn': 3} dispatch="
+            "['chat', 'chat', 'rnn', 'chat', 'rnn', 'rnn']") in run.stdout, \
+        run.stdout
+    assert "[serve] 6 requests, 24 tokens" in run.stdout, run.stdout
+    return got
+
+
+class PrefillCalls:
+    """Counts the prefill calls of every serve step while installed in
+    ``models.api.prefill`` (the serve steps call it through the module),
+    so the flash launches of runs whose groups are built inside a
+    harness can be checked per prefill."""
+
+    def __init__(self):
+        from repro_torch.models import api
+        self.api, self.orig, self.calls = api, api.prefill, 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.orig(*args, **kwargs)
+
+    def __enter__(self):
+        self.api.prefill = self
+        return self
+
+    def __exit__(self, *exc):
+        self.api.prefill = self.orig
+
+
+def serve_chaos(gen, smi, ring) -> int:
+    """Phase 10b: the chaos plane on qwen2-0.5b, whole, full width, bf16,
+    through ``hadronio`` over ``ring`` (phase 4b's one-peer NCCL ring):
+    the harness's serve shape (4 channels, ``aggregate=channel``,
+    ``flush=ready``, 2 loops, drained inline) at 4 MiB slices and a
+    ``max_len`` that fits 8 requests of 64..512-token prompts and 8..16
+    new tokens. Two ``run_baseline`` (the second is the RTT baseline),
+    then each of the six scenarios at seed 11 (whose ``dropped_flush``
+    plan holds drops as well as dups).
+    Checks for every scenario full token recovery against the baseline,
+    a non-empty fired trace and flash in every prefill (storm admissions
+    included: one launch per layer per prefill call); per scenario the
+    stalls, delays, drops (under a ``stats_scope``), allocations, the
+    migrated channels and that no storm uid is among the recovered
+    tokens; and that ``dropped_flush`` run twice at the seed fires and
+    drains identically. Prints each scenario's RTT percentiles, its
+    p99.9 inflation over the baseline and its wall time. Returns the
+    flash launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.backends import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.elastic import reshard_affinity
+    from repro_torch.models import api
+    from repro_torch.serving import chaos, channel_affinity
+    dev = gen.device
+    cfg = get_config("qwen2-0.5b")
+    params = api.init(gen, cfg, device=dev)
+    serve = chaos.chaos_serve_config("hadronio", 2, slice_bytes=4 << 20,
+                                     max_len=528)
+    reqs = chaos.make_requests(8, vocab_size=cfg.vocab_size,
+                               prompt_len=(64, 513), max_new=(8, 16))
+    seed = 11
+    assert "drop" in {e.kind for e in chaos.make_plan(
+        "dropped_flush", seed, n_channels=4).events}
+    ops.flash_attention.launches = 0
+    with PrefillCalls() as pc:
+        # the first run pays the wire's first calls; the second is the
+        # RTT baseline
+        warm = chaos.run_baseline(cfg, params, serve, reqs, device=dev,
+                                  ring=ring)
+        t0 = time.perf_counter()
+        base = chaos.run_baseline(cfg, params, serve, reqs, device=dev,
+                                  ring=ring)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    total = ops.flash_attention.launches
+    assert warm.tokens == base.tokens
+    ps = chaos.slo.rtt_percentiles(base.rtts)
+    print(f"[chaos] baseline qwen2-0.5b hadronio 2 loops, prompts "
+          f"{[len(r.prompt) for r in reqs]}: "
+          f"{sum(map(len, base.tokens.values()))} tokens, prefill calls "
+          f"{pc.calls}, flash {total} | RTT p50 {ps['p50'] * 1e3:.3f} ms "
+          f"p99 {ps['p99'] * 1e3:.3f} ms p99.9 {ps['p99.9'] * 1e3:.3f} ms | "
+          f"{wall:.3f} s | {smi}")
+    assert total == cfg.num_layers * pc.calls and pc.calls >= 8
+    assert [len(base.tokens[r.uid]) for r in reqs] == \
+        [r.max_new for r in reqs]
+    runs = {}
+    for scenario in chaos.SCENARIOS + ("dropped_flush",):
+        ops.flash_attention.launches = 0
+        with PrefillCalls() as pc, pipeline.stats_scope() as st:
+            t0 = time.perf_counter()
+            res = chaos.run_scenario(scenario, cfg, params, serve, reqs,
+                                     seed=seed, baseline=base, device=dev,
+                                     ring=ring)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        flash = ops.flash_attention.launches
+        total += flash
+        rep, pst = res.report, res.poll_stats
+        print(f"[chaos] {scenario} seed {seed}: recovered {rep.recovered}, "
+              f"fired {list(res.fired)[:6]}{'...' if len(res.fired) > 6 else ''}"
+              f" ({len(res.fired)}), drains {list(res.drains)}, moved "
+              f"{res.moved_channels}, stalls {pst.stalls} delays "
+              f"{pst.delays}, drops {st.drops} dups {st.dups} allocs "
+              f"{st.allocs}, collectives {len(res.emissions)}, prefill "
+              f"calls {pc.calls}, flash {flash} | RTT p50 "
+              f"{rep.fault['p50'] * 1e3:.3f} ms p99 "
+              f"{rep.fault['p99'] * 1e3:.3f} ms p99.9 "
+              f"{rep.fault['p99.9'] * 1e3:.3f} ms, p99.9 inflation "
+              f"{rep.p999_inflation:.3f}x | {wall:.3f} s | {smi}")
+        assert rep.recovered and res.tokens == base.tokens, scenario
+        assert res.fired, scenario
+        assert flash == cfg.num_layers * pc.calls and pc.calls >= 4, \
+            (scenario, flash, pc.calls)
+        kinds = [f[2] for f in res.fired]
+        if scenario == "stalled_loop":
+            assert pst.stalls == kinds.count("stall") > 0
+        elif scenario == "slow_channel":
+            assert pst.delays == kinds.count("delay") > 0
+        elif scenario == "dropped_flush":
+            assert st.drops == kinds.count("drop") > 0
+            assert st.dups == kinds.count("dup")
+        elif scenario == "mem_pressure":
+            assert st.allocs > 0 and kinds.count("pressure") > 0
+        elif scenario == "reshard_mid_request":
+            new_loops = res.plan.events[0].target
+            assert res.moved_channels == reshard_affinity(
+                4, channel_affinity(4, 2), new_loops)[1] != ()
+        elif scenario == "admission_storm":
+            assert kinds.count("burst") > 0
+            assert all(u < chaos.STORM_UID_BASE for u in res.tokens)
+        if scenario in runs:
+            first = runs[scenario]
+            assert (res.fired, res.drains) == (first.fired, first.drains)
+            print(f"[chaos] {scenario} replayed at seed {seed}: fired and "
+                  "drains identical")
+        runs[scenario] = res
+    assert not pipeline.fault_active()
+    del params
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3001,17 +3268,24 @@ def main() -> int:
     release_memory("before the card-vs-CPU losses")
     train_parity(smi, gen, dev)
     ckpt_flash = serve_from_checkpoint(smi, ft_ckpt, ring, dev)
+
+    # -- 10. tenants and the chaos plane ---------------------------------------
+    release_memory("before the tenants")
+    ten_launches = serve_tenants(gen, smi)
+    release_memory("before the chaos scenarios")
+    chaos_flash = serve_chaos(gen, smi, ring)
     del ring
     dist.destroy_process_group()
 
-    # -- 10. result lines -----------------------------------------------------
+    # -- 11. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches + ring_flash + rg_launches["flash_attention"]
-         + fam_flash + encvlm_flash + ckpt_flash,
+         + fam_flash + encvlm_flash + ckpt_flash
+         + ten_launches["flash_attention"] + chaos_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
@@ -3047,7 +3321,8 @@ def main() -> int:
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:89",
-         "launches": rwkv_launches["wkv6"], "max_abs_err": wkv_err,
+         "launches": rwkv_launches["wkv6"] + ten_launches["wkv6"],
+         "max_abs_err": wkv_err,
          "ms": wkv["ms"], "plain_ms": wkv["plain_ms"], "bound_ms": wkv_bound,
          "bound_by": wkv_bound_by, "library_ms": None,
          "decode_ms": wkv["decode_ms"],

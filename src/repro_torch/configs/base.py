@@ -217,11 +217,28 @@ class CommConfig:
 
 
 @dataclass(frozen=True)
+class TenantConfig:
+    """One tenant of a multi-tenant ``EventLoopGroup``: a named model
+    sharing the group's channel pool with the others. Tenants partition
+    ``serve.event_loops`` into disjoint contiguous loop ranges
+    (declaration order), so channel ownership stays disjoint per loop
+    and per tenant; ``weight`` is the tenant's share of the group's
+    weighted-fair dispatch (``serving/event_loop.EventLoopGroup``)."""
+
+    name: str                          # unique tenant key (Request.tenant)
+    arch: str = ""                     # registry arch served for this tenant
+    weight: int = 1                    # weighted-fair dispatch share
+    event_loops: int = 1               # loops owned by this tenant
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """Event-loop serving: ``event_loops`` loops, each owning a disjoint
     contiguous run of the ``comm.channels`` pool, with ``max_batch``
     decode slots per loop. ``poll``: ``busy`` spins on completion,
-    ``park`` blocks, ``adaptive`` spins for ``spin_us`` then parks."""
+    ``park`` blocks, ``adaptive`` spins for ``spin_us`` then parks.
+    ``tenants`` (:class:`TenantConfig`) partition the loops among named
+    models; the reference's error texts are kept."""
 
     event_loops: int = 1
     poll: str = "busy"
@@ -229,6 +246,7 @@ class ServeConfig:
     max_batch: int = 8
     max_len: int = 256
     comm: CommConfig = field(default_factory=CommConfig)
+    tenants: tuple = ()                # TenantConfig partition of the loops
 
     POLLS = ("busy", "park", "adaptive")
 
@@ -251,6 +269,30 @@ class ServeConfig:
         if self.max_batch < 1 or self.max_len < 2:
             raise ValueError("serve.max_batch must be >= 1 and "
                              "serve.max_len >= 2")
+        if self.tenants:
+            names = [t.name for t in self.tenants]
+            if any(not n for n in names) or len(set(names)) != len(names):
+                raise ValueError(
+                    f"serve.tenants names must be unique and non-empty "
+                    f"(got {names!r}): Request.tenant routes by name")
+            for t in self.tenants:
+                if t.weight < 1:
+                    raise ValueError(
+                        f"tenant {t.name!r}: weight must be >= 1 (got "
+                        f"{t.weight}) — zero-weight tenants would starve")
+                if t.event_loops < 1:
+                    raise ValueError(
+                        f"tenant {t.name!r}: event_loops must be >= 1 (got "
+                        f"{t.event_loops}): every tenant needs at least one "
+                        "loop, hence at least one owned channel")
+            total = sum(t.event_loops for t in self.tenants)
+            if total != self.event_loops:
+                raise ValueError(
+                    f"serve.tenants pin the fleet size: per-tenant "
+                    f"event_loops sum to {total} but serve.event_loops="
+                    f"{self.event_loops}. Tenant loop ranges are a static "
+                    "partition of the group, so supervisor autoscaling "
+                    "requires tenants=()")
 
 
 @dataclass(frozen=True)

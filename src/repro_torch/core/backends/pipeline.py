@@ -65,13 +65,38 @@ completes. An ``all_to_all`` item is a peer-major ``(group, m)`` block
 peer-major (:func:`interleave_for_scatter`), so each peer's row of the
 exchanged buffer holds every item's chunk in item order.
 
+The chaos seams of the reference (``serving/chaos.py``):
+
+* :func:`set_flush_fault` — ``fault(channel) -> "drop" | "dup" | None``,
+  consulted by :func:`flush_ready` once per READY channel. ``"drop"``
+  leaves the fill ready: a later :func:`flush_ready` or the
+  :func:`finish_emission` barrier flushes it. ``"dup"`` issues a shadow
+  flush first: a real second collective (the collective hook sees it)
+  on a COPY of the wire bytes, so a single item's in-place all-reduce
+  is not summed twice; its results are carved from values equal to the
+  real flush's, which overwrites them.
+* :func:`set_alloc_hook` — ``hook(channel, nbytes)``, consulted right
+  before each wire buffer is built (one per flush, and one per item
+  under ``aggregate="slice"``); it may sleep or raise.
+* :class:`EmissionStats` — ``drops``, ``dups``, ``allocs``, written to
+  the innermost :func:`stats_scope` (a ``contextvars.ContextVar``) or
+  else to the module's ``EMISSION_STATS``.
+
+The reference consults these seams while JAX traces a step, once per
+new shape (its serve-step cache is bypassed while one is armed); the
+port runs eagerly and consults them on every call. So a plan's consult
+indices count calls here and traces there, and the ``fired`` and
+``emissions`` traces of the seams differ between the packages by
+design; the served values do not.
+
 Not ported yet, each with the ROADMAP.md item that brings it: the
 two-level leader emission, the pod-aware channels and the in-pod
-scatter group (Queue 1 item 8), and the chaos seams (flush fault, alloc
-hook) and obs spans (Queue 1 item 6).
+scatter group (Queue 1 item 8), and the obs spans (Queue 1 item 6.5).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -87,6 +112,92 @@ from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.kernels import ops, ref
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+
+# -- the chaos seams (module docstring) --------------------------------------
+
+_FLUSH_FAULT = None
+_ALLOC_HOOK = None
+
+
+def set_flush_fault(fault) -> None:
+    """Install ``fault(channel) -> "drop" | "dup" | None`` on the staged
+    emission's flush path. Pair with :func:`clear_flush_fault`
+    (try/finally)."""
+    global _FLUSH_FAULT
+    _FLUSH_FAULT = fault
+
+
+def clear_flush_fault() -> None:
+    global _FLUSH_FAULT
+    _FLUSH_FAULT = None
+
+
+def flush_fault_active() -> bool:
+    return _FLUSH_FAULT is not None
+
+
+@dataclass
+class EmissionStats:
+    """Emission counters (cumulative; consumers snapshot and diff):
+    ``drops``/``dups`` = flush-fault verdicts applied, ``allocs`` =
+    wire-buffer allocations consulted."""
+    drops: int = 0
+    dups: int = 0
+    allocs: int = 0
+
+
+EMISSION_STATS = EmissionStats()
+
+_STATS_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "emission_stats", default=None)
+
+
+def current_stats() -> EmissionStats:
+    """The EmissionStats the seams write to: the innermost armed
+    :func:`stats_scope`, else the module's ``EMISSION_STATS``."""
+    st = _STATS_SCOPE.get()
+    return EMISSION_STATS if st is None else st
+
+
+@contextlib.contextmanager
+def stats_scope(stats: Optional[EmissionStats] = None):
+    """Arm a private EmissionStats for the duration of the block (on
+    this thread's context); yields it. Nested scopes shadow."""
+    st = EmissionStats() if stats is None else stats
+    tok = _STATS_SCOPE.set(st)
+    try:
+        yield st
+    finally:
+        _STATS_SCOPE.reset(tok)
+
+
+def set_alloc_hook(hook) -> None:
+    """Install ``hook(channel_index, nbytes)`` on every wire-buffer
+    allocation. Pair with :func:`clear_alloc_hook` (try/finally)."""
+    global _ALLOC_HOOK
+    _ALLOC_HOOK = hook
+
+
+def clear_alloc_hook() -> None:
+    global _ALLOC_HOOK
+    _ALLOC_HOOK = None
+
+
+def alloc_hook_active() -> bool:
+    return _ALLOC_HOOK is not None
+
+
+def fault_active() -> bool:
+    """Any fault seam armed (flush fault or alloc hook)."""
+    return _FLUSH_FAULT is not None or _ALLOC_HOOK is not None
+
+
+def _consult_alloc(channel_index: int, flats: list) -> None:
+    current_stats().allocs += 1
+    if _ALLOC_HOOK is not None:
+        nbytes = sum(f.numel() * f.element_size() for f in flats)
+        _ALLOC_HOOK(channel_index, nbytes)
+
 
 
 def channels_for(ctx: SyncContext, n_slices: int) -> list[CommChannel]:
@@ -243,14 +354,21 @@ def _carve_scatter(st: EmitState, items: list,
     return carve
 
 
-def _issue(st: EmitState, c: int, items: list) -> None:
+def _issue(st: EmitState, c: int, items: list,
+           shadow: bool = False) -> None:
     """Issue channel ``c``'s ONE collective over ``items``' wire bytes (a
     single item where it lies, or the items coalesced into one buffer:
     concatenated, or peer-major interleaved for a reduce-scatter) and
     record its completion, which runs after the collective has
-    completed (:func:`finish_emission`)."""
+    completed (:func:`finish_emission`). The alloc hook is consulted
+    first. A ``shadow`` flush (the flush fault's ``"dup"``) runs on a
+    copy of a single item's bytes, so nothing is reduced twice, and its
+    completion is overwritten by the real flush's."""
     ch = st.chans[c]
     flats = [st.staged[i] for i in items]
+    _consult_alloc(ch.index, flats)
+    if shadow and len(flats) == 1:
+        flats = [flats[0].clone()]
     if st.kind in ("reduce_scatter", "all_to_all"):
         buf = interleave_for_scatter([f.reshape(-1) for f in flats],
                                      st.group)
@@ -268,16 +386,16 @@ def _issue(st: EmitState, c: int, items: list) -> None:
         st.pending.append((work, _carve_rows(st, items, g)))
         return
     work = ch.all_reduce(buf)
-    if not st.unpack:
+    if not st.unpack and not shadow:
         for i in items:
             st.outs[i] = st.staged[i]
     st.pending.append((work, _carve_reduce(st, items, buf)))
 
 
-def _flush_channel(st: EmitState, c: int) -> None:
+def _flush_channel(st: EmitState, c: int, shadow: bool = False) -> None:
     """One coalesced wire flush: the channel's staged items as a single
     buffer and ONE collective, carved back when it completes."""
-    _issue(st, c, list(st.plan.groups[c]))
+    _issue(st, c, list(st.plan.groups[c]), shadow)
     st.fills[c].flushed = True
 
 
@@ -339,6 +457,17 @@ def flush_ready(st: EmitState) -> list:
     flushed: list = []
     for c, fill in enumerate(st.fills):
         if fill.ready:
+            if _FLUSH_FAULT is not None:
+                act = _FLUSH_FAULT(c)
+                if act == "drop":
+                    # deferred, not lost: the fill stays ready, so a later
+                    # flush_ready retries it and finish_emission's step
+                    # barrier flushes it unconditionally
+                    current_stats().drops += 1
+                    continue
+                if act == "dup":
+                    current_stats().dups += 1
+                    _flush_channel(st, c, shadow=True)
             _flush_channel(st, c)
             flushed.extend(st.plan.groups[c])
     return flushed

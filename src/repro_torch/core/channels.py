@@ -24,6 +24,11 @@ the sum of its contiguous 1/ring chunk) and ``all_to_all`` (the moe
 expert exchange: row ``p`` of a peer-major block goes to peer ``p``).
 The pod-aware split collectives come with the two-level topology
 (ROADMAP.md Queue 1 item 8).
+
+The chaos seam :func:`set_collective_hook` installs an observer that
+every channel collective calls as ``hook(channel.index, kind)`` when it
+is issued. The reference calls it while JAX traces; the port runs
+eagerly, so it is called on every issue.
 """
 from __future__ import annotations
 
@@ -32,6 +37,31 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+_COLLECTIVE_HOOK = None
+
+
+def set_collective_hook(hook) -> None:
+    """Install ``hook(channel_index, kind)`` on every CommChannel
+    collective (pair with :func:`clear_collective_hook`, try/finally)."""
+    global _COLLECTIVE_HOOK
+    _COLLECTIVE_HOOK = hook
+
+
+def clear_collective_hook() -> None:
+    global _COLLECTIVE_HOOK
+    _COLLECTIVE_HOOK = None
+
+
+def get_collective_hook():
+    """The installed hook (None when clear), so a wrapper can compose
+    with an armed hook and restore it after."""
+    return _COLLECTIVE_HOOK
+
+
+def _note(ch: "CommChannel", kind: str) -> None:
+    if _COLLECTIVE_HOOK is not None:
+        _COLLECTIVE_HOOK(ch.index, kind)
 
 
 class Ring:
@@ -71,6 +101,7 @@ class CommChannel:
         """Sum ``x`` over the ring IN PLACE. The collective is issued
         asynchronously on this channel's communicator; the caller waits
         on the returned work before reading ``x``."""
+        _note(self, "all_reduce")
         return dist.all_reduce(x, group=self.group, async_op=True)
 
     def all_gather(self, x: torch.Tensor):
@@ -79,6 +110,7 @@ class CommChannel:
         peer ``p``'s ``x``. Issued asynchronously on this channel's
         communicator; returns ``(work, out)``, and ``out`` is valid once
         the work is waited on."""
+        _note(self, "all_gather")
         x = x.reshape(-1)
         out = x.new_empty(dist.get_world_size(self.group) * x.numel())
         return dist.all_gather_into_tensor(out, x, group=self.group,
@@ -98,6 +130,7 @@ class CommChannel:
                              f"{x.numel()} elements does not split over "
                              f"{world} peers")
         out = x.new_empty(x.numel() // world)
+        _note(self, "reduce_scatter")
         return dist.reduce_scatter_tensor(out, x, group=self.group,
                                           async_op=True), out
 
@@ -116,6 +149,7 @@ class CommChannel:
                              f"{x.numel()} elements does not split over "
                              f"{world} peers")
         out = torch.empty_like(x)
+        _note(self, "all_to_all")
         return dist.all_to_all_single(out, x, group=self.group,
                                       async_op=True), out
 

@@ -1,7 +1,7 @@
-"""Elastic scaling, training side: continue a run on a ring of another
-size.
+"""Elastic scaling: continue a run on a ring of another size, or a
+serving fleet on another number of event loops.
 
-Counterpart of the training half of ``repro/launch/elastic.py``.
+Counterpart of ``repro/launch/elastic.py``.
 Checkpoints hold the reference's global layout (``checkpoint/store.py``:
 each ring-sharded leaf stacked along a leading ring dim), so elasticity
 is: build the new ring, restore, continue. Two things are re-derived on
@@ -15,11 +15,15 @@ a change of ring size:
   index), so another ring reads the same global batch
   (``data.DataConfig.host_index``).
 
-The serving half (``reshard_event_loops``, ``reshard_affinity``) is
-still to port, with the supervisor (ROADMAP.md Queue 1 item 6).
+The serving half resizes the event-loop fleet at a flush boundary:
+:func:`reshard_event_loops` re-validates the ``ServeConfig`` and
+:func:`reshard_affinity` re-derives the channel partition with minimal
+migration on the flat fabric. Its topology form (leader lanes, pods)
+comes with the pod fabric (ROADMAP.md Queue 1 item 8) and raises.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -102,3 +106,74 @@ def restore_elastic(store: CheckpointStore, run: RunConfig, ring: Ring,
     state = store.restore(s, like, on_mismatch=make_on_mismatch(run),
                           device=device)
     return state, s
+
+
+def reshard_event_loops(serve, new_loops: int):
+    """Elastic reshard of the SERVING fleet: a re-validated
+    ``ServeConfig`` with ``event_loops=new_loops`` (``replace`` re-runs
+    the config's checks, so a loop count the channel pool cannot feed
+    raises here, not mid-request). Served tokens do not depend on the
+    loop count, so a group rebuilt with it at a flush boundary continues
+    with the same tokens."""
+    return dataclasses.replace(serve, event_loops=new_loops)
+
+
+def _minimal_regroup(n_channels: int, old_groups: tuple, new_loops: int):
+    """Minimal-migration repartition of the flat fabric. Shrink: the
+    surviving loops keep their runs and the removed tail loops' channels
+    join the last survivor. Grow by ``k``: added loop ``i`` takes the one
+    channel ``n-k+i`` from the pool's tail; donors keep their prefixes.
+    None when the minimal move would break an ownership invariant (a
+    donor emptied, a run not contiguous): the caller recomputes.
+    Balance to within one is not kept: fewer owner changes is the
+    point."""
+    old_k = len(old_groups)
+    if new_loops == old_k:
+        return old_groups
+    if new_loops < old_k:
+        groups = [list(g) for g in old_groups[:new_loops]]
+        tail = sorted(c for g in old_groups[new_loops:] for c in g)
+        groups[-1] = sorted(groups[-1] + tail)
+    else:
+        add = new_loops - old_k
+        donate = set(range(n_channels - add, n_channels))
+        groups = [[c for c in g if c not in donate] for g in old_groups]
+        if any(not g for g in groups):
+            return None               # a donor would own nothing
+        groups += [[c] for c in sorted(donate)]
+    for g in groups:                  # contiguous runs only
+        if list(g) != list(range(min(g), max(g) + 1)):
+            return None
+    if sorted(c for g in groups for c in g) != list(range(n_channels)):
+        return None                   # disjoint + covering
+    return tuple(tuple(g) for g in groups)
+
+
+def reshard_affinity(n_channels: int, old_groups, new_loops: int, *,
+                     n_pods: int = 1, leaders: int = 0,
+                     leader_loops: int = 1):
+    """Re-derive the channel partition for a resized fleet and report the
+    migration: ``(new_groups, moved)``, ``moved`` the sorted channel ids
+    whose owning loop changed. Ownership stays disjoint, contiguous and
+    covering. The flat fabric migrates minimally
+    (:func:`_minimal_regroup`), else recomputes ``channel_affinity``.
+    The topology form (``leaders > 0`` or ``n_pods > 1``) is not ported
+    and raises."""
+    from repro_torch.serving.event_loop import channel_affinity
+    if leaders > 0 or n_pods > 1:
+        raise NotImplementedError(
+            f"reshard_affinity(n_pods={n_pods}, leaders={leaders}, "
+            f"leader_loops={leader_loops}) belongs to the pod-aware "
+            "two-level fabric, which is not ported to repro_torch yet "
+            "(ROADMAP.md Queue 1 item 8)")
+    old_groups = tuple(tuple(g) for g in old_groups)
+    if new_loops > n_channels:
+        channel_affinity(n_channels, new_loops)   # the ownership error
+    new_groups = _minimal_regroup(n_channels, old_groups, new_loops)
+    if new_groups is None:
+        new_groups = channel_affinity(n_channels, new_loops)
+    old_owner = {c: i for i, g in enumerate(old_groups) for c in g}
+    moved = tuple(sorted(
+        c for i, g in enumerate(new_groups) for c in g
+        if old_owner.get(c) != i))
+    return new_groups, moved

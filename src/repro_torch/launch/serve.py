@@ -3,10 +3,14 @@
 subsystem (EventLoopGroup of decode engines over the CommBackend wire
 and a ring of peers), print the reference CLI's summary lines.
 
-Counterpart of ``repro/launch/serve.py`` in its single-tenant,
-unsupervised form (tenants, the supervisor, pods and the telemetry
-flags come in later slices: ROADMAP.md). Runs on the card unless
-``--device cpu`` is given.
+Counterpart of ``repro/launch/serve.py`` in its unsupervised form (the
+supervisor and its flags, pods and the telemetry flags come in later
+slices: ROADMAP.md). ``--tenant NAME=ARCH[:WEIGHT[:LOOPS]]`` (repeatable)
+serves several models side by side in ONE group: each tenant owns a
+contiguous run of LOOPS event loops and a WEIGHT share of the
+weighted-fair dispatch, its params are initialised from ``--seed`` plus
+its position, and requests alternate between the tenants; ``--ckpt``
+serves one arch. Runs on the card unless ``--device cpu`` is given.
 
 The ring is one process per peer. The CLI joins an existing
 ``torch.distributed`` default group; without one it makes one: from the
@@ -57,6 +61,10 @@ CLI::
       --device cpu --requests 6 --max-new 4 --batch 2
   python -m repro_torch.launch.serve --arch llava-next-mistral-7b-reduced \
       --device cpu --requests 6 --max-new 4 --batch 2
+  # two families side by side, dispatched 2:1 (one loop each)
+  python -m repro_torch.launch.serve --device cpu --requests 6 \
+      --max-new 4 --tenant chat=qwen2-0.5b-reduced:2 \
+      --tenant rnn=rwkv6-7b-reduced:1
 
 The recurrent families (rwkv6, recurrentgemma) serve equal-length
 buckets of prompts, so requests of distinct lengths run one per wave.
@@ -75,7 +83,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.configs.base import (CommConfig, RunConfig, ServeConfig,
-                                      ShapeConfig)
+                                      ShapeConfig, TenantConfig)
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.backends import available_modes
 from repro_torch.core.channels import Ring
@@ -84,16 +92,42 @@ from repro_torch.models import api
 from repro_torch.serving import Request, make_engine_group
 
 
+def parse_tenant_specs(specs) -> tuple:
+    """``NAME=ARCH[:WEIGHT[:LOOPS]]`` -> a tuple of TenantConfig."""
+    out = []
+    for spec in specs or ():
+        name, _, rest = spec.partition("=")
+        if not name or not rest:
+            raise ValueError(
+                f"--tenant {spec!r}: expected NAME=ARCH[:WEIGHT[:LOOPS]]")
+        parts = rest.split(":")
+        out.append(TenantConfig(
+            name, arch=parts[0],
+            weight=int(parts[1]) if len(parts) > 1 else 1,
+            event_loops=int(parts[2]) if len(parts) > 2 else 1))
+    return tuple(out)
+
+
 def make_requests(cfg, n: int, *, max_new: int, temperature: float,
                   seed: int, min_len: int = 4, max_len: int = 32) -> list:
     """``n`` requests with prompt lengths drawn in ``[min_len, max_len)``
-    and tokens drawn from the vocabulary, all from ``seed``."""
+    and tokens drawn from the vocabulary, all from ``seed``. With ``cfg``
+    a dict keyed by tenant name, request ``i`` goes to the tenant at
+    ``i`` modulo their count (declaration order), its tokens from that
+    tenant's vocabulary, as the reference's tenant mix."""
     rng = np.random.default_rng(seed)
-    return [Request(uid=i,
-                    prompt=rng.integers(0, cfg.vocab_size,
-                                        size=rng.integers(min_len, max_len)),
-                    max_new=max_new, temperature=temperature)
-            for i in range(n)]
+    names = list(cfg) if isinstance(cfg, dict) else [""]
+    reqs = []
+    for i in range(n):
+        name = names[i % len(names)]
+        vocab = (cfg[name] if name else cfg).vocab_size
+        reqs.append(Request(uid=i,
+                            prompt=rng.integers(0, vocab,
+                                                size=rng.integers(min_len,
+                                                                  max_len)),
+                            max_new=max_new, temperature=temperature,
+                            tenant=name))
+    return reqs
 
 
 def load_params(cfg, *, ckpt: str, batch: int, max_len: int, seed: int,
@@ -123,10 +157,18 @@ def load_params(cfg, *, ckpt: str, batch: int, max_len: int, seed: int,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", required=True,
+    p.add_argument("--arch", default="",
                    help=f"registry id: {', '.join(ARCH_IDS)}, each also "
                         "with -reduced (the CPU-sized variant); the "
-                        "encdec and vlm frontends are stubs fed zeros")
+                        "encdec and vlm frontends are stubs fed zeros. "
+                        "Required unless --tenant is given")
+    p.add_argument("--tenant", action="append", default=[],
+                   metavar="NAME=ARCH[:WEIGHT[:LOOPS]]",
+                   help="repeatable: serve several models in ONE group; "
+                        "each tenant owns LOOPS event loops (a contiguous "
+                        "range, disjoint channels) and a WEIGHT share of "
+                        "the weighted-fair dispatch; requests alternate "
+                        "between the tenants")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--max-new", type=int, default=16)
@@ -165,10 +207,22 @@ def main(argv=None) -> int:
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)
 
+    tenants = parse_tenant_specs(args.tenant)
+    if not tenants and not args.arch:
+        p.error("--arch is required (or pass one or more --tenant specs)")
+    if tenants and (args.arch or args.ckpt):
+        p.error("--tenant names each tenant's arch, and --ckpt serves one "
+                "arch: drop --arch/--ckpt or --tenant")
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    if tenants:
+        cfg = {t.name: get_config(t.arch) for t in tenants}
+        if args.event_loops == 1:      # default: the tenants' loops
+            args.event_loops = sum(t.event_loops for t in tenants)
+    else:
+        cfg = get_config(args.arch)
     serve = ServeConfig(event_loops=args.event_loops, poll=args.poll,
                         max_batch=args.batch, max_len=args.max_len,
+                        tenants=tenants,
                         comm=CommConfig(mode=args.comm_mode,
                                         channels=args.channels,
                                         aggregate=args.aggregate,
@@ -185,10 +239,17 @@ def main(argv=None) -> int:
                                     rank=0, world_size=1)
     try:
         ring = Ring(channels=args.channels)
-        params = load_params(cfg, ckpt=args.ckpt, batch=args.batch,
-                             max_len=args.max_len, seed=args.seed,
-                             device=device, log=print if ring.rank == 0
-                             else lambda line: None)
+        if tenants:
+            # one seeded init per tenant, as the reference's
+            params = {t.name: api.init(torch.Generator(device=device)
+                                       .manual_seed(args.seed + i),
+                                       cfg[t.name], device=device)
+                      for i, t in enumerate(tenants)}
+        else:
+            params = load_params(cfg, ckpt=args.ckpt, batch=args.batch,
+                                 max_len=args.max_len, seed=args.seed,
+                                 device=device, log=print if ring.rank == 0
+                                 else lambda line: None)
         group = make_engine_group(cfg, params, serve, seed=args.seed,
                                   device=device, ring=ring)
         reqs = make_requests(cfg, args.requests, max_new=args.max_new,
@@ -209,6 +270,9 @@ def main(argv=None) -> int:
           f"({tok / dt:.1f} tok/s) | {serve.event_loops} event loop(s), "
           f"poll={serve.poll} (spins={st.spins} parks={st.parks}), "
           f"comm={args.comm_mode}, ring={ring.world_size}, device={device}")
+    if tenants:
+        print(f"[serve] tenants: fairness={group.fairness_counters} "
+              f"dispatch={group.dispatch_log[:12]}")
     for loop in group.loops:
         print(f"  loop {loop.index}: channels={loop.channels} "
               f"results={len(loop.results)}")

@@ -1,10 +1,12 @@
+from repro_torch.configs.base import TenantConfig
 from repro_torch.serving.engine import (DecodeEngine, Request, Result,
                                         make_engine_group)
 from repro_torch.serving.event_loop import (EventLoop, EventLoopGroup,
-                                            Poller, PollStats,
+                                            LoopFailure, Poller, PollStats,
                                             channel_affinity)
-from repro_torch.serving import cache_layout
+from repro_torch.serving import cache_layout, chaos, slo
 
 __all__ = ["DecodeEngine", "Request", "Result", "make_engine_group",
-           "EventLoop", "EventLoopGroup", "Poller", "PollStats",
-           "channel_affinity", "cache_layout"]
+           "EventLoop", "EventLoopGroup", "LoopFailure", "Poller",
+           "PollStats", "TenantConfig", "channel_affinity", "cache_layout",
+           "chaos", "slo"]

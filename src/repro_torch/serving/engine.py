@@ -28,9 +28,17 @@ Counterpart of ``repro/serving/engine.py``.
   on the same requests; batch rows are padded to the ring size.
   Completion waits go through the loop's
   :class:`~repro_torch.serving.event_loop.Poller`.
+* **The flush-boundary fault window** (attention families):
+  ``admission_hook(engine, step)`` is called at every decode-step
+  boundary, after the poll and before admission; the requests it
+  returns join the run queue and contend for freed slots (the chaos
+  harness's admission storm, ``serving/chaos.py``).
+* :func:`make_engine_group` takes an explicit channel ``affinity`` (the
+  elastic reshard's partition) and ``ServeConfig.tenants``: contiguous
+  per-tenant loop ranges, ``cfg``/``params`` single or per tenant.
 
-The reference's chaos and supervisor seams, tracing spans and tenants
-come with later slices (ROADMAP.md).
+The supervisor's ``admission_gate`` comes with the supervisor
+(ROADMAP.md Queue 1 item 6.4), the tracing spans with item 6.5.
 """
 from __future__ import annotations
 
@@ -60,6 +68,9 @@ class Request:
     prompt: np.ndarray            # (len,) int32
     max_new: int = 32
     temperature: float = 0.0      # 0 -> greedy
+    tenant: str = ""              # names a ServeConfig.tenants entry ("":
+    #                               the first tenant; single-tenant groups
+    #                               ignore it)
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32)
@@ -88,7 +99,9 @@ class DecodeEngine:
     there. ``ring`` is the ring of peers the serve step emits over
     (None = one peer, no process group). ``prefills`` counts prefill
     calls (one per wave + one per admission round), ``admit_prefills``
-    the admission rounds alone and ``decode_steps`` the decode calls."""
+    the admission rounds alone and ``decode_steps`` the decode calls.
+    ``admission_hook`` is the flush-boundary fault window (module
+    docstring); None is a no-op."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *,
                  max_batch: int = 8, max_len: int = 256,
@@ -111,6 +124,7 @@ class DecodeEngine:
         self.prefills = 0
         self.admit_prefills = 0
         self.decode_steps = 0
+        self.admission_hook = None
         if serve is not None:
             self.step = dispatch.make_serve_step(
                 cfg, serve.comm, ring=ring, channel_indices=channel_indices)
@@ -233,6 +247,13 @@ class DecodeEngine:
                         steps=steps + 1 - s.admitted_step))
                     slots[i] = None
             steps += 1
+            # the flush-boundary fault window: requests injected here
+            # enter the run queue like any client's and take the same
+            # admission path below (exactness is per row)
+            if not self._recurrent and self.admission_hook is not None:
+                extra = list(self.admission_hook(self, steps) or [])
+                if extra:
+                    pending.extend(extra)
             # continuous batching: refill freed slots from the run queue
             if pending:
                 tok, cache, pos = self._admit_ready(
@@ -346,10 +367,10 @@ class DecodeEngine:
 # ---------------------------------------------------------------------------
 
 
-def make_engine_group(cfg: ModelConfig, params: Any, serve: ServeConfig, *,
+def make_engine_group(cfg: Any, params: Any, serve: ServeConfig, *,
                       eos_id: Optional[int] = None, seed: int = 0,
-                      device: DeviceLike = None,
-                      ring: Optional[Ring] = None) -> EventLoopGroup:
+                      device: DeviceLike = None, ring: Optional[Ring] = None,
+                      affinity: Optional[tuple] = None) -> EventLoopGroup:
     """The serving front door: an :class:`EventLoopGroup` of
     ``serve.event_loops`` loops, each owning a disjoint contiguous run of
     the ``serve.comm.channels`` pool and driving its OWN
@@ -359,21 +380,78 @@ def make_engine_group(cfg: ModelConfig, params: Any, serve: ServeConfig, *,
     are assigned round-robin; GREEDY outputs do not depend on
     ``event_loops``.
 
+    ``affinity`` overrides the computed partition with an explicit one,
+    checked to be a partition of the pool into ``serve.event_loops``
+    nonempty disjoint groups (the elastic reshard's minimal-migration
+    partition, ``launch/elastic.reshard_affinity``, is deliberately not
+    what ``channel_affinity`` would recompute).
+
+    Multi-tenant form: with ``serve.tenants`` set, the loops are carved
+    into contiguous per-tenant ranges in declaration order, and ``cfg``
+    and ``params`` may EACH be a single value (every tenant serves the
+    same model) or a dict keyed by tenant name (different models side
+    by side: one group, one channel pool, an engine per range). The
+    group routes ``Request.tenant`` to the owning range with
+    weighted-fair dispatch (``EventLoopGroup``).
+
     Over a ring of more than one peer, drain the group inline
     (``run(threads=False)``): every peer must issue each loop's
     collectives in the same order, and threads sharing the ring's group
     would interleave them differently on each peer."""
     dev = resolve_device(device)
+    if affinity is not None:
+        affinity = tuple(tuple(g) for g in affinity)
+        owned = sorted(c for g in affinity for c in g)
+        if len(affinity) != serve.event_loops \
+                or owned != list(range(serve.comm.channels)) \
+                or any(not g for g in affinity):
+            raise ValueError(
+                f"explicit affinity {affinity} must partition channels "
+                f"0..{serve.comm.channels - 1} into {serve.event_loops} "
+                "nonempty disjoint groups")
+    else:
+        affinity = channel_affinity(serve.comm.channels, serve.event_loops)
+    bindings = []
+    loop_tenant = {}
+    start = 0
+    for t in serve.tenants:
+        ix = tuple(range(start, start + t.event_loops))
+        bindings.append((t.name, t.weight, ix))
+        for i in ix:
+            loop_tenant[i] = t.name
+        start += t.event_loops
+    names = {t.name for t in serve.tenants}
+
+    def resolve(v, what, always_dict=False):
+        # params are a tree that is ITSELF a dict, so a dict is taken as
+        # per-tenant only when its keys touch the tenant names
+        per_tenant = isinstance(v, dict) and (
+            always_dict or (names and set(v) & names))
+        if not per_tenant:
+            return lambda _name: v
+        if not names:
+            raise ValueError(
+                f"{what} is a per-tenant dict but serve.tenants is empty: "
+                "heterogeneous groups need named tenants to route by")
+        if set(v) != names:
+            raise ValueError(
+                f"{what} keys {sorted(v)} must match the tenant names "
+                f"{sorted(names)} exactly (one model binding per tenant)")
+        return v.__getitem__
+
+    cfg_of = resolve(cfg, "cfg", always_dict=True)
+    params_of = resolve(params, "params")
     loops = []
-    for i, chans in enumerate(channel_affinity(serve.comm.channels,
-                                               serve.event_loops)):
+    for i, chans in enumerate(affinity):
+        name = loop_tenant.get(i, "")
         loop = EventLoop(i, channels=chans, poll=serve.poll,
                          spin_s=serve.spin_us * 1e-6)
-        eng = DecodeEngine(cfg, params, max_batch=serve.max_batch,
-                           max_len=serve.max_len, eos_id=eos_id,
-                           seed=seed + i, serve=serve, channel_indices=chans,
-                           poller=loop.poller, device=dev, ring=ring)
+        eng = DecodeEngine(cfg_of(name), params_of(name),
+                           max_batch=serve.max_batch, max_len=serve.max_len,
+                           eos_id=eos_id, seed=seed + i, serve=serve,
+                           channel_indices=chans, poller=loop.poller,
+                           device=dev, ring=ring)
         loop.engine = eng
         loop.runner = lambda _loop, items, eng=eng: eng.generate(items)
         loops.append(loop)
-    return EventLoopGroup(loops)
+    return EventLoopGroup(loops, tenants=bindings or None)

@@ -1,6 +1,6 @@
 """EventLoopGroup — the netty worker-group analogue (paper §IV).
 
-Counterpart of ``repro/serving/event_loop.py`` (single-tenant form):
+Counterpart of ``repro/serving/event_loop.py``:
 
 * :class:`Poller` — completion polling: ``busy`` spins on readiness,
   ``park`` blocks (the epoll fallback), ``adaptive`` spins for a bounded
@@ -11,14 +11,19 @@ Counterpart of ``repro/serving/event_loop.py`` (single-tenant form):
 * :class:`EventLoop` — one loop: its index, the contiguous run of the
   channel pool it OWNS, its poller, and a run queue drained by a
   ``runner``.
-* :class:`EventLoopGroup` — N loops; items are assigned round-robin and
-  ``run()`` drains every loop, one OS thread per loop under
-  ``threads=True``.
+* :class:`EventLoopGroup` — N loops; items are assigned round-robin, or
+  per tenant in weighted-fair stride order, and ``run()`` drains every
+  loop, one OS thread per loop under ``threads=True``.
 * :func:`channel_affinity` — disjoint contiguous runs of the channel
   pool, balanced to within one (``core.selector.ready_groups``).
 
-Tenants, the chaos seams, restarts and the telemetry plane come in later
-slices (ROADMAP.md).
+The chaos seams (``serving/chaos.py``) are the reference's:
+``Poller.fault`` (consulted once at the top of every wait),
+``EventLoop.drain_hook`` (called with ``(loop, items)`` before the
+runner), heartbeats, ``restart()`` with lifetime poll stats, and
+structured :class:`LoopFailure` records on the group. The topology form
+of :func:`channel_affinity` (leader lanes, pods) comes with the pod
+fabric (ROADMAP.md Queue 1 item 8), the obs spans with item 6.5.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from repro_torch.core.selector import ready_groups
+from repro_torch.obs.metrics import RingLog
 
 POLLS = ("busy", "park", "adaptive")
 
@@ -50,14 +56,22 @@ def channel_affinity(n_channels: int, n_loops: int) -> tuple:
 @dataclass
 class PollStats:
     """``spins`` = readiness probes that came back not-ready, ``parks`` =
-    blocking waits entered, ``waits`` = completed wait calls."""
+    blocking waits entered, ``waits`` = completed wait calls, ``stalls``
+    = parks FORCED by the fault seam (the chaos harness's over-parking
+    loop), ``delays`` = waits the fault seam slowed down without forcing
+    a park (a slow channel's completion arriving late). A fault-free run
+    keeps stalls and delays at 0."""
     spins: int = 0
     parks: int = 0
     waits: int = 0
+    stalls: int = 0
+    delays: int = 0
 
     def merge(self, other: "PollStats") -> "PollStats":
         return PollStats(self.spins + other.spins, self.parks + other.parks,
-                         self.waits + other.waits)
+                         self.waits + other.waits,
+                         self.stalls + other.stalls,
+                         self.delays + other.delays)
 
 
 def _leaves(tree: Any) -> list:
@@ -70,7 +84,15 @@ def _leaves(tree: Any) -> list:
 
 class Poller:
     """Completion polling for one event loop (hadroNIO §IV-B: busy-poll
-    the worker vs. park in epoll; ``adaptive`` is the bounded spin)."""
+    the worker vs. park in epoll; ``adaptive`` is the bounded spin).
+
+    ``fault`` is the chaos seam (``serving/chaos.py``): when set, it is
+    called once at the top of every :meth:`wait` with the poller itself
+    and may sleep (a slow channel's completion arriving late) or return
+    a verdict — ``"stall"`` forces an immediate park (counted in
+    ``stats.stalls``), ``"delay"`` reports that the hook slowed this
+    wait and proceeds normally (counted in ``stats.delays``). ``None``
+    (the default) is a no-op."""
 
     def __init__(self, poll: str = "busy", spin_s: float = 50e-6):
         if poll not in POLLS:
@@ -78,6 +100,7 @@ class Poller:
         self.poll = poll
         self.spin_s = spin_s
         self.stats = PollStats()
+        self.fault: Optional[Callable[["Poller"], Optional[str]]] = None
 
     @staticmethod
     def _handles(tree: Any) -> list:
@@ -108,6 +131,14 @@ class Poller:
         ``tree`` so call sites can chain."""
         handles = self._handles(tree)
         self.stats.waits += 1
+        if self.fault is not None:
+            verdict = self.fault(self)
+            if verdict == "stall":
+                self.stats.stalls += 1  # forced over-park (chaos seam)
+                self._park(handles)
+                return tree
+            if verdict == "delay":
+                self.stats.delays += 1  # slowed wait; proceed normally
         if self.poll == "park" or (self.poll == "adaptive"
                                    and self.spin_s <= 0):
             # a zero spin budget IS park: one park, zero probes
@@ -123,9 +154,25 @@ class Poller:
         return tree
 
 
+@dataclass(frozen=True)
+class LoopFailure:
+    """Structured record of one failed drain: WHICH loop died, WHAT
+    killed it (the ``repr`` of the exception, so records stay picklable
+    and comparable; the live exception stays on ``loop.error``), and
+    HOW MANY items were in flight (the failed batch plus anything still
+    queued)."""
+    loop_index: int
+    error: str
+    pending: int
+
+
 class EventLoop:
     """One event loop: owned channels, a poller, and a run queue drained
-    by ``runner(loop, items) -> list``."""
+    by ``runner(loop, items) -> list``. ``heartbeats`` counts drained
+    batches, ever; ``restarts`` the :meth:`restart` calls;
+    ``lifetime_stats`` the folded stats of retired pollers.
+    ``drain_hook`` (the chaos seam) is called with ``(loop, items)`` per
+    drained batch, before the runner."""
 
     def __init__(self, index: int, *, channels: Sequence[int] = (),
                  poll: str = "busy", spin_s: float = 50e-6,
@@ -138,6 +185,11 @@ class EventLoop:
         self.queue: deque = deque()
         self.results: list = []
         self.error: Optional[BaseException] = None
+        self.failed_items: list = []      # in-flight batch of a failed drain
+        self.heartbeats = 0
+        self.restarts = 0
+        self.lifetime_stats = PollStats()
+        self.drain_hook: Optional[Callable] = None
 
     def submit(self, item: Any) -> None:
         self.queue.append(item)
@@ -145,30 +197,76 @@ class EventLoop:
     def drain(self) -> list:
         """Run everything queued through the runner (items submitted
         while draining are picked up too). A runner failure is recorded
-        in ``error`` and re-raised."""
+        in ``error`` and re-raised; the in-flight batch is kept in
+        ``failed_items`` for whoever re-admits it after a restart."""
         if self.runner is None:
             raise RuntimeError(f"event loop {self.index} has no runner")
         out: list = []
         self.error = None
+        self.failed_items = []
+        items: list = []
         try:
             while self.queue:
                 items = list(self.queue)
                 self.queue.clear()
+                if self.drain_hook is not None:
+                    self.drain_hook(self, items)
                 out.extend(self.runner(self, items))
+                self.heartbeats += 1    # one beat per drained batch
         except BaseException as e:
             self.error = e
+            self.failed_items = items
             raise
         finally:
             self.results = out
         return out
 
+    def restart(self) -> Poller:
+        """Quarantine-and-restart: fold the retiring poller's counters
+        into ``lifetime_stats``, replace it with a FRESH one (same
+        strategy and spin budget, no fault seam, zeroed counters), forget
+        the failure state and re-point an attached engine at the new
+        poller. The caller re-admits ``failed_items`` and the queue."""
+        self.lifetime_stats = self.lifetime_stats.merge(self.poller.stats)
+        self.poller = Poller(self.poller.poll, self.poller.spin_s)
+        self.error = None
+        self.failed_items = []
+        self.restarts += 1
+        if self.engine is not None:
+            self.engine.poller = self.poller
+        return self.poller
+
+    def poll_stats(self) -> PollStats:
+        """Lifetime poll counters: every retired poller's stats merged
+        with the live poller's."""
+        return self.lifetime_stats.merge(self.poller.stats)
+
 
 class EventLoopGroup:
     """N event loops over one disjoint channel partition. ``submit``
     assigns items round-robin (paper §IV-C); ``run`` drains every loop —
-    one OS thread per loop under ``threads=True``, in-line otherwise."""
+    one OS thread per loop under ``threads=True``, in-line otherwise.
 
-    def __init__(self, loops: Sequence[EventLoop]):
+    Multi-tenant form: ``tenants`` is a sequence of ``(name, weight,
+    loop_indices)`` bindings that partition the loops (contiguous ranges
+    built by ``engine.make_engine_group`` from ``ServeConfig.tenants``).
+    ``submit`` then routes each item to ITS tenant's loops (round-robin
+    within the tenant) and orders a mixed batch with a deterministic
+    weighted-fair stride scheduler: the next item belongs to the tenant
+    minimising ``(dispatched[t] + 1) / weight[t]``, ties broken in
+    declaration order — weights 2:1 give A A B A A B. The cumulative
+    per-tenant counts are ``fairness_counters`` and the per-item routing
+    trace ``dispatch_log`` (a :class:`RingLog`). Untagged items
+    (``tenant`` empty or absent) ride the first tenant; an unknown
+    tenant name raises.
+
+    ``loop_failures`` counts loops whose drain raised, across runs;
+    ``failures`` holds their :class:`LoopFailure` records in the order
+    they were observed."""
+
+    def __init__(self, loops: Sequence[EventLoop],
+                 tenants: Optional[Sequence] = None, *,
+                 dispatch_log_capacity: int = 65536):
         if not loops:
             raise ValueError("an EventLoopGroup needs at least one loop")
         owned = [c for l in loops for c in l.channels]
@@ -177,23 +275,76 @@ class EventLoopGroup:
                              f"{[l.channels for l in loops]}")
         self.loops = list(loops)
         self._rr = 0
+        self.tenants = tuple(tenants) if tenants else ()
+        self._torder = [t[0] for t in self.tenants]
+        self._tweight = {n: w for n, w, _ in self.tenants}
+        self._tloops = {n: tuple(ix) for n, _, ix in self.tenants}
+        self._trr = {n: 0 for n in self._torder}
+        self.fairness_counters = {n: 0 for n in self._torder}
+        self.dispatch_log = RingLog(dispatch_log_capacity)
+        if self.tenants:
+            allix = sorted(i for _, _, ix in self.tenants for i in ix)
+            if allix != list(range(self.n_loops)):
+                raise ValueError(
+                    f"tenant loop ranges must partition the group's "
+                    f"{self.n_loops} loops: {self._tloops}")
+        self.loop_failures = 0
+        self.failures: list = []
 
     @property
     def n_loops(self) -> int:
         return len(self.loops)
 
     def submit(self, items: Any) -> None:
-        """Round-robin item -> loop assignment; one item or a sequence."""
+        """Round-robin item -> loop assignment; one item or a sequence.
+        With tenants, routes per tenant in weighted-fair stride order
+        (the class docstring)."""
         if not isinstance(items, (list, tuple)):
             items = [items]
+        if not self.tenants:
+            for it in items:
+                self.loops[self._rr % self.n_loops].submit(it)
+                self._rr += 1
+            return
+        pending = {n: deque() for n in self._torder}
         for it in items:
-            self.loops[self._rr % self.n_loops].submit(it)
-            self._rr += 1
+            name = getattr(it, "tenant", "") or self._torder[0]
+            if name not in pending:
+                raise ValueError(
+                    f"unknown tenant {name!r}: this group serves "
+                    f"{self._torder} (Request.tenant must name one, or be "
+                    "empty to ride the first tenant)")
+            pending[name].append(it)
+        remaining = sum(len(q) for q in pending.values())
+        while remaining:
+            name = min((n for n in self._torder if pending[n]),
+                       key=lambda n: ((self.fairness_counters[n] + 1)
+                                      / self._tweight[n]))
+            it = pending[name].popleft()
+            ix = self._tloops[name]
+            self.loops[ix[self._trr[name] % len(ix)]].submit(it)
+            self._trr[name] += 1
+            self.fairness_counters[name] += 1
+            self.dispatch_log.append(name)
+            remaining -= 1
 
-    def run(self, *, threads: bool = True) -> list:
+    def _record_failure(self, loop: EventLoop) -> None:
+        self.loop_failures += 1
+        self.failures.append(LoopFailure(
+            loop.index, repr(loop.error),
+            len(loop.failed_items) + len(loop.queue)))
+
+    def run(self, *, threads: bool = True,
+            raise_on_failure: bool = True) -> list:
         """Drain every loop; returns the concatenated results in loop
-        order. A failure in any loop propagates after every thread has
-        joined, so a partial result set never looks like success."""
+        order. A failure in ANY loop is recorded as a
+        :class:`LoopFailure` in ``failures`` and, by default, raised
+        after every thread has joined, so a partial result set never
+        looks like success. ``raise_on_failure=False`` (the supervisor's
+        entry point) returns the survivors' results instead: the failed
+        loop's ``Exception`` stays on ``loop.error`` and in its record,
+        its batch in ``failed_items``. A ``BaseException`` that is not an
+        ``Exception`` (an interrupt, an exit) is raised either way."""
         if threads and self.n_loops > 1:
             def guarded(loop):
                 try:
@@ -208,15 +359,25 @@ class EventLoopGroup:
             for t in ts:
                 t.join()
             failed = [l for l in self.loops if l.error is not None]
-            if failed:
-                raise failed[0].error
+            for l in failed:
+                self._record_failure(l)
+            fatal = [l for l in failed if raise_on_failure
+                     or not isinstance(l.error, Exception)]
+            if fatal:
+                raise fatal[0].error
         else:
             for l in self.loops:
-                l.drain()
+                try:
+                    l.drain()
+                except BaseException as e:
+                    self._record_failure(l)
+                    if raise_on_failure or not isinstance(e, Exception):
+                        raise
         return [r for l in self.loops for r in l.results]
 
     def poll_stats(self) -> PollStats:
+        """Lifetime poll counters of every loop (they survive restarts)."""
         st = PollStats()
         for l in self.loops:
-            st = st.merge(l.poller.stats)
+            st = st.merge(l.poll_stats())
         return st
