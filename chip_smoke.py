@@ -227,7 +227,25 @@ non-zero (no phase's failure is caught):
    migrated channels and storm uids; the replay's fired and drain
    traces identical. Prints each scenario's RTT p50/p99/p99.9, its
    p99.9 inflation over the baseline and its wall time;
-11. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+11. the self-healing supervisor and the telemetry plane, on phase 10b's
+   model, params, serve shape, requests and baseline: (a) each of the six
+   scenarios through ``chaos.run_supervised`` (``dropped_flush`` twice):
+   tokens recovered, every client uid ``served``, a non-empty healing
+   trace with the scenario's kind (quarantine, quarantine, retry,
+   backpressure, resize, retry), the replay's trace identical, one flash
+   launch per layer per prefill call; (b) a traced baseline (three times,
+   in turns with three untraced runs, and one span's host cost: the
+   tracing overhead) and a traced
+   supervised ``dropped_flush``: every span kind (emission, stage,
+   flush, build, prefill, decode, admission, drain, heal), well-formed,
+   no span evicted, tokens unchanged, the Chrome-trace JSON written
+   under ``build/`` loading back; (c) two seeded supervised runs give
+   byte-identical deterministic metrics snapshots (``obs.collect``); (d)
+   ``launch.serve --supervised --trace-out --metrics-out`` as a
+   subprocess, rc 0, both files loaded. Prints per scenario the wall
+   time, RTT p50/p99.9, the healing actions and MTTR, and span counts by
+   kind;
+12. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -247,8 +265,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
@@ -2320,7 +2338,8 @@ def serve_chaos(gen, smi, ring) -> int:
     tokens; and that ``dropped_flush`` run twice at the seed fires and
     drains identically. Prints each scenario's RTT percentiles, its
     p99.9 inflation over the baseline and its wall time. Returns the
-    flash launches."""
+    flash launches, the params and the baseline (phase 11 serves the
+    same model against it)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.backends import pipeline
     from repro_torch.kernels import ops
@@ -2412,7 +2431,205 @@ def serve_chaos(gen, smi, ring) -> int:
                   "drains identical")
         runs[scenario] = res
     assert not pipeline.fault_active()
-    del params
+    return total, params, base
+
+
+# the healing kind each supervised scenario must record (the reference's
+# tests/test_supervisor.py map)
+HEAL_KINDS = {"slow_channel": "quarantine", "stalled_loop": "quarantine",
+              "dropped_flush": "retry", "admission_storm": "backpressure",
+              "reshard_mid_request": "resize", "mem_pressure": "retry"}
+SPAN_KINDS = ("emission", "stage", "flush", "build", "prefill", "decode",
+              "admission", "drain", "heal")
+
+
+def serve_supervised(smi, ring, params, base, dev) -> int:
+    """Phase 11: the self-healing supervisor and the telemetry plane on
+    phase 10b's model, params, serve shape, requests and baseline
+    (qwen2-0.5b whole, bf16, ``hadronio`` over ``ring``, 4 channels,
+    ``channel``/``ready``, 4 MiB slices, 2 loops drained inline, seed 11).
+    (a) ``chaos.run_supervised`` for each of the six scenarios (and
+    ``dropped_flush`` twice): tokens equal to the baseline's, every
+    client uid ``served``, a non-empty healing trace holding the
+    scenario's kind (``HEAL_KINDS``), the replay's trace identical, one
+    flash launch per layer per prefill call (``PrefillCalls``). (b) A
+    traced baseline and a traced supervised ``dropped_flush``
+    (``obs.capture``): together every kind of ``SPAN_KINDS``, both
+    well-formed, no span evicted from the ring, tokens equal to the
+    untraced runs', the Chrome-trace JSON written under ``build/``
+    loading back; the baseline's wall time traced against untraced, in
+    turns (three each), and one span's host cost. (c) Two seeded supervised runs give byte-identical
+    deterministic metrics snapshots (``obs.collect``). (d) ``launch.serve
+    --supervised --trace-out --metrics-out`` as a subprocess: rc 0, both
+    files load. Returns the flash launches of (a) to (c)."""
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.backends import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Supervisor, SupervisorConfig, chaos
+    cfg = get_config("qwen2-0.5b")
+    serve = chaos.chaos_serve_config("hadronio", 2, slice_bytes=4 << 20,
+                                     max_len=528)
+    reqs = chaos.make_requests(8, vocab_size=cfg.vocab_size,
+                               prompt_len=(64, 513), max_new=(8, 16))
+    seed = 11
+    total = 0
+
+    def checked(label, run):
+        """``run()`` under the flash counter and PrefillCalls: one launch
+        per layer per prefill call; returns (result, wall s)."""
+        nonlocal total
+        ops.flash_attention.launches = 0
+        with PrefillCalls() as pc:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        flash = ops.flash_attention.launches
+        total += flash
+        assert flash == cfg.num_layers * pc.calls and pc.calls >= 4, \
+            (label, flash, pc.calls)
+        return out, wall, pc.calls
+
+    def supervised(scenario):
+        return chaos.run_supervised(scenario, cfg, params, serve, reqs,
+                                    seed=seed, baseline=base, device=dev,
+                                    ring=ring)
+
+    # -- a. the six scenarios under the supervisor
+    traces = {}
+    for scenario in chaos.SCENARIOS + ("dropped_flush",):
+        res, wall, calls = checked(scenario, lambda: supervised(scenario))
+        rep = res.report
+        kinds = [k for _, k, _, _ in res.trace]
+        print(f"[supervise] {scenario} seed {seed}: recovered "
+              f"{rep.recovered}, outcomes {sorted({o.status for o in res.outcomes.values()})}, "
+              f"{len(res.trace)} healing actions {kinds}, MTTR "
+              f"{rep.mttr_s * 1e3 if rep.mttr_s is not None else None} ms, "
+              f"fired {len(res.fired)}, prefill calls {calls}, flash "
+              f"{calls * cfg.num_layers} | RTT p50 "
+              f"{rep.fault['p50'] * 1e3:.3f} ms p99.9 "
+              f"{rep.fault['p99.9'] * 1e3:.3f} ms | {wall:.3f} s | {smi}")
+        assert rep.recovered and res.tokens == base.tokens, scenario
+        assert {u: o.status for u, o in res.outcomes.items()
+                if u < chaos.STORM_UID_BASE} == \
+            {r.uid: "served" for r in reqs}, (scenario, res.outcomes)
+        assert res.trace and HEAL_KINDS[scenario] in kinds, \
+            (scenario, res.trace)
+        if scenario in traces:
+            assert res.trace == traces[scenario], scenario
+            print(f"[supervise] {scenario} replayed at seed {seed}: "
+                  "healing trace identical")
+        traces[scenario] = res.trace
+    assert not pipeline.fault_active()
+
+    # -- b. traced runs: the span taxonomy, well-formed, tokens unchanged
+    def baseline():
+        return chaos.run_baseline(cfg, params, serve, reqs, device=dev,
+                                  ring=ring)
+
+    walls = {"untraced": [], "traced": []}
+    recs = {}
+    for mode in ("untraced", "traced", "traced", "untraced", "untraced",
+                 "traced"):
+        if mode == "traced":
+            with obs.capture() as rec:
+                got, wall, _ = checked("traced baseline", baseline)
+            recs["baseline"] = rec
+        else:
+            got, wall, _ = checked("untraced baseline", baseline)
+        assert got.tokens == base.tokens, mode
+        walls[mode].append(wall)
+    with obs.capture() as rec:
+        res, wall, _ = checked("traced dropped_flush",
+                               lambda: supervised("dropped_flush"))
+    assert res.tokens == base.tokens and res.trace == \
+        traces["dropped_flush"]
+    recs["dropped_flush"] = rec
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    for name, rec in recs.items():
+        ok, problems = obs.well_formed(rec)
+        counts = {k: len(rec.spans_of(k)) for k in rec.kinds()}
+        path = os.path.join(HERE, "build", f"trace_{name}.json")
+        rec.write(path)
+        with open(path) as f:
+            doc = json.load(f)
+        print(f"[trace] {name}: {sum(counts.values())} spans {counts}, "
+              f"dropped {rec.dropped}, forced closes {rec.forced_closes}, "
+              f"well-formed {ok} -> {path} ({len(doc['traceEvents'])} "
+              f"events) | {smi}")
+        assert ok, (name, problems[:4])
+        assert rec.dropped == 0 and len(doc["traceEvents"]) == \
+            sum(counts.values())
+    kinds = set(recs["baseline"].kinds()) | set(recs["dropped_flush"].kinds())
+    assert set(SPAN_KINDS) <= kinds, kinds
+    assert set(SPAN_KINDS) - {"heal"} <= set(recs["baseline"].kinds())
+    med = {m: statistics.median(w) for m, w in walls.items()}
+    # the recorder's own cost: one span opened and closed, on this host
+    n_spans = len(recs["baseline"].spans)
+    with obs.capture():
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            with obs.span("decode", "probe"):
+                pass
+        per_span = (time.perf_counter() - t0) / 10_000
+    print(f"[trace] baseline wall traced {walls['traced']} s vs untraced "
+          f"{walls['untraced']} s: median overhead "
+          f"{(med['traced'] / med['untraced'] - 1) * 100:.2f}%; one span "
+          f"costs {per_span * 1e6:.3f} us on the host, x {n_spans} spans = "
+          f"{per_span * n_spans * 1e3:.3f} ms a run "
+          f"({per_span * n_spans / med['untraced'] * 100:.4f}% of the "
+          f"untraced median) | {smi}")
+
+    # -- c. the metrics snapshot of two seeded supervised runs
+    snaps = []
+    for _ in range(2):
+        sup = Supervisor(cfg, params, serve, device=dev, ring=ring,
+                         seed=seed, config=SupervisorConfig(
+                             dispatch_quantum=4))
+        with pipeline.stats_scope():
+            sup.submit(reqs)
+            out, _, _ = checked("supervised snapshot",
+                                lambda: sup.run(threads=False))
+            reg = obs.collect(supervisor=sup, mode="hadronio")
+        assert {r.uid: tuple(r.tokens.tolist()) for r in out} == \
+            base.tokens
+        snaps.append(reg.to_json(deterministic=True))
+    det = json.loads(snaps[0])
+    print(f"[metrics] two seeded supervised runs: deterministic snapshot "
+          f"{len(snaps[0])} bytes, {len(det['gauges'])} gauges, identical "
+          f"{snaps[0] == snaps[1]}, rounds "
+          f"{det['gauges']['supervisor.rounds{mode=hadronio}']} | {smi}")
+    assert snaps[0] == snaps[1]
+
+    # -- d. the supervised, traced CLI as a user runs it
+    trace_path = os.path.join(HERE, "build", "cli_trace.json")
+    metrics_path = os.path.join(HERE, "build", "cli_metrics.json")
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            cfg.name, "--requests", "8", "--max-new", "8", "--batch", "2",
+            "--event-loops", "1", "--supervised", "--max-loops", "2",
+            "--scale-up-depth", "2", "--dispatch-quantum", "2",
+            "--comm-mode", "hadronio", "--aggregate", "channel", "--flush",
+            "ready", "--trace-out", trace_path, "--metrics-out",
+            metrics_path, "--device", dev.type]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        print(f"[supervise-cli]   {line}")
+    print(f"[supervise-cli] {' '.join(argv[1:])}: rc {run.returncode}, "
+          f"{wall:.2f} s | {smi}")
+    assert run.returncode == 0, run.stderr[-4000:]
+    with open(trace_path) as f:
+        cli_trace = json.load(f)
+    with open(metrics_path) as f:
+        cli_metrics = json.load(f)
+    assert cli_trace["traceEvents"] and cli_trace["otherData"][
+        "open_spans"] == 0
+    assert cli_metrics["gauges"]["group.loops{mode=hadronio}"] >= 1
+    assert "[serve] 8 requests, 64 tokens" in run.stdout, run.stdout
     return total
 
 
@@ -3273,11 +3490,14 @@ def main() -> int:
     release_memory("before the tenants")
     ten_launches = serve_tenants(gen, smi)
     release_memory("before the chaos scenarios")
-    chaos_flash = serve_chaos(gen, smi, ring)
-    del ring
+    chaos_flash, chaos_params, chaos_base = serve_chaos(gen, smi, ring)
+
+    # -- 11. the supervisor and the telemetry plane ----------------------------
+    sup_flash = serve_supervised(smi, ring, chaos_params, chaos_base, dev)
+    del ring, chaos_params
     dist.destroy_process_group()
 
-    # -- 11. result lines -----------------------------------------------------
+    # -- 12. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -3285,7 +3505,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches + ring_flash + rg_launches["flash_attention"]
          + fam_flash + encvlm_flash + ckpt_flash
-         + ten_launches["flash_attention"] + chaos_flash,
+         + ten_launches["flash_attention"] + chaos_flash + sup_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],

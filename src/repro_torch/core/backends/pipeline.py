@@ -89,16 +89,23 @@ indices count calls here and traces there, and the ``fired`` and
 ``emissions`` traces of the seams differ between the packages by
 design; the served values do not.
 
-Not ported yet, each with the ROADMAP.md item that brings it: the
-two-level leader emission, the pod-aware channels and the in-pod
-scatter group (Queue 1 item 8), and the obs spans (Queue 1 item 6.5).
+The telemetry spans (``obs/trace.py``) sit at the reference's sites: an
+``emission`` span from :func:`begin_emission` to :func:`finish_emission`,
+``stage`` around :func:`stage_slices` and ``flush`` around each channel
+flush (a shadow flush too), each guarded by ``obs_trace.enabled()``.
+They fire on every call here, where the reference's fire while a step is
+traced.
+
+Not ported yet, with the ROADMAP.md item that brings it: the two-level
+leader emission (and its ``leader_flush`` span), the pod-aware channels
+and the in-pod scatter group (Queue 1 item 8).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -110,6 +117,7 @@ from repro_torch.core.channels import ChannelFill, CommChannel, make_channels
 from repro_torch.core.flush_scheduler import FlushPlan, make_flush_plan
 from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.kernels import ops, ref
+from repro_torch.obs import trace as obs_trace
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
 
@@ -291,6 +299,7 @@ class EmitState:
     outs: list                    # item id -> result (valid after finish)
     # issued collectives, in issue order: (work, completion)
     pending: list = field(default_factory=list)
+    span: Any = None              # open obs emission-span token (or None)
 
 
 def _item_spans(st: EmitState, items: list, buf: torch.Tensor,
@@ -393,6 +402,15 @@ def _issue(st: EmitState, c: int, items: list,
 
 
 def _flush_channel(st: EmitState, c: int, shadow: bool = False) -> None:
+    if not obs_trace.enabled():
+        return _flush_channel_impl(st, c, shadow)
+    with obs_trace.span("flush", f"ch{st.chans[c].index}",
+                        channel=st.chans[c].index,
+                        items=len(st.plan.groups[c])):
+        return _flush_channel_impl(st, c, shadow)
+
+
+def _flush_channel_impl(st: EmitState, c: int, shadow: bool) -> None:
     """One coalesced wire flush: the channel's staged items as a single
     buffer and ONE collective, carved back when it completes."""
     _issue(st, c, list(st.plan.groups[c]), shadow)
@@ -420,12 +438,24 @@ def begin_emission(ctx: SyncContext, n_items: int,
     chans = channels_for(ctx, n_items)
     plan = make_flush_plan(n_items, len(chans), ctx.comm.flush)
     fills = [ChannelFill(frozenset(g)) for g in plan.groups]
-    return EmitState(ctx=ctx, kind=kind, group=group, unpack=unpack,
-                     plan=plan, chans=chans, fills=fills, staged={},
-                     outs=[None] * n_items)
+    st = EmitState(ctx=ctx, kind=kind, group=group, unpack=unpack,
+                   plan=plan, chans=chans, fills=fills, staged={},
+                   outs=[None] * n_items)
+    if obs_trace.enabled():
+        st.span = obs_trace.begin(
+            "emission", kind, items=n_items, channels=len(chans),
+            leaders=0, aggregate=ctx.comm.aggregate, flush=ctx.comm.flush)
+    return st
 
 
 def stage_slices(st: EmitState, i: int, wire: torch.Tensor) -> list:
+    if not obs_trace.enabled():
+        return _stage_slices_impl(st, i, wire)
+    with obs_trace.span("stage", f"item{i}", item=i):
+        return _stage_slices_impl(st, i, wire)
+
+
+def _stage_slices_impl(st: EmitState, i: int, wire: torch.Tensor) -> list:
     """Stage item ``i``'s wire bytes (items are staged in production
     order, 0..n-1) and emit whatever that makes ready:
 
@@ -499,6 +529,9 @@ def finish_emission(st: EmitState) -> list:
         work.wait()
         done()
     st.pending.clear()
+    if st.span is not None:
+        obs_trace.end(st.span)
+        st.span = None
     return st.outs
 
 

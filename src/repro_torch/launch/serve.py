@@ -3,9 +3,13 @@
 subsystem (EventLoopGroup of decode engines over the CommBackend wire
 and a ring of peers), print the reference CLI's summary lines.
 
-Counterpart of ``repro/launch/serve.py`` in its unsupervised form (the
-supervisor and its flags, pods and the telemetry flags come in later
-slices: ROADMAP.md). ``--tenant NAME=ARCH[:WEIGHT[:LOOPS]]`` (repeatable)
+Counterpart of ``repro/launch/serve.py`` but for its pod flags (the pod
+fabric is ROADMAP.md Queue 1 item 8). ``--supervised`` serves under the
+self-healing supervisor (``serving/supervisor.py``: bounded admission,
+retry/backoff healing, autoscaling between ``--event-loops`` and
+``--max-loops``); ``--trace-out`` writes the run's span trace as
+Chrome-trace JSON and ``--metrics-out`` the unified metrics snapshot
+(``obs``). ``--tenant NAME=ARCH[:WEIGHT[:LOOPS]]`` (repeatable)
 serves several models side by side in ONE group: each tenant owns a
 contiguous run of LOOPS event loops and a WEIGHT share of the
 weighted-fair dispatch, its params are initialised from ``--seed`` plus
@@ -65,6 +69,12 @@ CLI::
   python -m repro_torch.launch.serve --device cpu --requests 6 \
       --max-new 4 --tenant chat=qwen2-0.5b-reduced:2 \
       --tenant rnn=rwkv6-7b-reduced:1
+  # self-healing supervisor, traced, with a metrics snapshot
+  python -m repro_torch.launch.serve --arch qwen2-0.5b-reduced \
+      --device cpu --requests 8 --max-new 4 --event-loops 1 \
+      --supervised --max-loops 4 --scale-up-depth 4 \
+      --admission-capacity 16 --dispatch-quantum 4 \
+      --trace-out /tmp/trace.json --metrics-out /tmp/metrics.json
 
 The recurrent families (rwkv6, recurrentgemma) serve equal-length
 buckets of prompts, so requests of distinct lengths run one per wave.
@@ -88,8 +98,10 @@ from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.backends import available_modes
 from repro_torch.core.channels import Ring
 from repro_torch.launch import steps
+from repro_torch import obs
 from repro_torch.models import api
-from repro_torch.serving import Request, make_engine_group
+from repro_torch.serving import (Request, RetryBudget, Supervisor,
+                                 SupervisorConfig, make_engine_group)
 
 
 def parse_tenant_specs(specs) -> tuple:
@@ -203,6 +215,39 @@ def main(argv=None) -> int:
     p.add_argument("--flush", default="step", choices=CommConfig.FLUSHES,
                    help="channel schedule: flush at the end of the "
                         "emission, or each channel when it fills")
+    # the self-healing supervisor (serving/supervisor.py)
+    p.add_argument("--supervised", action="store_true",
+                   help="run under the Supervisor: failure detection, "
+                        "retry/backoff healing, elastic autoscaling and "
+                        "admission backpressure")
+    p.add_argument("--admission-capacity", type=int, default=64,
+                   help="bounded admission queue; over capacity the "
+                        "lowest-priority request is shed with an "
+                        "explicit rejected outcome")
+    p.add_argument("--dispatch-quantum", type=int, default=0,
+                   help="requests dispatched per supervision round "
+                        "(0 = drain the whole queue)")
+    p.add_argument("--retry-limit", type=int, default=3,
+                   help="drain retry attempts before a structured "
+                        "retry_exhausted outcome")
+    p.add_argument("--max-loops", type=int, default=0,
+                   help="autoscale ceiling (0 = channel pool size); "
+                        "--event-loops is the starting size")
+    p.add_argument("--scale-up-depth", type=float, default=8.0,
+                   help="queued requests per loop that votes to grow "
+                        "the fleet")
+    p.add_argument("--scale-down-depth", type=float, default=-1.0,
+                   help="backlog per loop that votes to shrink "
+                        "(negative disables shrinking)")
+    # the telemetry plane (repro_torch/obs)
+    p.add_argument("--trace-out", default="",
+                   help="write a Chrome-trace/Perfetto JSON of the run's "
+                        "spans here (enables tracing; tokens stay "
+                        "bit-identical to an untraced run)")
+    p.add_argument("--metrics-out", default="",
+                   help="write the unified metrics snapshot (obs "
+                        "registry JSON: poll/emission/loop/tenant/"
+                        "supervisor counters) here")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)
@@ -210,6 +255,10 @@ def main(argv=None) -> int:
     tenants = parse_tenant_specs(args.tenant)
     if not tenants and not args.arch:
         p.error("--arch is required (or pass one or more --tenant specs)")
+    if tenants and args.supervised:
+        p.error("--supervised requires a single-tenant group: tenant loop "
+                "ranges pin the fleet size, which autoscaling would "
+                "resize (drop --tenant or --supervised)")
     if tenants and (args.arch or args.ckpt):
         p.error("--tenant names each tenant's arch, and --ckpt serves one "
                 "arch: drop --arch/--ckpt or --tenant")
@@ -227,6 +276,8 @@ def main(argv=None) -> int:
                                         channels=args.channels,
                                         aggregate=args.aggregate,
                                         flush=args.flush))
+    if args.trace_out:
+        obs.enable()
     own_group = not dist.is_initialized()
     if own_group:
         backend = "nccl" if device.type == "cuda" else "gloo"
@@ -250,26 +301,54 @@ def main(argv=None) -> int:
                                  max_len=args.max_len, seed=args.seed,
                                  device=device, log=print if ring.rank == 0
                                  else lambda line: None)
-        group = make_engine_group(cfg, params, serve, seed=args.seed,
-                                  device=device, ring=ring)
+        sup = None
+        if args.supervised:
+            sup = Supervisor(cfg, params, serve, device=device, ring=ring,
+                             seed=args.seed, config=SupervisorConfig(
+                                 admission_capacity=args.admission_capacity,
+                                 dispatch_quantum=args.dispatch_quantum,
+                                 max_loops=args.max_loops,
+                                 scale_up_depth=args.scale_up_depth,
+                                 scale_down_depth=args.scale_down_depth,
+                                 retry=RetryBudget(limit=args.retry_limit)))
+            group = sup.group
+        else:
+            group = make_engine_group(cfg, params, serve, seed=args.seed,
+                                      device=device, ring=ring)
         reqs = make_requests(cfg, args.requests, max_new=args.max_new,
                              temperature=args.temperature, seed=args.seed)
         t0 = time.time()
-        group.submit(reqs)
         threads = args.event_loops > 1 and ring.world_size == 1
-        results = sorted(group.run(threads=threads), key=lambda r: r.uid)
+        if sup is not None:
+            sup.submit(reqs)
+            results = sup.run(threads=threads)
+            group = sup.group          # may have been rebuilt by a resize
+        else:
+            group.submit(reqs)
+            results = sorted(group.run(threads=threads),
+                             key=lambda r: r.uid)
         dt = time.time() - t0
     finally:
         if own_group:
             dist.destroy_process_group()
+        rec = obs.disable() if args.trace_out else None
     if ring.rank != 0:
         return 0
     tok = sum(len(r.tokens) for r in results)
-    st = group.poll_stats()
+    st = sup.poll_stats() if sup is not None else group.poll_stats()
     print(f"[serve] {len(results)} requests, {tok} tokens in {dt:.2f}s "
           f"({tok / dt:.1f} tok/s) | {serve.event_loops} event loop(s), "
           f"poll={serve.poll} (spins={st.spins} parks={st.parks}), "
           f"comm={args.comm_mode}, ring={ring.world_size}, device={device}")
+    if sup is not None:
+        shed = sum(1 for o in sup.outcomes.values()
+                   if o.status == "rejected")
+        print(f"[serve] supervisor: {sup.rounds} rounds, "
+              f"{len(sup.trace)} healing actions, {shed} shed, "
+              f"fleet={sup.group.n_loops} loops, mttr="
+              f"{sup.mttr_s() if sup.trace else None}")
+        for a in sup.healing_trace():
+            print(f"  heal round={a[0]} {a[1]} target={a[2]} {a[3]}")
     if tenants:
         print(f"[serve] tenants: fairness={group.fairness_counters} "
               f"dispatch={group.dispatch_log[:12]}")
@@ -279,6 +358,19 @@ def main(argv=None) -> int:
     for r in results[:4]:
         print(f"  uid={r.uid} prompt_len={r.prompt_len} -> "
               f"{r.tokens[:12].tolist()}")
+    if args.metrics_out:
+        reg = obs.collect(group=group, supervisor=sup,
+                          mode=args.comm_mode)
+        with open(args.metrics_out, "w") as f:
+            f.write(reg.to_json())
+        snap = reg.snapshot()
+        print(f"[serve] metrics snapshot -> {args.metrics_out} "
+              f"({len(snap['counters']) + len(snap['gauges'])} "
+              f"deterministic metrics)")
+    if rec is not None:
+        doc = rec.write(args.trace_out)
+        print(f"[serve] span trace -> {args.trace_out} "
+              f"({len(doc['traceEvents'])} spans, kinds={rec.kinds()})")
     return 0
 
 

@@ -1,10 +1,7 @@
 """Deterministic chaos harness for the serving plane.
 
-Counterpart of ``repro/serving/chaos.py`` without its supervised runner
-(``SupervisedResult``, ``run_supervised``), which comes with the
-supervisor (ROADMAP.md Queue 1 item 6.4); :meth:`_Injector.alloc_fault`
-``(escalate=True)`` and :meth:`_Injector.drain_crash_hook` are here for
-it.
+Counterpart of ``repro/serving/chaos.py``, its supervised runner
+(:func:`run_supervised`, under ``serving/supervisor.py``) included.
 
 Ibdxnet (arXiv:1812.01963) catalogues how concurrent event-loop
 transports fail: stalled completion polling, starved send threads,
@@ -30,7 +27,9 @@ Scenarios and the seams they hook:
   (``launch/elastic.reshard_event_loops`` / ``reshard_affinity``): queued
   requests migrate to a group of another loop count and affinity.
 * ``mem_pressure`` — seeded host pauses on the staged emission's
-  wire-buffer allocations (``pipeline.set_alloc_hook``).
+  wire-buffer allocations (``pipeline.set_alloc_hook``). Under the
+  SUPERVISED runner the first event escalates to a pool-exhaustion raise
+  the supervisor must heal with its retry budget.
 
 Where the seams act. The reference's flush fault and allocation hook act
 while JAX traces a serve step, once per new shape; the port runs
@@ -42,7 +41,11 @@ design. The plans, the served tokens, the drain traces and the fired
 traces of the four runtime-seam scenarios (``slow_channel``,
 ``stalled_loop``, ``admission_storm``, ``reshard_mid_request``) are the
 reference's: the completion waits sit at the same three sites of both
-engines.
+engines. Under :func:`run_supervised` the same holds for the healing
+trace: the runtime-seam scenarios' traces are the reference's, while
+for ``dropped_flush`` and ``mem_pressure`` the supervisor's ``reflush``
+actions (whose target is the round's drop count) follow the per-call
+drops.
 
 A run takes ``device`` and ``ring`` (the reference's mesh): the sliced
 ``hadronio`` wire needs a ring of peers (a one-peer ring on one card).
@@ -498,3 +501,102 @@ def _run_reshard(plan: ChaosPlan, cfg, params, serve, reqs, inj, rtts,
     tail = grp2.run(threads=threads)
     poll = grp.poll_stats().merge(grp2.poll_stats())
     return list(head) + list(tail), moved, poll
+
+
+# ---------------------------------------------------------------------------
+# Supervised runs — the same plans, healed by the Supervisor itself
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SupervisedResult:
+    """One scenario run under the self-healing supervisor. ``trace`` is
+    the supervisor's CANONICAL healing trace (round, kind, target,
+    detail; wall-clock stamps excluded), the seed-deterministic evidence
+    that the supervisor, not the harness, did the healing."""
+    plan: ChaosPlan
+    fired: tuple
+    drains: tuple
+    trace: tuple
+    outcomes: Dict[int, object]
+    report: slo.SLOReport
+    tokens: Dict[int, tuple]
+    rtts: list
+    poll_stats: object = None
+    emissions: tuple = ()
+
+
+def run_supervised(scenario: str, cfg: ModelConfig, params,
+                   serve: ServeConfig, reqs: Sequence[Request], *,
+                   seed: int, baseline: Baseline, device: DeviceLike = None,
+                   ring: Optional[Ring] = None, threads: bool = False,
+                   horizon: int = 16, config=None) -> SupervisedResult:
+    """Run one seeded scenario with the :class:`Supervisor` closing the
+    detect -> decide -> heal loop itself. The harness only ARMS faults
+    (through the supervisor's ``fleet_hook``, so rebuilds re-arm the
+    observation seams) and then submits the client requests: every
+    quarantine, restart, retry, reflush, backpressure and resize in the
+    result's ``trace`` was the supervisor's own decision. Two scenarios
+    escalate beyond their unsupervised form so there is a real failure
+    to heal: ``dropped_flush`` adds a one-shot drain crash (retry
+    budget), ``mem_pressure`` escalates its first event to a
+    pool-exhaustion raise (the retried drain consults past it). Inline
+    drains (the default) keep the trace deterministic. Every seam armed
+    here is cleared in a ``finally``."""
+    from repro_torch.serving.supervisor import Supervisor, SupervisorConfig
+    plan = make_plan(scenario, seed, n_channels=serve.comm.channels,
+                     n_loops=serve.event_loops, n_requests=len(reqs),
+                     horizon=horizon)
+    inj = _Injector(plan, cfg.vocab_size)
+    rtts: list = []
+    if config is None:
+        # >= 2 dispatch rounds so detection and healing happen MID-stream
+        config = SupervisorConfig(
+            dispatch_quantum=max(1, (len(reqs) + 1) // 2))
+    sup = Supervisor(cfg, params, serve, device=device, ring=ring,
+                     config=config, seed=seed)
+
+    def fleet_hook(grp):
+        _wrap_timing(grp, rtts)
+        for loop in grp.loops:
+            loop.drain_hook = inj.drain_hook
+        _arm(scenario, grp, inj)
+        if scenario == "dropped_flush":
+            grp.loops[0].drain_hook = inj.drain_crash_hook()
+
+    sup.fleet_hook = fleet_hook
+    channels_mod.set_collective_hook(inj.collective_hook)
+    try:
+        if scenario == "dropped_flush":
+            pipeline.set_flush_fault(inj.flush_fault)
+        elif scenario == "mem_pressure":
+            pipeline.set_alloc_hook(inj.alloc_fault(escalate=True))
+        try:
+            if scenario == "reshard_mid_request":
+                e = plan.events[0]
+                sup.request_resize(int(e.target))
+                inj.fired.append((1, int(e.target), "resize"))
+            sup.submit(list(reqs))
+            res = sup.run(threads=threads)
+        finally:
+            if scenario == "dropped_flush":
+                pipeline.clear_flush_fault()
+            elif scenario == "mem_pressure":
+                pipeline.clear_alloc_hook()
+    finally:
+        channels_mod.clear_collective_hook()
+
+    tokens = _tokens_of(res)
+    report = slo.make_report(
+        scenario=scenario, seed=seed, mode=serve.comm.mode,
+        event_loops=serve.event_loops, reference=baseline.tokens,
+        served=tokens, fault_rtts=rtts, baseline_rtts=baseline.rtts,
+        n_injected=len(inj.fired), healing_actions=len(sup.trace),
+        mttr_s=sup.mttr_s())
+    return SupervisedResult(plan=plan, fired=tuple(inj.fired),
+                            drains=tuple(inj.drains),
+                            trace=sup.healing_trace(),
+                            outcomes=dict(sup.outcomes), report=report,
+                            tokens=tokens, rtts=rtts,
+                            poll_stats=sup.poll_stats(),
+                            emissions=tuple(inj.emissions))

@@ -55,6 +55,7 @@ from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.models import api
 from repro_torch.models import moe
 from repro_torch.models.common import tree_from_paths, tree_paths
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import cache_layout
 
 
@@ -86,7 +87,20 @@ def make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
     """The serve step for one (model, comm, ring, affinity) combination.
     ``ring`` is the ring of peers (None = one peer with no process
     group); ``channel_indices`` is the emitting event loop's owned run of
-    the channel pool (None = the full pool)."""
+    the channel pool (None = the full pool). A ``build`` span covers it
+    when tracing is on (once per engine: there is no step cache)."""
+    if not obs_trace.enabled():
+        return _make_serve_step(cfg, comm, ring=ring,
+                                channel_indices=channel_indices)
+    with obs_trace.span("build", f"serve_step:{cfg.name}",
+                        mode=comm.mode, channels=comm.channels):
+        return _make_serve_step(cfg, comm, ring=ring,
+                                channel_indices=channel_indices)
+
+
+def _make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
+                     ring: Optional[Ring] = None,
+                     channel_indices: Optional[tuple] = None) -> ServeStep:
     backend = validate_serve_comm(comm)
     cache_layout.layout_for(cfg.family)
     chans = tuple(channel_indices) if channel_indices is not None else None

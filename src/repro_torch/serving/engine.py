@@ -32,13 +32,16 @@ Counterpart of ``repro/serving/engine.py``.
   ``admission_hook(engine, step)`` is called at every decode-step
   boundary, after the poll and before admission; the requests it
   returns join the run queue and contend for freed slots (the chaos
-  harness's admission storm, ``serving/chaos.py``).
+  harness's admission storm, ``serving/chaos.py``). The admission
+  control seam ``admission_gate(engine, step, extra)`` (the supervisor's,
+  ``serving/supervisor.py``) then sees that burst and returns the
+  requests actually admitted, so backpressure composes with storms.
+* Telemetry (``obs/trace.py``): ``prefill`` spans around each wave's
+  prefill and its poller wait, ``decode`` around each decode call and
+  ``admission`` around each batched admission, when tracing is on.
 * :func:`make_engine_group` takes an explicit channel ``affinity`` (the
   elastic reshard's partition) and ``ServeConfig.tenants``: contiguous
   per-tenant loop ranges, ``cfg``/``params`` single or per tenant.
-
-The supervisor's ``admission_gate`` comes with the supervisor
-(ROADMAP.md Queue 1 item 6.4), the tracing spans with item 6.5.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.core.channels import Ring
 from repro_torch.models import api
 from repro_torch.models.common import tree_paths
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import dispatch
 from repro_torch.serving.event_loop import (EventLoop, EventLoopGroup,
                                             Poller, channel_affinity)
@@ -68,6 +72,8 @@ class Request:
     prompt: np.ndarray            # (len,) int32
     max_new: int = 32
     temperature: float = 0.0      # 0 -> greedy
+    priority: int = 0             # admission-control rank: LOWER sheds
+    #                               first under backpressure (supervisor)
     tenant: str = ""              # names a ServeConfig.tenants entry ("":
     #                               the first tenant; single-tenant groups
     #                               ignore it)
@@ -100,8 +106,9 @@ class DecodeEngine:
     (None = one peer, no process group). ``prefills`` counts prefill
     calls (one per wave + one per admission round), ``admit_prefills``
     the admission rounds alone and ``decode_steps`` the decode calls.
-    ``admission_hook`` is the flush-boundary fault window (module
-    docstring); None is a no-op."""
+    ``admission_hook`` is the flush-boundary fault window and
+    ``admission_gate`` the admission-control seam (module docstring);
+    None is a no-op / admits everything."""
 
     def __init__(self, cfg: ModelConfig, params: Any, *,
                  max_batch: int = 8, max_len: int = 256,
@@ -125,6 +132,7 @@ class DecodeEngine:
         self.admit_prefills = 0
         self.decode_steps = 0
         self.admission_hook = None
+        self.admission_gate = None
         if serve is not None:
             self.step = dispatch.make_serve_step(
                 cfg, serve.comm, ring=ring, channel_indices=channel_indices)
@@ -211,10 +219,18 @@ class DecodeEngine:
         for i, r in enumerate(initial):
             toks[i, : lens[i]] = r.prompt
 
-        logits, cache = self._prefill(self.params,
-                                      self._prefill_batch(toks, lens))
-        self.prefills += 1
-        self.poller.wait(logits)
+        if obs_trace.enabled():
+            with obs_trace.span("prefill", f"wave_b{b}", batch=b,
+                                pad_to=toks.shape[1]):
+                logits, cache = self._prefill(
+                    self.params, self._prefill_batch(toks, lens))
+                self.prefills += 1
+                self.poller.wait(logits)
+        else:
+            logits, cache = self._prefill(self.params,
+                                          self._prefill_batch(toks, lens))
+            self.prefills += 1
+            self.poller.wait(logits)
         cache = api.grow_cache(self.cfg, cache, self.max_len)
 
         slots: list = [_Slot(r, 0, []) for r in initial] + [None] * (b_pad - b)
@@ -249,9 +265,15 @@ class DecodeEngine:
             steps += 1
             # the flush-boundary fault window: requests injected here
             # enter the run queue like any client's and take the same
-            # admission path below (exactness is per row)
-            if not self._recurrent and self.admission_hook is not None:
-                extra = list(self.admission_hook(self, steps) or [])
+            # admission path below (exactness is per row); the gate sees
+            # the burst AFTER the hook, so supervisor backpressure
+            # composes with chaos storms
+            if not self._recurrent and (self.admission_hook is not None
+                                        or self.admission_gate is not None):
+                extra = list(self.admission_hook(self, steps) or []) \
+                    if self.admission_hook is not None else []
+                if self.admission_gate is not None:
+                    extra = self.admission_gate(self, steps, extra)
                 if extra:
                     pending.extend(extra)
             # continuous batching: refill freed slots from the run queue
@@ -260,10 +282,15 @@ class DecodeEngine:
                     pending, cache, pos, temps, tok, steps, slots, results)
             if not any(s is not None for s in slots) and not pending:
                 break
-            active = torch.as_tensor([s is not None for s in slots],
-                                     device=self.device)
-            logits, cache = self._decode(self.params, cache,
-                                         {"token": tok, "pos": pos})
+            live = [s is not None for s in slots]
+            active = torch.as_tensor(live, device=self.device)
+            dec = {"token": tok, "pos": pos}
+            if obs_trace.enabled():
+                with obs_trace.span("decode", f"step{steps}", step=steps,
+                                    active=sum(live)):
+                    logits, cache = self._decode(self.params, cache, dec)
+            else:
+                logits, cache = self._decode(self.params, cache, dec)
             self.decode_steps += 1
             tok = self._sample(logits, temps)
             pos = torch.where(active, pos + 1, pos)
@@ -283,9 +310,16 @@ class DecodeEngine:
                 break
             take = min(len(free), len(pending))
             batch = [pending.popleft() for _ in range(take)]
-            tok, cache, pos = self._admit_batch(free[:take], batch, cache,
-                                                pos, temps, tok, steps,
-                                                slots, results)
+            if obs_trace.enabled():
+                with obs_trace.span("admission", f"admit{take}", n=take,
+                                    step=steps):
+                    tok, cache, pos = self._admit_batch(
+                        free[:take], batch, cache, pos, temps, tok, steps,
+                        slots, results)
+            else:
+                tok, cache, pos = self._admit_batch(
+                    free[:take], batch, cache, pos, temps, tok, steps,
+                    slots, results)
         return tok, cache, pos
 
     def _admit_batch(self, free: list, reqs: list, cache: dict,

@@ -21,9 +21,11 @@ The chaos seams (``serving/chaos.py``) are the reference's:
 ``Poller.fault`` (consulted once at the top of every wait),
 ``EventLoop.drain_hook`` (called with ``(loop, items)`` before the
 runner), heartbeats, ``restart()`` with lifetime poll stats, and
-structured :class:`LoopFailure` records on the group. The topology form
-of :func:`channel_affinity` (leader lanes, pods) comes with the pod
-fabric (ROADMAP.md Queue 1 item 8), the obs spans with item 6.5.
+structured :class:`LoopFailure` records on the group. Each drained
+batch runs inside a ``drain`` span when tracing is on
+(``obs/trace.py``). The topology form of :func:`channel_affinity`
+(leader lanes, pods) comes with the pod fabric (ROADMAP.md Queue 1 item
+8).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from repro_torch.core.selector import ready_groups
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import RingLog
 
 POLLS = ("busy", "park", "adaptive")
@@ -211,7 +214,12 @@ class EventLoop:
                 self.queue.clear()
                 if self.drain_hook is not None:
                     self.drain_hook(self, items)
-                out.extend(self.runner(self, items))
+                if obs_trace.enabled():
+                    with obs_trace.span("drain", f"loop{self.index}",
+                                        loop=self.index, items=len(items)):
+                        out.extend(self.runner(self, items))
+                else:
+                    out.extend(self.runner(self, items))
                 self.heartbeats += 1    # one beat per drained batch
         except BaseException as e:
             self.error = e
