@@ -245,7 +245,26 @@ non-zero (no phase's failure is caught):
    subprocess, rc 0, both files loaded. Prints per scenario the wall
    time, RTT p50/p99.9, the healing actions and MTTR, and span counts by
    kind;
-12. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+12. the two-level pod fabric (``serve_pods``), on phase 10b's model,
+   params, requests and baseline, over a second ring on the one-peer
+   NCCL group, ``Ring(channels=4, pods=1, pod_axis="pod")`` (the
+   reference's ``(1, 1)`` pod mesh: an in-pod and a cross-pod
+   communicator beside each channel's, built after ``release_memory``
+   and closed after the phase), ``hadronio``, 4 channels,
+   ``channel``, 512 KiB slices, ``leader_channels=1``: (a) 2 loops under
+   ``ready`` (in turns with the flat emission on the same ring) and
+   ``step``: tokens bitwise phase 10b's, flash 24 per prefill call, and
+   on the collective hook every decode emission ``in_pod_reduce_scatter``
+   -> ``cross_pod_all_reduce`` -> ``in_pod_all_gather`` and every prefill
+   emission ``in_pod_all_gather`` -> ``cross_pod_all_gather`` (one
+   cross-pod collective per emission; the flat emission issues two, one
+   per lane of the loop); (b) 4 loops, one lane each: the channel's own
+   two-level all-reduce, tokens bitwise; (c) (a) traced: every
+   ``leader_flush`` inside a ``flush`` of its own emission,
+   well-formed, none evicted; (d) walls on the host clock beside phase
+   10b's flat baseline, the flash count, the card's free memory and
+   PyTorch's peak before and after the pod ring's communicators;
+13. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -2338,8 +2357,8 @@ def serve_chaos(gen, smi, ring) -> int:
     tokens; and that ``dropped_flush`` run twice at the seed fires and
     drains identically. Prints each scenario's RTT percentiles, its
     p99.9 inflation over the baseline and its wall time. Returns the
-    flash launches, the params and the baseline (phase 11 serves the
-    same model against it)."""
+    flash launches, the params, the baseline and its wall time (phases
+    11 and 12 serve the same model against it)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.backends import pipeline
     from repro_torch.kernels import ops
@@ -2366,7 +2385,7 @@ def serve_chaos(gen, smi, ring) -> int:
         base = chaos.run_baseline(cfg, params, serve, reqs, device=dev,
                                   ring=ring)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = base_wall = time.perf_counter() - t0
     total = ops.flash_attention.launches
     assert warm.tokens == base.tokens
     ps = chaos.slo.rtt_percentiles(base.rtts)
@@ -2431,7 +2450,7 @@ def serve_chaos(gen, smi, ring) -> int:
                   "drains identical")
         runs[scenario] = res
     assert not pipeline.fault_active()
-    return total, params, base
+    return total, params, base, base_wall
 
 
 # the healing kind each supervised scenario must record (the reference's
@@ -2630,6 +2649,198 @@ def serve_supervised(smi, ring, params, base, dev) -> int:
         "open_spans"] == 0
     assert cli_metrics["gauges"]["group.loops{mode=hadronio}"] >= 1
     assert "[serve] 8 requests, 64 tokens" in run.stdout, run.stdout
+    return total
+
+
+# phase 12's slices: a B=2 (or B=1) decode payload of qwen2-0.5b's logits,
+# 1.2 MB, spans several, so each loop's two lanes both carry it and the
+# leader split runs; at phase 10b's 4 MiB it is one slice on one lane
+POD_SLICE = 512 << 10
+
+
+class EmissionLog:
+    """While installed: every staged emission's kind (``begin_emission``,
+    which the emissions call through the module) and every channel
+    collective (the collective hook) in issue order; ``emissions()``
+    splits the log into ``(kind, [collective kinds])`` per emission."""
+
+    def __init__(self):
+        from repro_torch.core import channels
+        from repro_torch.core.backends import pipeline
+        self.channels, self.pipeline = channels, pipeline
+        self.orig, self.log = pipeline.begin_emission, []
+
+    def __enter__(self):
+        def begin(ctx, n_items, kind="all_reduce", **kw):
+            self.log.append(("begin", kind))
+            return self.orig(ctx, n_items, kind, **kw)
+        self.pipeline.begin_emission = begin
+        self.channels.set_collective_hook(
+            lambda c, kind: self.log.append((c, kind)))
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.begin_emission = self.orig
+        self.channels.clear_collective_hook()
+
+    def emissions(self) -> list:
+        out = []
+        for c, kind in self.log:
+            if c == "begin":
+                out.append((kind, []))
+            else:
+                out[-1][1].append(kind)
+        return out
+
+
+def serve_pods(smi, params, base, flat_wall, dev) -> int:
+    """Phase 12: the two-level pod fabric on qwen2-0.5b whole, bf16, with
+    phase 10b's params, requests and baseline. On the one-peer NCCL group
+    a second ring, ``Ring(channels=4, pods=1, pod_axis="pod")`` (the
+    reference's degenerate ``(1, 1)`` pod mesh: every split collective is
+    a real NCCL call on its own in-pod or cross-pod communicator, 12 in
+    all), built after ``release_memory`` and closed after the phase.
+    Served through ``make_engine_group`` (pods detected from the ring):
+    ``hadronio``, 4 channels, ``aggregate=channel``, ``POD_SLICE``
+    slices, ``leader_channels=1``, 2 loops drained inline.
+    (a) ``hierarchical=True`` under ``flush=ready`` (in turns with the
+    flat emission, ``hierarchical=False``, on the same ring: flat, pod,
+    pod, flat) and under ``step``: tokens bitwise phase 10b's, flash 24
+    per prefill call, every decode emission ``in_pod_reduce_scatter`` ->
+    ``cross_pod_all_reduce`` -> ``in_pod_all_gather`` and every prefill
+    emission ``in_pod_all_gather`` -> ``cross_pod_all_gather``: one
+    cross-pod collective per emission (the loop's leader lanes), where the
+    flat emission issues one collective per lane the loop owns (2).
+    (b) 4 loops on the 4 channels: every pool is one lane, so the
+    channel's own two-level all-reduce runs (the hook notes
+    ``all_reduce``, no split kind); tokens bitwise. (c) (a) under
+    ``ready`` traced: every ``leader_flush`` inside a ``flush`` of its
+    own emission, well-formed, none evicted. (d) walls on the host clock
+    beside phase 10b's flat baseline (``flat_wall``), the flash count,
+    and the card's free memory and PyTorch's peak before and after the
+    pod ring's communicators. Returns the flash launches."""
+    from repro_torch import obs
+    from repro_torch.configs.base import CommConfig, ServeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.channels import Ring
+    from repro_torch.kernels import ops
+    from repro_torch.serving import chaos
+    cfg = get_config("qwen2-0.5b")
+    reqs = chaos.make_requests(8, vocab_size=cfg.vocab_size,
+                               prompt_len=(64, 513), max_new=(8, 16))
+    release_memory("before the pod ring")
+    torch.cuda.reset_peak_memory_stats()
+    free0 = torch.cuda.mem_get_info()[0]
+    pod = Ring(channels=4, pods=1, pod_axis="pod")
+    assert pod.shape == {"pod": 1, "data": 1}
+    total = 0
+
+    def serve(hier, loops=2, flush="ready"):
+        return ServeConfig(
+            event_loops=loops, poll="busy", max_batch=2, max_len=528,
+            comm=CommConfig(mode="hadronio", channels=4,
+                            slice_bytes=POD_SLICE, aggregate="channel",
+                            flush=flush, hierarchical=hier,
+                            leader_channels=1))
+
+    def run(label, sc):
+        """One baseline run on the pod ring: tokens equal to phase 10b's,
+        one flash launch per layer per prefill call; (wall s, log)."""
+        nonlocal total
+        ops.flash_attention.launches = 0
+        with PrefillCalls() as pc, EmissionLog() as log:
+            t0 = time.perf_counter()
+            got = chaos.run_baseline(cfg, params, sc, reqs, device=dev,
+                                     ring=pod)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        flash = ops.flash_attention.launches
+        total += flash
+        assert got.tokens == base.tokens, label
+        assert flash == cfg.num_layers * pc.calls and pc.calls >= 4, \
+            (label, flash, pc.calls)
+        ems = log.emissions()
+        kinds = sorted({k for _, ks in ems for k in ks})
+        print(f"[pods] {label}: tokens == phase 10b's, prefill calls "
+              f"{pc.calls}, flash {flash}, {len(ems)} emissions, "
+              f"{sum(map(len, (ks for _, ks in ems)))} collectives "
+              f"{kinds} | {wall:.3f} s | {smi}")
+        return wall, ems
+
+    def check_leader(label, ems):
+        """Every emission through the leader split, one cross-pod
+        collective each."""
+        want = {"all_reduce": ["in_pod_reduce_scatter",
+                               "cross_pod_all_reduce", "in_pod_all_gather"],
+                "all_gather": ["in_pod_all_gather", "cross_pod_all_gather"]}
+        kinds = {k for k, _ in ems}
+        assert kinds == set(want), (label, kinds)
+        for kind, ks in ems:
+            assert ks == want[kind], (label, kind, ks)
+        n = sum(1 for k, _ in ems if k == "all_reduce")
+        print(f"[pods] {label}: {n} decode and {len(ems) - n} prefill "
+              "emissions, each " + " -> ".join(want["all_reduce"]) + " / "
+              + " -> ".join(want["all_gather"]) + ": 1 cross-pod "
+              "collective per emission")
+
+    # -- a. flat and pod emission in turns, then the step schedule
+    walls = {"flat": [], "pod": []}
+    warm, ems = run("pod warm-up (first collectives of 12 communicators)",
+                    serve(True))
+    check_leader("pod ready warm-up", ems)
+    free1 = torch.cuda.mem_get_info()[0]
+    for name in ("flat", "pod", "pod", "flat"):
+        wall, ems = run(f"{name} ready", serve(name == "pod"))
+        walls[name].append(wall)
+        if name == "pod":
+            check_leader("pod ready", ems)
+        else:
+            assert {k for _, ks in ems for k in ks} == {"all_reduce",
+                                                        "all_gather"}
+            decode = [ks for k, ks in ems if k == "all_reduce"]
+            assert decode and all(len(ks) == 2 for ks in decode), decode
+    wall, ems = run("pod step", serve(True, flush="step"))
+    check_leader("pod step", ems)
+    walls["pod step"] = [wall]
+
+    # -- b. one lane per loop: the channel's own two-level all-reduce
+    wall, ems = run("pod, 4 loops", serve(True, loops=4))
+    assert {k for _, ks in ems for k in ks} == {"all_reduce", "all_gather"}
+    assert all(len(ks) == 1 for _, ks in ems), ems[:4]
+    walls["pod 4 loops"] = [wall]
+
+    # -- c. traced: every leader flush inside a flush of its own emission
+    with obs.capture() as rec:
+        wall, ems = run("pod ready traced", serve(True))
+    check_leader("pod ready traced", ems)
+    leads = rec.spans_of("leader_flush")
+    for lead in leads:
+        host = obs.containing(rec, lead, "flush")
+        assert host is not None, lead
+        assert obs.containing(rec, lead, "emission") is \
+            obs.containing(rec, host, "emission"), lead
+    ok, problems = obs.well_formed(rec)
+    counts = {k: len(rec.spans_of(k)) for k in rec.kinds()}
+    print(f"[pods] traced: {sum(counts.values())} spans {counts}, "
+          f"{len(leads)} leader flushes each inside a flush of its own "
+          f"emission, dropped {rec.dropped}, well-formed {ok} | {smi}")
+    assert ok and rec.dropped == 0 and len(leads) == len(ems), problems[:4]
+
+    # -- d. walls, flash, memory
+    peak = torch.cuda.max_memory_allocated()
+    pod.close()
+    free2 = torch.cuda.mem_get_info()[0]
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"[pods] walls (host clock, 8 requests): pod ready "
+          f"{walls['pod']} s, flat ready {walls['flat']} s on the pod ring "
+          f"(medians {med['pod']:.3f} / {med['flat']:.3f}), pod step "
+          f"{walls['pod step'][0]:.3f} s, 4 loops "
+          f"{walls['pod 4 loops'][0]:.3f} s, warm-up {warm:.3f} s; phase "
+          f"10b's flat baseline (4 MiB slices, no pod axis) {flat_wall:.3f} "
+          f"s | flash {total} | free on the card {free0 / 1e9:.3f} GB "
+          f"before the pod ring, {free1 / 1e9:.3f} GB after its first "
+          f"collectives, {free2 / 1e9:.3f} GB after close; PyTorch's peak "
+          f"{peak / 1e9:.2f} GB | {smi}")
     return total
 
 
@@ -3490,14 +3701,18 @@ def main() -> int:
     release_memory("before the tenants")
     ten_launches = serve_tenants(gen, smi)
     release_memory("before the chaos scenarios")
-    chaos_flash, chaos_params, chaos_base = serve_chaos(gen, smi, ring)
+    chaos_flash, chaos_params, chaos_base, chaos_wall = serve_chaos(
+        gen, smi, ring)
 
     # -- 11. the supervisor and the telemetry plane ----------------------------
     sup_flash = serve_supervised(smi, ring, chaos_params, chaos_base, dev)
+
+    # -- 12. the two-level pod fabric ------------------------------------------
+    pod_flash = serve_pods(smi, chaos_params, chaos_base, chaos_wall, dev)
     del ring, chaos_params
     dist.destroy_process_group()
 
-    # -- 12. result lines -----------------------------------------------------
+    # -- 13. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -3505,7 +3720,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches + ring_flash + rg_launches["flash_attention"]
          + fam_flash + encvlm_flash + ckpt_flash
-         + ten_launches["flash_attention"] + chaos_flash + sup_flash,
+         + ten_launches["flash_attention"] + chaos_flash + sup_flash
+         + pod_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],

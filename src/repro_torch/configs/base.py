@@ -163,9 +163,12 @@ class CommConfig:
     flush granularity (one collective per slice, or one coalesced
     collective per channel) and ``flush`` the channel schedule
     (round-robin flushed at the end of the exchange, or contiguous
-    groups flushed when their last slice is staged). The reference's
-    pod-aware knobs (``hierarchical``, ``leader_channels``) come with the
-    pod-aware emission (ROADMAP.md Queue 1 item 8)."""
+    groups flushed when their last slice is staged). ``hierarchical``
+    turns on the pod-aware two-level collectives where the ring has a
+    pod axis (``core/channels.Ring``), and ``leader_channels`` is how
+    many lanes at the tail of the pool carry the cross-pod stage under
+    channel-granularity flushes (clamped to ``channels - 1`` when the
+    emission carves them, so a one-channel pool stays per-channel)."""
 
     mode: str = "gspmd"
     ring_capacity_bytes: int = 256 * 1024 * 1024
@@ -175,6 +178,8 @@ class CommConfig:
     pack: str = "jnp"                  # pack/unpack-stage impl: jnp | pallas
     aggregate: str = "slice"           # wire-flush granularity: slice | channel
     flush: str = "step"                # channel schedule: step | ready
+    hierarchical: bool = True          # pod-aware two-level collectives
+    leader_channels: int = 1           # channels carved for cross-pod traffic
 
     COMPRESS_CODECS = ("none", "bf16", "int8_ef")
     PACK_IMPLS = ("jnp", "pallas")
@@ -210,6 +215,13 @@ class CommConfig:
                 f"{self.FLUSHES} ('ready' emits each channel's flush the "
                 "moment its last assigned bucket is staged; 'step' flushes "
                 "every channel at one end-of-exchange loop)")
+        if self.leader_channels < 1:
+            raise ValueError(
+                f"comm.leader_channels must be >= 1 (got "
+                f"{self.leader_channels}): the cross-pod stage of the "
+                "hierarchical emission needs at least one dedicated lane; "
+                "values >= comm.channels are clamped to channels-1 at "
+                "emission time (a 1-channel pool has no lane to carve)")
         if not 0 < self.slice_bytes <= self.ring_capacity_bytes:
             raise ValueError(
                 f"comm.slice_bytes must be > 0 and <= ring_capacity_bytes "
@@ -238,7 +250,15 @@ class ServeConfig:
     decode slots per loop. ``poll``: ``busy`` spins on completion,
     ``park`` blocks, ``adaptive`` spins for ``spin_us`` then parks.
     ``tenants`` (:class:`TenantConfig`) partition the loops among named
-    models; the reference's error texts are kept."""
+    models; the reference's error texts are kept.
+
+    ``pods`` is the two-level serving fabric: the ring becomes ``pods``
+    pods of ``ring size // pods`` peers over ``(pod_axis, "data")``
+    (``core/channels.Ring``), and with ``comm.hierarchical`` in-pod
+    traffic rides the local lanes while only the in-pod-reduced shards
+    cross pods on the ``comm.leader_channels`` leader lanes, pinned to
+    the first ``leader_loops`` event loops. That ``pods`` divides the
+    ring size is checked where the ring is known (``Ring``)."""
 
     event_loops: int = 1
     poll: str = "busy"
@@ -246,6 +266,9 @@ class ServeConfig:
     max_batch: int = 8
     max_len: int = 256
     comm: CommConfig = field(default_factory=CommConfig)
+    pods: int = 1                      # two-level fabric: pod count
+    pod_axis: str = "pod"              # the ring's name for the pod axis
+    leader_loops: int = 1              # loops pinned to the leader lanes
     tenants: tuple = ()                # TenantConfig partition of the loops
 
     POLLS = ("busy", "park", "adaptive")
@@ -269,6 +292,33 @@ class ServeConfig:
         if self.max_batch < 1 or self.max_len < 2:
             raise ValueError("serve.max_batch must be >= 1 and "
                              "serve.max_len >= 2")
+        if self.pods < 1:
+            raise ValueError(f"serve.pods must be >= 1 (got {self.pods})")
+        if not self.pod_axis:
+            raise ValueError("serve.pod_axis must be a non-empty axis name")
+        if not 1 <= self.leader_loops <= self.event_loops:
+            raise ValueError(
+                f"serve.leader_loops={self.leader_loops} must be in "
+                f"[1, event_loops={self.event_loops}]: leader channels are "
+                "pinned to a designated subset of the loops, and at least "
+                "one loop must carry the cross-pod lanes")
+        if self.pods > 1 and self.comm.hierarchical:
+            if self.comm.leader_channels >= self.comm.channels:
+                raise ValueError(
+                    f"comm.leader_channels={self.comm.leader_channels} must "
+                    f"be < comm.channels={self.comm.channels} when serving "
+                    f"{self.pods} pods hierarchically: carving every lane "
+                    "for cross-pod traffic leaves no local lane for the "
+                    "in-pod stages (raise comm.channels or lower "
+                    "leader_channels)")
+            if self.event_loops > self.comm.channels - self.comm.leader_channels:
+                raise ValueError(
+                    f"serve.event_loops={self.event_loops} exceeds the "
+                    f"{self.comm.channels - self.comm.leader_channels} "
+                    f"LOCAL channels (channels={self.comm.channels} minus "
+                    f"leader_channels={self.comm.leader_channels}): under "
+                    "the two-level fabric every loop must own at least one "
+                    "local lane for its in-pod stages")
         if self.tenants:
             names = [t.name for t in self.tenants]
             if any(not n for n in names) or len(set(names)) != len(names):

@@ -63,14 +63,27 @@ class SyncContext:
     ``world_size`` is the ring size and ``rank`` this peer's place in
     it; ``channel_indices`` is the owning event loop's disjoint run of
     the channel pool (None = the whole ``comm.channels`` pool); ``ring``
-    holds the process group and channel communicators of a gradient
-    exchange; ``ef`` is this peer's error-feedback residual."""
+    holds the process group and channel communicators of the exchange;
+    ``ef`` is this peer's error-feedback residual.
+
+    The context is pod-aware (:attr:`pod_axis`) exactly when the ring
+    has a pod axis and ``comm.hierarchical`` is on, as the reference's
+    ``SyncContext.resolve``: with it off, (pod, data) is one flat
+    ring."""
     comm: CommConfig
     world_size: int = 1
     rank: int = 0
     channel_indices: Optional[tuple] = None
     ring: Optional[Ring] = None
     ef: EF = None
+
+    @property
+    def pod_axis(self) -> Optional[str]:
+        """The ring's pod axis when pod-aware collectives apply, else
+        None."""
+        if self.ring is None or not self.comm.hierarchical:
+            return None
+        return self.ring.pod_axis
 
 
 class StateSpecs(NamedTuple):
@@ -107,12 +120,14 @@ def scatter_group_size(n_shards: int, pod_size: int,
                        comm: CommConfig) -> int:
     """ZeRO-1 scatter-group size: the whole flat ring. The reference
     scatters in-pod when its collectives are pod-aware (hierarchical
-    ZeRO); that path is not ported (ROADMAP.md Queue 1 item 8)."""
+    ZeRO), which it reaches only through a train mesh with a pod axis
+    (``repro/launch/train.py --mesh``); the port's training over pods
+    waits for that mesh (ROADMAP.md Queue 1 item 8)."""
     if pod_size > 1:
         raise NotImplementedError(
-            f"a ZeRO-1 scatter group inside pods of {pod_size} needs the "
-            "pod-aware collectives, which are not ported to repro_torch "
-            "yet (ROADMAP.md Queue 1 item 8)")
+            f"a ZeRO-1 scatter group inside pods of {pod_size} belongs to "
+            "training over pods, which waits for the train mesh in "
+            "repro_torch (ROADMAP.md Queue 1 item 8)")
     return n_shards
 
 

@@ -74,10 +74,12 @@ The chaos seams of the reference (``serving/chaos.py``):
   flush first: a real second collective (the collective hook sees it)
   on a COPY of the wire bytes, so a single item's in-place all-reduce
   is not summed twice; its results are carved from values equal to the
-  real flush's, which overwrites them.
+  real flush's, which overwrites them. Under the leader emission a
+  ``"dup"`` issues nothing, as in the reference.
 * :func:`set_alloc_hook` — ``hook(channel, nbytes)``, consulted right
-  before each wire buffer is built (one per flush, and one per item
-  under ``aggregate="slice"``); it may sleep or raise.
+  before each wire buffer is built (one per flush, a local lane's under
+  the leader emission, and one per item under ``aggregate="slice"``);
+  it may sleep or raise.
 * :class:`EmissionStats` — ``drops``, ``dups``, ``allocs``, written to
   the innermost :func:`stats_scope` (a ``contextvars.ContextVar``) or
   else to the module's ``EMISSION_STATS``.
@@ -94,11 +96,34 @@ The telemetry spans (``obs/trace.py``) sit at the reference's sites: an
 ``stage`` around :func:`stage_slices` and ``flush`` around each channel
 flush (a shadow flush too), each guarded by ``obs_trace.enabled()``.
 They fire on every call here, where the reference's fire while a step is
-traced.
+traced; a ``leader_flush`` span covers each leader lane's flush.
 
-Not ported yet, with the ROADMAP.md item that brings it: the two-level
-leader emission (and its ``leader_flush`` span), the pod-aware channels
-and the in-pod scatter group (Queue 1 item 8).
+Under a pod-aware context (``SyncContext.pod_axis``: the ring has a pod
+axis and ``comm.hierarchical`` is on) with ``comm.aggregate="channel"``
+the staged emission runs the TWO-LEVEL leader-channel schedule, the UCX
+multi-rail analogue: cross-pod links are scarce and get dedicated
+lanes. The pool is carved into LOCAL lanes and ``comm.leader_channels``
+LEADER lanes (:func:`channels_for`). A local lane's coalesced flush is
+the in-pod stage only (an in-pod reduce-scatter or gather) and parks
+its intermediate; each leader lane concatenates the intermediates of its
+local lanes (``flush_scheduler.make_leader_plan``) into ONE cross-pod
+collective, carves them back, and for an all-reduce each lane's in-pod
+return gather completes its items. Under ``flush="ready"`` the leader
+flushes the moment its last local lane has staged, inside that lane's
+``flush`` span; under ``"step"`` in the end-of-exchange loop. The
+cross-pod collectives per emission drop from the pool's lanes to its
+leader lanes. The port's collectives are asynchronous, so the leader
+waits on each parked in-pod work before it concatenates, and an
+all-reduce's return gathers wait on the cross-pod one (on NCCL each
+communicator has its own stream: the waits order the streams, the host
+goes on). An ``all_to_all`` carries source-target traffic over the whole
+ring and bypasses the leader split (:func:`begin_emission`). Any other
+pod-aware flush (``aggregate="slice"``, a one-lane pool) runs the
+channel's two-level ``all_reduce`` / ``reduce_scatter``.
+
+The ZeRO-1 scatter group inside a pod (:func:`scatter_group`) belongs to
+training over pods, which waits for the train mesh (ROADMAP.md Queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -114,7 +139,9 @@ from repro_torch.configs.base import CommConfig
 from repro_torch.core import compress as comp
 from repro_torch.core.backends.base import SERVE_KINDS, SyncContext
 from repro_torch.core.channels import ChannelFill, CommChannel, make_channels
-from repro_torch.core.flush_scheduler import FlushPlan, make_flush_plan
+from repro_torch.core.flush_scheduler import (FlushPlan, make_flush_plan,
+                                              make_leader_plan)
+from repro_torch.core.hierarchical import in_group_size
 from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.kernels import ops, ref
 from repro_torch.obs import trace as obs_trace
@@ -207,11 +234,41 @@ def _consult_alloc(channel_index: int, flats: list) -> None:
         _ALLOC_HOOK(channel_index, nbytes)
 
 
+def leader_emission(ctx: SyncContext, pool_size: int) -> bool:
+    """True when the two-level leader-channel schedule applies: a
+    pod-aware context, channel-granularity flushes, and a pool big
+    enough to carve (a one-channel pool keeps the per-channel
+    hierarchical path)."""
+    return (ctx.pod_axis is not None and ctx.comm.aggregate == "channel"
+            and pool_size >= 2)
+
+
+def _leader_split(ctx: SyncContext, idx: tuple) -> tuple:
+    """Carve the emitting pool into (local, leader) channel ids. The
+    global leader lanes are the last ``comm.leader_channels`` ids of the
+    ``comm.channels`` pool (the topology-aware affinity pins exactly
+    those to the leader loops); a pool that owns none, a non-leader
+    event loop's, promotes its last lane, so every loop completes its
+    cross-pod stage by itself (which lane carries it changes no value).
+    A pool is never left without a local lane."""
+    n_lead = min(ctx.comm.leader_channels, ctx.comm.channels - 1)
+    tail = range(ctx.comm.channels - n_lead, ctx.comm.channels)
+    leads = tuple(i for i in idx if i in tail)
+    locs = tuple(i for i in idx if i not in tail)
+    if not leads:
+        locs, leads = idx[:-1], (idx[-1],)
+    if not locs:
+        locs, leads = (leads[0],), leads[1:]
+    return locs, leads
+
 
 def channels_for(ctx: SyncContext, n_slices: int) -> list[CommChannel]:
     """The connection pool: at most ``comm.channels`` workers, or
     exactly the context's ``channel_indices`` (an owner's disjoint run of
-    the pool), over the ring's channel communicators."""
+    the pool), over the ring's channel communicators; pod-aware when the
+    context is. Under the two-level schedule (:func:`leader_emission`)
+    the pool's leader lanes come back flagged ``leader``, locals
+    first."""
     if ctx.ring is None:
         raise ValueError("a sliced emission needs the ring's process "
                          "group and channel communicators: "
@@ -220,7 +277,13 @@ def channels_for(ctx: SyncContext, n_slices: int) -> list[CommChannel]:
         idx = tuple(ctx.channel_indices)[:max(1, n_slices)]
     else:
         idx = tuple(range(max(1, min(ctx.comm.channels, n_slices))))
-    return make_channels(ctx.ring, idx)
+    leaders = frozenset()
+    if leader_emission(ctx, len(idx)):
+        locs, leads = _leader_split(ctx, idx)
+        idx = locs + leads
+        leaders = frozenset(leads)
+    return make_channels(ctx.ring, idx, leaders=leaders,
+                         pod_aware=ctx.pod_axis is not None)
 
 
 def pack_wire(slices: torch.Tensor, ef: Optional[torch.Tensor],
@@ -287,18 +350,28 @@ class EmitState:
     the ring size of an ``all_gather`` (its results are ``group`` times
     the item), a ``reduce_scatter`` (``1/group`` of it) or an
     ``all_to_all`` (the item's ``group`` rows), 1 otherwise;
-    ``unpack`` runs the unpack stage per flush."""
+    ``unpack`` runs the unpack stage per flush. Under the leader
+    emission ``chans`` holds the local lanes only (plan group ids stay
+    lane ids) and ``leads`` the leader lanes."""
     ctx: SyncContext
     kind: str
     group: int
     unpack: bool
     plan: FlushPlan
-    chans: list                   # CommChannel pool
+    chans: list                   # CommChannel pool (local lanes)
     fills: list                   # per-channel ChannelFill watermark
     staged: dict                  # item id -> wire buffer
     outs: list                    # item id -> result (valid after finish)
     # issued collectives, in issue order: (work, completion)
-    pending: list = field(default_factory=list)
+    issued: list = field(default_factory=list)
+    # -- two-level leader emission (empty leads = flat schedule) --------
+    leads: list = field(default_factory=list)   # leader CommChannels
+    lplan: Optional[FlushPlan] = None   # local lane -> leader lane
+    lfills: list = field(default_factory=list)  # per-leader ChannelFill
+    pending: dict = field(default_factory=dict)  # local lane -> parked
+    #                               in-pod (work, intermediate)
+    lpad: dict = field(default_factory=dict)     # local lane -> zero pad
+    #                               added for in-pod divisibility
     span: Any = None              # open obs emission-span token (or None)
 
 
@@ -315,19 +388,19 @@ def _item_spans(st: EmitState, items: list, buf: torch.Tensor,
         off += n
 
 
-def _carve_reduce(st: EmitState, items: list,
-                  red: torch.Tensor) -> Callable:
+def _carve_reduce(st: EmitState, items: list, red: torch.Tensor,
+                  copy: bool = False) -> Callable:
     """The completion of one all-reduce over ``items``' wire bytes: with
     the per-flush unpack stage, each item's result is its span of the
-    unpacked sum; without it, a coalesced sum is copied back into the
-    items (the scattering read; a single item was reduced where it
-    lies)."""
+    unpacked sum; without it, a coalesced sum (or any sum in a buffer of
+    its own, ``copy``) is copied back into the items (the scattering
+    read; a single item reduced in place is already there)."""
     def carve():
         if st.unpack:
             full = _unpack_flush(red, st.ctx.comm)
             for i, span in _item_spans(st, items, full):
                 st.outs[i] = span
-        elif len(items) > 1:
+        elif copy or len(items) > 1:
             for i, span in _item_spans(st, items, red):
                 st.staged[i].copy_(span)
     return carve
@@ -383,22 +456,22 @@ def _issue(st: EmitState, c: int, items: list,
                                      st.group)
         if st.kind == "all_to_all":
             work, ex = ch.all_to_all(buf)
-            st.pending.append((work, _carve_rows(st, items, ex, st.group)))
+            st.issued.append((work, _carve_rows(st, items, ex, st.group)))
         else:
             work, sh = ch.reduce_scatter(buf)
-            st.pending.append((work, _carve_scatter(st, items, sh)))
+            st.issued.append((work, _carve_scatter(st, items, sh)))
         return
     buf = flats[0] if len(flats) == 1 else \
         torch.cat([f.reshape(-1) for f in flats])
     if st.kind == "all_gather":
         work, g = ch.all_gather(buf)
-        st.pending.append((work, _carve_rows(st, items, g)))
+        st.issued.append((work, _carve_rows(st, items, g)))
         return
     work = ch.all_reduce(buf)
     if not st.unpack and not shadow:
         for i in items:
             st.outs[i] = st.staged[i]
-    st.pending.append((work, _carve_reduce(st, items, buf)))
+    st.issued.append((work, _carve_reduce(st, items, buf)))
 
 
 def _flush_channel(st: EmitState, c: int, shadow: bool = False) -> None:
@@ -412,9 +485,109 @@ def _flush_channel(st: EmitState, c: int, shadow: bool = False) -> None:
 
 def _flush_channel_impl(st: EmitState, c: int, shadow: bool) -> None:
     """One coalesced wire flush: the channel's staged items as a single
-    buffer and ONE collective, carved back when it completes."""
+    buffer and ONE collective, carved back when it completes. Under the
+    leader emission the flush is the in-pod stage only; its items
+    complete when the lane's leader flushes (:func:`_flush_leader`)."""
+    if st.leads:
+        _stage_local(st, c)
+        st.fills[c].flushed = True
+        lead = st.lplan.assign[c]
+        st.lfills[lead].stage(c)
+        if st.ctx.comm.flush == "ready" and st.lfills[lead].ready:
+            _flush_leader(st, lead)
+        return
     _issue(st, c, list(st.plan.groups[c]), shadow)
     st.fills[c].flushed = True
+
+
+def _stage_local(st: EmitState, c: int) -> None:
+    """The IN-POD stage of local lane ``c``'s coalesced flush (leader
+    emission): issue only the in-pod collective and park its work and
+    intermediate for the lane's leader. The alloc hook is consulted once,
+    for the coalesced buffer. An all-reduce pads to the in-pod size as
+    ``psum_hierarchical`` does (the zero tail scatters onto the last
+    shard), so the sums are the per-channel hierarchical path's."""
+    ch = st.chans[c]
+    flats = [st.staged[i].reshape(-1) for i in st.plan.groups[c]]
+    _consult_alloc(ch.index, flats)
+    if st.kind == "reduce_scatter":
+        st.pending[c] = ch.in_pod_reduce_scatter(
+            interleave_for_scatter(flats, st.group))
+        return
+    buf = flats[0] if len(flats) == 1 else torch.cat(flats)
+    if st.kind == "all_gather":
+        st.pending[c] = ch.in_pod_all_gather(buf)
+        return
+    pad = (-buf.numel()) % in_group_size(ch.in_pod)
+    if pad:
+        buf = torch.nn.functional.pad(buf, (0, pad))
+    st.lpad[c] = pad
+    st.pending[c] = ch.in_pod_reduce_scatter(buf)
+
+
+def _flush_leader(st: EmitState, lead: int) -> None:
+    if not obs_trace.enabled():
+        return _flush_leader_impl(st, lead)
+    with obs_trace.span("leader_flush", f"lead{st.leads[lead].index}",
+                        channel=st.leads[lead].index,
+                        lanes=len(st.lplan.groups[lead])):
+        return _flush_leader_impl(st, lead)
+
+
+def _flush_leader_impl(st: EmitState, lead: int) -> None:
+    """The CROSS-POD stage: ONE coalesced leader-lane collective over the
+    parked in-pod intermediates of leader ``lead``'s local lanes (each
+    waited on first), carved back per lane when it completes; for an
+    all-reduce each lane's in-pod return gather (issued after the
+    cross-pod sum is waited on) then completes the lane's items. This is
+    where the cross-pod collectives drop from the pool's lanes to its
+    leader lanes."""
+    lanes = st.lplan.groups[lead]
+    parts = []
+    for c in lanes:
+        work, part = st.pending.pop(c)
+        work.wait()
+        parts.append(part)
+    lens = [p.numel() for p in parts]
+    buf = parts[0] if len(parts) == 1 else torch.cat(parts)
+    ch = st.leads[lead]
+    if st.kind == "all_gather":
+        work, g = ch.cross_pod_all_gather(buf)
+
+        def carve():
+            rows = g.view(-1, buf.numel())     # (pods, sum of lane lens)
+            off = 0
+            for c, n in zip(lanes, lens):
+                # (pods, data * len) -> (pods * data, len): the ring's
+                # pod-major peer order, as a flat gather's
+                lane = rows[:, off:off + n].reshape(st.group, -1)
+                off += n
+                _carve_rows(st, list(st.plan.groups[c]), lane)()
+        st.issued.append((work, carve))
+    else:
+        work = ch.cross_pod_all_reduce(buf)
+        off, spans = 0, []
+        for c, n in zip(lanes, lens):
+            spans.append((c, buf[off:off + n]))
+            off += n
+        if st.kind == "reduce_scatter":
+            def carve():
+                for c, shard in spans:
+                    _carve_scatter(st, list(st.plan.groups[c]), shard)()
+            st.issued.append((work, carve))
+        else:
+            work.wait()
+            for c, shard in spans:
+                items = list(st.plan.groups[c])
+                gwork, full = st.chans[c].in_pod_all_gather(shard)
+                if st.lpad.get(c):
+                    full = full[:full.numel() - st.lpad[c]]
+                if not st.unpack:
+                    for i in items:
+                        st.outs[i] = st.staged[i]
+                st.issued.append((gwork, _carve_reduce(st, items, full,
+                                                       copy=True)))
+    st.lfills[lead].flushed = True
 
 
 def begin_emission(ctx: SyncContext, n_items: int,
@@ -429,22 +602,38 @@ def begin_emission(ctx: SyncContext, n_items: int,
     ``unpack=True`` runs the unpack stage per flush, after its
     collective completes, and the results are f32 (channel-local instead
     of item-local: the scattering read keyed to the flush that produced
-    the bytes). The reference's ``all_to_all`` bypasses its leader lanes
-    (an exchange has no in-pod/cross-pod split); the port has no leader
-    lanes yet (ROADMAP.md Queue 1 item 8), so every kind flushes flat."""
+    the bytes).
+
+    Under the leader emission (:func:`leader_emission`) the pool splits
+    into local lanes (they get the item->channel plan) and leader lanes
+    (the second-level lane->leader plan, ``make_leader_plan``). An
+    ``all_to_all`` bypasses the split: an exchange carries source-target
+    pairs over the whole ring, with no in-pod/cross-pod decomposition,
+    so its leader-flagged lanes flush flat like locals."""
     if kind not in KINDS:
         raise ValueError(f"unknown emission kind {kind!r}: expected one "
                          f"of {KINDS}")
-    chans = channels_for(ctx, n_items)
-    plan = make_flush_plan(n_items, len(chans), ctx.comm.flush)
+    pool = channels_for(ctx, n_items)
+    if kind == "all_to_all":
+        local, leads = list(pool), []
+    else:
+        local = [c for c in pool if not c.leader]
+        leads = [c for c in pool if c.leader]
+    plan = make_flush_plan(n_items, len(local), ctx.comm.flush)
     fills = [ChannelFill(frozenset(g)) for g in plan.groups]
     st = EmitState(ctx=ctx, kind=kind, group=group, unpack=unpack,
-                   plan=plan, chans=chans, fills=fills, staged={},
+                   plan=plan, chans=local, fills=fills, staged={},
                    outs=[None] * n_items)
+    if leads:
+        st.leads = leads
+        st.lplan = make_leader_plan(plan.n_channels, len(leads),
+                                    ctx.comm.flush)
+        st.lfills = [ChannelFill(frozenset(g)) for g in st.lplan.groups]
     if obs_trace.enabled():
         st.span = obs_trace.begin(
-            "emission", kind, items=n_items, channels=len(chans),
-            leaders=0, aggregate=ctx.comm.aggregate, flush=ctx.comm.flush)
+            "emission", kind, items=n_items, channels=len(local),
+            leaders=len(leads), aggregate=ctx.comm.aggregate,
+            flush=ctx.comm.flush)
     return st
 
 
@@ -495,7 +684,7 @@ def flush_ready(st: EmitState) -> list:
                     # barrier flushes it unconditionally
                     current_stats().drops += 1
                     continue
-                if act == "dup":
+                if act == "dup" and not st.leads:
                     current_stats().dups += 1
                     _flush_channel(st, c, shadow=True)
             _flush_channel(st, c)
@@ -505,8 +694,9 @@ def flush_ready(st: EmitState) -> list:
 
 def finish_emission(st: EmitState) -> list:
     """Close the emission: under ``flush="step"`` the end-of-exchange
-    flush loop (every channel flushed, in channel order); under
-    ``"ready"`` everything already went out. Then wait for every issued
+    flush loop (every channel flushed, in channel order, then every
+    leader lane under the leader emission); under ``"ready"`` everything
+    already went out. Then wait for every issued
     collective in issue order and run its completion (the carve, and the
     per-flush unpack stage). Returns the per-item results: for
     ``all_reduce`` the staged buffers, now reduced (with ``unpack``: the
@@ -522,13 +712,21 @@ def finish_emission(st: EmitState) -> list:
                         f"emission incomplete: channel {c} is "
                         f"{fill.watermark:.0%} staged")
                 _flush_channel(st, c)
+        # leader emission, flush="step": the second-level flush loop
+        for lead, fill in enumerate(st.lfills):
+            if not fill.flushed:
+                if not (fill.ready or st.ctx.comm.flush == "step"):
+                    raise RuntimeError(
+                        f"emission incomplete: leader {lead} is "
+                        f"{fill.watermark:.0%} staged")
+                _flush_leader(st, lead)
     if len(st.staged) != st.plan.n_items:
         raise RuntimeError(f"emission incomplete: {len(st.staged)} of "
                            f"{st.plan.n_items} items staged")
-    for work, done in st.pending:
+    for work, done in st.issued:
         work.wait()
         done()
-    st.pending.clear()
+    st.issued.clear()
     if st.span is not None:
         obs_trace.end(st.span)
         st.span = None
@@ -659,11 +857,17 @@ def reduce_wire(wire: torch.Tensor, scale: Optional[torch.Tensor],
 
 def scatter_group(ctx: SyncContext):
     """``(gather_group, group_size)`` of the ZeRO-1 reduce-scatter: the
-    whole ring (the reference's in-pod group under pod-aware collectives
-    comes with the pod topology, ROADMAP.md Queue 1 item 8)."""
+    whole ring. The reference's in-pod group under pod-aware collectives
+    belongs to training over pods, which waits for the train mesh
+    (ROADMAP.md Queue 1 item 8), and raises."""
     if ctx.ring is None:
         raise ValueError("a ZeRO-1 exchange needs the ring's process "
                          "group: SyncContext.ring is None")
+    if ctx.pod_axis is not None:
+        raise NotImplementedError(
+            f"a ZeRO-1 scatter group inside the pods of axis "
+            f"{ctx.pod_axis!r} belongs to training over pods, which waits "
+            "for the train mesh in repro_torch (ROADMAP.md Queue 1 item 8)")
     return ctx.ring.group, ctx.ring.world_size
 
 

@@ -14,8 +14,9 @@ selects the schedule of one exchange:
 
 Both schedules move the same bytes per item and give bit-identical
 results: a sum is elementwise, so grouping changes no element's sum.
-``make_leader_plan`` comes with the pod-aware emission (ROADMAP.md
-Queue 1 item 8).
+:func:`make_leader_plan` is the second level of the pod-aware leader
+emission: local lanes onto the leader lanes that carry their cross-pod
+collective.
 """
 from __future__ import annotations
 
@@ -85,3 +86,28 @@ def make_flush_plan(n_items: int, n_channels: int,
     return FlushPlan(n_items, flush, groups, tuple(triggers),
                      tuple(assign))
 
+
+
+def make_leader_plan(n_local: int, n_leaders: int,
+                     flush: str = "step") -> FlushPlan:
+    """The SECOND level of the hierarchical emission: map the local-lane
+    flushes (the in-pod stages, ids ``0..n_local-1``) onto the leader
+    lanes that carry their coalesced cross-pod collective. The grouping
+    is always contiguous (``ready_groups``): local lanes flush in lane
+    order under both schedules, so contiguous runs give each leader the
+    earliest readiness. ``flush`` only decides the trigger: under
+    ``"ready"`` a leader's cross-pod flush goes out the moment the last
+    local lane assigned to it has staged its in-pod shard; under
+    ``"step"`` leaders flush in the end-of-exchange loop, after every
+    local lane."""
+    _check(flush, n_local=n_local, n_leaders=n_leaders)
+    n_leaders = min(n_leaders, n_local)
+    groups = ready_groups(n_local, n_leaders)
+    assign = [0] * n_local
+    triggers = []
+    for lead, g in enumerate(groups):
+        for c in g:
+            assign[c] = lead
+        triggers.append(max(g))
+    return FlushPlan(n_local, flush, groups, tuple(triggers),
+                     tuple(assign))

@@ -17,9 +17,9 @@ a change of ring size:
 
 The serving half resizes the event-loop fleet at a flush boundary:
 :func:`reshard_event_loops` re-validates the ``ServeConfig`` and
-:func:`reshard_affinity` re-derives the channel partition with minimal
-migration on the flat fabric. Its topology form (leader lanes, pods)
-comes with the pod fabric (ROADMAP.md Queue 1 item 8) and raises.
+:func:`reshard_affinity` re-derives the channel partition, with minimal
+migration on the flat fabric and recomputed in its topology form
+(leader lanes, pods).
 """
 from __future__ import annotations
 
@@ -156,22 +156,21 @@ def reshard_affinity(n_channels: int, old_groups, new_loops: int, *,
     migration: ``(new_groups, moved)``, ``moved`` the sorted channel ids
     whose owning loop changed. Ownership stays disjoint, contiguous and
     covering. The flat fabric migrates minimally
-    (:func:`_minimal_regroup`), else recomputes ``channel_affinity``.
-    The topology form (``leaders > 0`` or ``n_pods > 1``) is not ported
-    and raises."""
+    (:func:`_minimal_regroup`), else recomputes ``channel_affinity``. The
+    topology form (``leaders > 0`` or ``n_pods > 1``) always recomputes
+    ``channel_affinity``'s topology form: pod alignment and leader
+    pinning are worth the extra migrations."""
     from repro_torch.serving.event_loop import channel_affinity
-    if leaders > 0 or n_pods > 1:
-        raise NotImplementedError(
-            f"reshard_affinity(n_pods={n_pods}, leaders={leaders}, "
-            f"leader_loops={leader_loops}) belongs to the pod-aware "
-            "two-level fabric, which is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 item 8)")
     old_groups = tuple(tuple(g) for g in old_groups)
     if new_loops > n_channels:
         channel_affinity(n_channels, new_loops)   # the ownership error
-    new_groups = _minimal_regroup(n_channels, old_groups, new_loops)
+    new_groups = None
+    if leaders <= 0 and n_pods <= 1:
+        new_groups = _minimal_regroup(n_channels, old_groups, new_loops)
     if new_groups is None:
-        new_groups = channel_affinity(n_channels, new_loops)
+        new_groups = channel_affinity(n_channels, new_loops, n_pods=n_pods,
+                                      leaders=leaders,
+                                      leader_loops=leader_loops)
     old_owner = {c: i for i, g in enumerate(old_groups) for c in g}
     moved = tuple(sorted(
         c for i, g in enumerate(new_groups) for c in g

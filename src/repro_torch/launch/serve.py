@@ -3,8 +3,13 @@
 subsystem (EventLoopGroup of decode engines over the CommBackend wire
 and a ring of peers), print the reference CLI's summary lines.
 
-Counterpart of ``repro/launch/serve.py`` but for its pod flags (the pod
-fabric is ROADMAP.md Queue 1 item 8). ``--supervised`` serves under the
+Counterpart of ``repro/launch/serve.py``. ``--pods N`` lays the ring out
+as the two-level fabric (``N`` pods of ``ring size / N`` peers on the
+axis ``--pod-axis``; ``N`` must divide the ring size), and ``--emission
+hierarchical`` turns on the pod-aware leader emission there:
+``--leader-channels`` lanes at the tail of the pool carry the cross-pod
+stage, pinned to the first ``--leader-loops`` loops; the default,
+``flat``, keeps one flat ring over the same peers. ``--supervised`` serves under the
 self-healing supervisor (``serving/supervisor.py``: bounded admission,
 retry/backoff healing, autoscaling between ``--event-loops`` and
 ``--max-loops``); ``--trace-out`` writes the run's span trace as
@@ -69,6 +74,11 @@ CLI::
   python -m repro_torch.launch.serve --device cpu --requests 6 \
       --max-new 4 --tenant chat=qwen2-0.5b-reduced:2 \
       --tenant rnn=rwkv6-7b-reduced:1
+  # the two-level fabric: 2 pods of 2 peers, leader-lane emission
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen2-0.5b-reduced --device cpu --comm-mode hadronio \
+      --aggregate channel --flush ready --requests 6 --max-new 4 \
+      --batch 2 --pods 2 --emission hierarchical
   # self-healing supervisor, traced, with a metrics snapshot
   python -m repro_torch.launch.serve --arch qwen2-0.5b-reduced \
       --device cpu --requests 8 --max-new 4 --event-loops 1 \
@@ -215,6 +225,23 @@ def main(argv=None) -> int:
     p.add_argument("--flush", default="step", choices=CommConfig.FLUSHES,
                    help="channel schedule: flush at the end of the "
                         "emission, or each channel when it fills")
+    # the two-level serving fabric (pod topology)
+    p.add_argument("--pods", type=int, default=1,
+                   help="pod count of the two-level fabric; must divide "
+                        "the ring size (1 = flat ring)")
+    p.add_argument("--pod-axis", default="pod",
+                   help="the ring's name for the pod axis")
+    p.add_argument("--leader-loops", type=int, default=1,
+                   help="event loops pinned to the cross-pod leader lanes")
+    p.add_argument("--leader-channels", type=int, default=1,
+                   help="channels carved from the pool tail as dedicated "
+                        "cross-pod leader lanes")
+    p.add_argument("--emission", default="flat",
+                   choices=("flat", "hierarchical"),
+                   help="flat: one-level ring collectives over all peers; "
+                        "hierarchical: pod-aware two-level leader-channel "
+                        "emission (the same tokens, another wire "
+                        "structure)")
     # the self-healing supervisor (serving/supervisor.py)
     p.add_argument("--supervised", action="store_true",
                    help="run under the Supervisor: failure detection, "
@@ -269,13 +296,19 @@ def main(argv=None) -> int:
             args.event_loops = sum(t.event_loops for t in tenants)
     else:
         cfg = get_config(args.arch)
+    # no silent clamping: ServeConfig raises its own errors when the
+    # loops cannot own disjoint runs, the pod topology cannot be honoured
+    # or the tenant loops do not sum to the fleet; Ring rejects pods that
+    # do not divide the ring
     serve = ServeConfig(event_loops=args.event_loops, poll=args.poll,
                         max_batch=args.batch, max_len=args.max_len,
-                        tenants=tenants,
-                        comm=CommConfig(mode=args.comm_mode,
-                                        channels=args.channels,
-                                        aggregate=args.aggregate,
-                                        flush=args.flush))
+                        pods=args.pods, pod_axis=args.pod_axis,
+                        leader_loops=args.leader_loops, tenants=tenants,
+                        comm=CommConfig(
+                            mode=args.comm_mode, channels=args.channels,
+                            aggregate=args.aggregate, flush=args.flush,
+                            hierarchical=args.emission == "hierarchical",
+                            leader_channels=args.leader_channels))
     if args.trace_out:
         obs.enable()
     own_group = not dist.is_initialized()
@@ -289,7 +322,8 @@ def main(argv=None) -> int:
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
     try:
-        ring = Ring(channels=args.channels)
+        ring = Ring(channels=args.channels, pods=args.pods,
+                    pod_axis=args.pod_axis if args.pods > 1 else None)
         if tenants:
             # one seeded init per tenant, as the reference's
             params = {t.name: api.init(torch.Generator(device=device)
@@ -315,6 +349,11 @@ def main(argv=None) -> int:
         else:
             group = make_engine_group(cfg, params, serve, seed=args.seed,
                                       device=device, ring=ring)
+        if args.pods > 1 and ring.rank == 0:
+            print(f"[serve] two-level fabric: pods={args.pods} "
+                  f"(axis {args.pod_axis!r}), emission={args.emission}, "
+                  f"leader lanes={args.leader_channels} -> "
+                  f"loops 0..{args.leader_loops - 1}, mesh={ring.shape}")
         reqs = make_requests(cfg, args.requests, max_new=args.max_new,
                              temperature=args.temperature, seed=args.seed)
         t0 = time.time()

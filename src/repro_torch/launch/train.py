@@ -280,6 +280,7 @@ def build_run(args) -> RunConfig:
     shape = ShapeConfig(name="cli", kind="train", seq_len=args.seq_len,
                         global_batch=args.global_batch)
     comm = CommConfig(mode=args.mode, slice_bytes=args.slice_bytes,
+                      hierarchical=not args.flat_collectives,
                       compress=args.compress, pack=args.pack,
                       aggregate=args.aggregate, flush=args.flush)
     return RunConfig(model=cfg, shape=shape, comm=comm, lr=args.lr,
@@ -319,6 +320,11 @@ def main(argv=None) -> int:
                         "at one end-of-exchange loop, 'ready' each channel "
                         "when its last slice is staged")
     p.add_argument("--slice-bytes", type=int, default=4 * 1024 * 1024)
+    p.add_argument("--flat-collectives", action="store_true",
+                   help="CommConfig.hierarchical=False: a pod axis, where "
+                        "there is one, is folded into one flat ring (the "
+                        "trainer's ring has none until the train mesh is "
+                        "ported)")
     p.add_argument("--microbatches", type=int, default=1,
                    help="gradient accumulation: each peer's batch in this "
                         "many sequential microbatches, one exchange a step")

@@ -41,6 +41,15 @@ channel affinity on ``gspmd`` at ring size 1 the step is the pure local
 path (nothing to wire), as in the reference. Serving payloads are
 activations, so wire compression is rejected. There is no jit and no
 step cache: PyTorch runs eagerly.
+
+The two-level fabric: a ring with a pod axis (``Ring(pods=...,
+pod_axis=...)``, the reference's ``(pod, "data")`` serve mesh) is
+detected, or named by ``pod_axis``; under ``comm.hierarchical`` the
+context is pod-aware, so the decode logit all-reduce and the prefill
+gathering write of the hadronio family run in-pod stages on local lanes
+and the cross-pod collective on the leader lanes
+(``pipeline``'s leader emission). ``ServeStep`` reports the resolved
+``pod_axis`` (None when the emission is flat) and ``n_pods``.
 """
 from __future__ import annotations
 
@@ -67,6 +76,9 @@ class ServeStep(NamedTuple):
     n_shards: int                 # ring size: batch rows padded to a multiple
     comm: CommConfig
     channel_indices: Optional[tuple]
+    pod_axis: Optional[str] = None   # resolved pod axis (None = flat ring:
+    #                               no pod axis, or hierarchical off)
+    n_pods: int = 1
 
 
 def validate_serve_comm(comm: CommConfig):
@@ -83,28 +95,45 @@ def validate_serve_comm(comm: CommConfig):
 
 def make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
                     ring: Optional[Ring] = None,
-                    channel_indices: Optional[tuple] = None) -> ServeStep:
+                    channel_indices: Optional[tuple] = None,
+                    pod_axis: Optional[str] = None) -> ServeStep:
     """The serve step for one (model, comm, ring, affinity) combination.
     ``ring`` is the ring of peers (None = one peer with no process
     group); ``channel_indices`` is the emitting event loop's owned run of
-    the channel pool (None = the full pool). A ``build`` span covers it
-    when tracing is on (once per engine: there is no step cache)."""
+    the channel pool (None = the full pool); ``pod_axis`` names the
+    ring's pod axis (None: detect it). A ``build`` span covers it when
+    tracing is on (once per engine: there is no step cache)."""
     if not obs_trace.enabled():
         return _make_serve_step(cfg, comm, ring=ring,
-                                channel_indices=channel_indices)
+                                channel_indices=channel_indices,
+                                pod_axis=pod_axis)
     with obs_trace.span("build", f"serve_step:{cfg.name}",
                         mode=comm.mode, channels=comm.channels):
         return _make_serve_step(cfg, comm, ring=ring,
-                                channel_indices=channel_indices)
+                                channel_indices=channel_indices,
+                                pod_axis=pod_axis)
 
 
 def _make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
                      ring: Optional[Ring] = None,
-                     channel_indices: Optional[tuple] = None) -> ServeStep:
+                     channel_indices: Optional[tuple] = None,
+                     pod_axis: Optional[str] = None) -> ServeStep:
     backend = validate_serve_comm(comm)
     cache_layout.layout_for(cfg.family)
     chans = tuple(channel_indices) if channel_indices is not None else None
     one = ring is None
+    axes = ("data",) if one else ring.axes
+    pod = pod_axis if pod_axis is not None else \
+        (None if one else ring.pod_axis)
+    if pod is not None and pod not in axes:
+        raise ValueError(f"pod_axis={pod!r} is not a mesh axis of {axes}")
+    if pod is not None and not tuple(a for a in axes if a != pod):
+        raise ValueError(
+            f"mesh {axes} has only the pod axis; the two-level fabric "
+            "needs an in-pod data axis (a Ring with pod_axis has one)")
+    if pod is not None and pod != ring.pod_axis:
+        raise ValueError(f"pod_axis={pod!r} is the ring's in-pod axis; its "
+                         f"pod axis is {ring.pod_axis!r}")
     ctx = SyncContext(comm, world_size=1 if one else ring.world_size,
                       rank=0 if one else ring.rank, channel_indices=chans,
                       ring=ring)
@@ -197,7 +226,8 @@ def _make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
                                expert_fn=expert_fn)
 
     return ServeStep(prefill=prefill, decode=decode, n_shards=n_shards,
-                     comm=comm, channel_indices=chans)
+                     comm=comm, channel_indices=chans, pod_axis=ctx.pod_axis,
+                     n_pods=ring.pods if pod is not None else 1)
 
 
 def logit_payload_slices(cfg: ModelConfig, batch: int,

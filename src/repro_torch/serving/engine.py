@@ -41,7 +41,9 @@ Counterpart of ``repro/serving/engine.py``.
   ``admission`` around each batched admission, when tracing is on.
 * :func:`make_engine_group` takes an explicit channel ``affinity`` (the
   elastic reshard's partition) and ``ServeConfig.tenants``: contiguous
-  per-tenant loop ranges, ``cfg``/``params`` single or per tenant.
+  per-tenant loop ranges, ``cfg``/``params`` single or per tenant; with
+  ``ServeConfig.pods`` it is topology-aware (a pod ring, leader lanes
+  pinned to the leader loops).
 """
 from __future__ import annotations
 
@@ -135,7 +137,8 @@ class DecodeEngine:
         self.admission_gate = None
         if serve is not None:
             self.step = dispatch.make_serve_step(
-                cfg, serve.comm, ring=ring, channel_indices=channel_indices)
+                cfg, serve.comm, ring=ring, channel_indices=channel_indices,
+                pod_axis=serve.pod_axis if serve.pods > 1 else None)
             self._prefill = self.step.prefill
             self._decode = self.step.decode
             self.n_shards = self.step.n_shards
@@ -431,8 +434,26 @@ def make_engine_group(cfg: Any, params: Any, serve: ServeConfig, *,
     Over a ring of more than one peer, drain the group inline
     (``run(threads=False)``): every peer must issue each loop's
     collectives in the same order, and threads sharing the ring's group
-    would interleave them differently on each peer."""
+    would interleave them differently on each peer.
+
+    With ``serve.pods > 1`` the group is TOPOLOGY-AWARE: ``ring`` must
+    have that many pods on the axis ``serve.pod_axis`` (without a ring
+    one is built over the default group: ``pods`` must divide its size),
+    and under ``comm.hierarchical`` the computed affinity pins the pool's
+    leader lanes to the first ``serve.leader_loops`` loops while each
+    loop's local lanes stay in one pod block (``channel_affinity``'s
+    topology form). The ring the loops share is ``group.ring``; one built
+    here is the caller's to close."""
     dev = resolve_device(device)
+    if serve.pods > 1:
+        if ring is None:
+            ring = Ring(channels=serve.comm.channels, pods=serve.pods,
+                        pod_axis=serve.pod_axis)
+        elif (ring.pods, ring.pod_axis) != (serve.pods, serve.pod_axis):
+            raise ValueError(
+                f"serve.pods={serve.pods} on axis {serve.pod_axis!r} does "
+                f"not match the ring's {ring.pods} pods on axis "
+                f"{ring.pod_axis!r}")
     if affinity is not None:
         affinity = tuple(tuple(g) for g in affinity)
         owned = sorted(c for g in affinity for c in g)
@@ -443,6 +464,12 @@ def make_engine_group(cfg: Any, params: Any, serve: ServeConfig, *,
                 f"explicit affinity {affinity} must partition channels "
                 f"0..{serve.comm.channels - 1} into {serve.event_loops} "
                 "nonempty disjoint groups")
+    elif serve.pods > 1 and serve.comm.hierarchical:
+        affinity = channel_affinity(
+            serve.comm.channels, serve.event_loops, n_pods=serve.pods,
+            leaders=min(serve.comm.leader_channels,
+                        serve.comm.channels - 1),
+            leader_loops=serve.leader_loops)
     else:
         affinity = channel_affinity(serve.comm.channels, serve.event_loops)
     bindings = []
@@ -488,4 +515,4 @@ def make_engine_group(cfg: Any, params: Any, serve: ServeConfig, *,
         loop.engine = eng
         loop.runner = lambda _loop, items, eng=eng: eng.generate(items)
         loops.append(loop)
-    return EventLoopGroup(loops, tenants=bindings or None)
+    return EventLoopGroup(loops, tenants=bindings or None, ring=ring)

@@ -15,7 +15,9 @@ Counterpart of ``repro/serving/event_loop.py``:
   per tenant in weighted-fair stride order, and ``run()`` drains every
   loop, one OS thread per loop under ``threads=True``.
 * :func:`channel_affinity` — disjoint contiguous runs of the channel
-  pool, balanced to within one (``core.selector.ready_groups``).
+  pool, balanced to within one (``core.selector.ready_groups``); its
+  topology form pins the pool's leader lanes to the leader loops and
+  keeps every loop's local lanes inside one pod block.
 
 The chaos seams (``serving/chaos.py``) are the reference's:
 ``Poller.fault`` (consulted once at the top of every wait),
@@ -23,9 +25,7 @@ The chaos seams (``serving/chaos.py``) are the reference's:
 runner), heartbeats, ``restart()`` with lifetime poll stats, and
 structured :class:`LoopFailure` records on the group. Each drained
 batch runs inside a ``drain`` span when tracing is on
-(``obs/trace.py``). The topology form of :func:`channel_affinity`
-(leader lanes, pods) comes with the pod fabric (ROADMAP.md Queue 1 item
-8).
+(``obs/trace.py``).
 """
 from __future__ import annotations
 
@@ -37,23 +37,51 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-from repro_torch.core.selector import ready_groups
+from repro_torch.core.selector import pod_aligned_groups, ready_groups
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import RingLog
 
 POLLS = ("busy", "park", "adaptive")
 
 
-def channel_affinity(n_channels: int, n_loops: int) -> tuple:
+def channel_affinity(n_channels: int, n_loops: int, *, n_pods: int = 1,
+                     leaders: int = 0, leader_loops: int = 1) -> tuple:
     """Each event loop's owned channels: ``n_loops`` disjoint contiguous
     runs covering ``0..n_channels-1``. Raises when a loop would own
-    nothing."""
-    if n_loops > n_channels:
+    nothing.
+
+    The topology form (``leaders > 0``) backs the two-level fabric: the
+    pool's LAST ``leaders`` channels are the cross-pod leader lanes
+    (``pipeline._leader_split`` carves the same tail), appended to the
+    runs of the first ``leader_loops`` loops; the remaining local lanes
+    are partitioned with ``selector.pod_aligned_groups``, so a loop's
+    locals never straddle a pod block and only leader loops touch the
+    scarce link. Ownership stays disjoint and covering."""
+    if leaders <= 0:
+        if n_loops > n_channels:
+            raise ValueError(
+                f"{n_loops} event loops over {n_channels} channels: every "
+                "loop must own at least one channel (disjoint ownership); "
+                "raise comm.channels or lower event_loops")
+        return ready_groups(n_channels, n_loops)
+    n_local = n_channels - leaders
+    if n_loops > n_local:
         raise ValueError(
-            f"{n_loops} event loops over {n_channels} channels: every "
-            "loop must own at least one channel (disjoint ownership); "
-            "raise comm.channels or lower event_loops")
-    return ready_groups(n_channels, n_loops)
+            f"{n_loops} event loops over {n_local} local channels "
+            f"({n_channels} minus {leaders} leader lanes): every loop "
+            "must own at least one LOCAL channel (the in-pod stages are "
+            "what loops emit); raise comm.channels or lower event_loops")
+    if not 1 <= leader_loops <= n_loops:
+        raise ValueError(
+            f"leader_loops={leader_loops} must be in 1..{n_loops} "
+            "(a leader lane needs an owning loop, and only existing "
+            "loops can own one)")
+    groups = [list(g) for g in pod_aligned_groups(
+        n_local, n_loops, min(n_pods, n_local))]
+    for lp, run in enumerate(ready_groups(leaders,
+                                          min(leader_loops, leaders))):
+        groups[lp].extend(n_local + i for i in run)
+    return tuple(tuple(g) for g in groups)
 
 
 @dataclass
@@ -268,13 +296,16 @@ class EventLoopGroup:
     (``tenant`` empty or absent) ride the first tenant; an unknown
     tenant name raises.
 
-    ``loop_failures`` counts loops whose drain raised, across runs;
+    ``ring`` is the ring of peers the loops' engines emit over
+    (``engine.make_engine_group`` passes it; None = one peer, no process
+    group). ``loop_failures`` counts loops whose drain raised, across
+    runs;
     ``failures`` holds their :class:`LoopFailure` records in the order
     they were observed."""
 
     def __init__(self, loops: Sequence[EventLoop],
                  tenants: Optional[Sequence] = None, *,
-                 dispatch_log_capacity: int = 65536):
+                 dispatch_log_capacity: int = 65536, ring: Any = None):
         if not loops:
             raise ValueError("an EventLoopGroup needs at least one loop")
         owned = [c for l in loops for c in l.channels]
@@ -282,6 +313,7 @@ class EventLoopGroup:
             raise ValueError("channel ownership must be disjoint: "
                              f"{[l.channels for l in loops]}")
         self.loops = list(loops)
+        self.ring = ring               # the ring the loops' engines share
         self._rr = 0
         self.tenants = tuple(tenants) if tenants else ()
         self._torder = [t[0] for t in self.tenants]

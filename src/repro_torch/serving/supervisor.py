@@ -276,6 +276,7 @@ class Supervisor:
             self.cfg, self.params, self.serve, device=self.device,
             ring=self.ring, eos_id=self.eos_id, seed=self.seed,
             affinity=self._affinity)
+        self.ring = self._group.ring   # a pod ring built there is reused
         if self.fleet_hook is not None:
             self.fleet_hook(self._group)
         for l in self._group.loops:
@@ -568,10 +569,15 @@ class Supervisor:
             l.queue.clear()
         self._poll_accum = self._poll_accum.merge(g.poll_stats())
         self.serve = reshard_event_loops(self.serve, new_loops)
-        # the flat fabric only: the pod-aware form waits with the pod
-        # fabric (ROADMAP.md Queue 1 item 8)
+        kwargs = {}
+        if self.serve.pods > 1 and self.serve.comm.hierarchical:
+            kwargs = dict(
+                n_pods=self.serve.pods,
+                leaders=min(self.serve.comm.leader_channels,
+                            self.serve.comm.channels - 1),
+                leader_loops=self.serve.leader_loops)
         new_aff, moved = reshard_affinity(
-            self.serve.comm.channels, old_aff, new_loops)
+            self.serve.comm.channels, old_aff, new_loops, **kwargs)
         self._affinity = new_aff
         self._build_group()
         if carry:

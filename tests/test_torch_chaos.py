@@ -121,8 +121,20 @@ def test_reshard_affinity_matches_reference(n_channels):
                 continue
             assert elastic.reshard_affinity(n_channels, groups, new) == \
                 jelastic.reshard_affinity(n_channels, groups, new)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        elastic.reshard_affinity(n_channels, ((0,),), 1, leaders=1)
+    # the topology form (leader lanes, pods) recomputes, as the reference's
+    for leaders, n_pods in ((1, 1), (1, 2), (2, 2)):
+        old = (tuple(range(n_channels)),)
+        for new in range(1, n_channels + 1):
+            kw = dict(n_pods=n_pods, leaders=leaders, leader_loops=1)
+            try:
+                want = jelastic.reshard_affinity(n_channels, old, new, **kw)
+            except ValueError as e:
+                with pytest.raises(ValueError) as got:
+                    elastic.reshard_affinity(n_channels, old, new, **kw)
+                assert str(got.value) == str(e)
+                continue
+            assert elastic.reshard_affinity(n_channels, old, new,
+                                            **kw) == want
 
 
 def test_reshard_event_loops_revalidates():

@@ -20,9 +20,10 @@ reference, case for case with ``tests/test_obs.py``:
   ``repro.obs.baseline``'s on the same rows (its command line,
   ``benchmarks/bench_diff.py``, stays the reference's).
 
-The reference's ``test_leader_flush_nests_inside_local_flush`` has no
-counterpart until the two-level leader emission is ported (ROADMAP.md
-Queue 1 item 8): the port records no ``leader_flush`` span yet."""
+The reference's ``test_leader_flush_nests_inside_local_flush`` has its
+counterpart with the pod fabric's tests, in
+``tests/test_torch_topology.py`` (``test_emit_flat_on_degenerate_pod_ring``
+and ``test_pod_ring_leader_flush_nested``)."""
 import json
 
 import jax
