@@ -264,7 +264,27 @@ non-zero (no phase's failure is caught):
    well-formed, none evicted; (d) walls on the host clock beside phase
    10b's flat baseline, the flash count, the card's free memory and
    PyTorch's peak before and after the pod ring's communicators;
-13. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+13. the analysis layer (``launch/hlo_analysis``) and the dry run
+   (``analysis_phase``): (a) phase 5's step (qwen2-0.5b, S=1024, B=4,
+   ``hadronio``, ``bf16``, ``pallas``) recorded once through a new
+   ``Trainer``: its collectives by kind and result bytes those of the
+   ring plan (one all-reduce per slice of bf16 wire, and the loss's), one
+   pack and one unpack launch; its counted FLOPs against ``model_flops``,
+   its memory, the median of steps 2-5 unrecorded, ``roofline_terms`` and
+   the compute share at the data sheet's bf16 peak; (b) on phase 4b's
+   ring with phase 10b's params, a recorded ``hadronio`` prefill (B=2,
+   S=1024) and decode step, each with its first collective inside the op
+   stream, 24 flash launches in the prefill, ``gspmd``'s local decode
+   with no collective; (d) two ``hadronio_rs`` steps on
+   ``Ring(channels=4, pods=1, pod_axis="pod")`` and on a flat ring,
+   losses bitwise equal; (c) meanwhile, as subprocesses started after
+   (a)'s timing, the dry run of qwen2-0.5b x train_4k: ``hadronio`` on
+   256 fake peers, on 2 pods of 256 (global batch 512, ``channel``) with
+   the leader emission and flat, all ``ok``, the leader emission issuing
+   fewer cross-pod collectives than the flat one, and ``gspmd`` recorded
+   as ``fail`` with its named error; each run's seconds and memory
+   estimate printed;
+14. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -287,9 +307,12 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-H100_BF16_FLOPS = 989e12     # dense tensor-core peak, NVIDIA data sheet (SXM)
-H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
-H100_BYTES_S = 3.35e12       # HBM3
+# the card's data-sheet peaks, from the analysis layer (one source)
+from repro_torch.launch import hlo_analysis as _hlo  # noqa: E402
+
+H100_BF16_FLOPS = _hlo.PEAK_FLOPS   # dense tensor-core peak (SXM)
+H100_F32_FLOPS = 67e12              # f32 outside the tensor cores
+H100_BYTES_S = _hlo.HBM_BW          # HBM3
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False,
@@ -2844,6 +2867,272 @@ def serve_pods(smi, params, base, flat_wall, dev) -> int:
     return total
 
 
+DRYRUN_ARCH = "qwen2-0.5b"
+DRYRUNS = (("pod", ["--mode", "hadronio"]),
+           ("multipod", ["--mode", "hadronio", "--mesh", "multipod",
+                         "--global-batch", "512", "--aggregate", "channel"]),
+           ("multipod flat", ["--mode", "hadronio", "--mesh", "multipod",
+                              "--global-batch", "512", "--aggregate",
+                              "channel", "--flat-collectives"]),
+           ("gspmd", ["--mode", "gspmd"]))
+
+
+def start_dryruns(out_dir: str) -> dict:
+    """Phase 13c's dry runs of ``DRYRUN_ARCH`` x train_4k (``DRYRUNS``:
+    hadronio on the 256-peer pod, on 2 pods of 256 with the leader
+    emission and flat, and gspmd), one subprocess each, started together,
+    each with its own ``--out`` under ``out_dir``, the card hidden (a
+    fake process group and fake tensors compute nothing) and one CPU
+    thread. Returns {label: (process, out dir, start time)}."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONWARNINGS="ignore")
+    procs = {}
+    for label, extra in DRYRUNS:
+        out = os.path.join(out_dir, label.replace(" ", "_"))
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", "train_4k", "--out", out] + extra,
+            cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out, time.perf_counter())
+    return procs
+
+
+def finish_dryruns(smi, procs: dict, timeout_s: float = 600.0) -> None:
+    """Phase 13c: wait for ``start_dryruns``' processes (every one still
+    running at ``timeout_s`` is killed and fails the phase) and check
+    their artifacts: the three hadronio runs ``ok``, the leader emission
+    over 2 pods issuing fewer cross-pod collectives
+    (``cross_pod_collective_count`` at 256 peers a pod) than the flat
+    schedule, and gspmd recorded as ``fail`` with the GSPMD family's
+    named error, rc 1. Prints each run's wall and traced seconds, its
+    collectives, counted FLOPs and memory estimate."""
+    from repro_torch.launch import dryrun
+    ends, deadline = {}, time.perf_counter() + timeout_s
+    try:
+        while len(ends) < len(procs):
+            for label, (proc, _, _) in procs.items():
+                if label not in ends and proc.poll() is not None:
+                    ends[label] = time.perf_counter()
+            assert time.perf_counter() < deadline, \
+                f"dry runs still running after {timeout_s} s"
+            time.sleep(0.2)
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    arts = {}
+    for label, (proc, out, t0) in procs.items():
+        log = proc.stdout.read()
+        mesh = "multipod" if label.startswith("multipod") else "pod"
+        mode = "gspmd" if label == "gspmd" else "hadronio"
+        with open(dryrun.artifact_path(DRYRUN_ARCH, "train_4k", mesh, mode,
+                                       out)) as f:
+            art = arts[label] = json.load(f)
+        wall = ends[label] - t0
+        if label == "gspmd":
+            assert proc.returncode == 1 and art["status"] == "fail", log
+            assert "GSPMD step family" in art["error"], art["error"]
+            print(f"[dryrun] gspmd: status fail, rc 1, {wall:.1f} s wall: "
+                  f"{art['error'][:100]}")
+            continue
+        assert proc.returncode == 0 and art["status"] == "ok", log[-3000:]
+        mem, coll, cp = (art["memory_analysis"], art["collectives"],
+                         art["cross_pod"])
+        print(f"[dryrun] {label} ({art['n_chips']} fake peers, global "
+              f"batch {art['global_batch']}, aggregate "
+              f"{art['comm']['aggregate']}, hierarchical "
+              f"{art['comm']['hierarchical']}): status ok, {wall:.1f} s "
+              f"wall, traced step {art['compile_seconds']} s; collectives "
+              f"{coll['counts']} {coll['total_bytes']} B, cross-pod "
+              f"{cp['cross_pod']} in-pod {cp['in_pod']}; counted FLOPs "
+              f"{art['cost_analysis']['flops']:.4e} vs model "
+              f"{art['model_flops_per_chip']:.4e} per peer (useful "
+              f"{art['useful_flops_ratio']:.4f}); memory estimate: "
+              f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, "
+              f"temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB, peak "
+              f"{mem['peak_size_in_bytes'] / 1e9:.3f} GB; roofline "
+              f"bottleneck {art['roofline']['bottleneck']} (data-sheet "
+              f"figures) | {smi}")
+    hier = arts["multipod"]["cross_pod"]["cross_pod_total"]
+    flat = arts["multipod flat"]["cross_pod"]["cross_pod_total"]
+    print(f"[dryrun] 2 pods x 256: cross-pod collectives per step, leader "
+          f"emission {hier}, flat {flat}")
+    assert 0 < hier < flat, (hier, flat)
+
+
+def analysis_phase(smi, params, ring, dev) -> dict:
+    """Phase 13: the analysis layer (``launch/hlo_analysis``) on the card,
+    and the dry run. (a) qwen2-0.5b at full width, phase 5's step
+    (S=1024, B=4, ``hadronio``, ``bf16``, ``pallas``, one peer) through a
+    ``Trainer``: one step recorded, its collectives by kind and result
+    bytes those of the ring plan (``n_slices`` all-reduces of a slice's
+    bf16 wire, and the loss's), pack and unpack launched once each; its
+    counted FLOPs against ``model_flops``, its memory, the median of
+    steps 2-5 of an unrecorded run, ``roofline_terms`` and the compute
+    share ``model_flops / (t * PEAK_FLOPS)``. Then the dry runs start
+    (``start_dryruns``). (b) on phase 4b's ``ring`` with ``params``
+    (qwen2-0.5b, bf16): one recorded ``hadronio`` prefill (B=2, S=1024)
+    and decode step, each with a collective position ``0 < first <
+    total``, 24 flash launches in the prefill (the recorder hides no
+    kernel), and ``gspmd``'s local decode with none. (d) two
+    ``hadronio_rs`` steps (``bf16``, ``pallas``) on the degenerate pod
+    ring ``Ring(channels=4, pods=1, pod_axis="pod")`` (two-level
+    collectives, the in-pod ZeRO-1 group) and on a flat ring from one
+    state: losses bitwise equal. (c) ``finish_dryruns``. Returns the
+    kernel launches of the phase."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core.channels import Ring
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import api
+    from repro_torch.serving import dispatch
+    cfg = get_config("qwen2-0.5b")
+    shape = ShapeConfig("smoke", "train", seq_len=1024, global_batch=4)
+    launches = {"pack_slices": 0, "unpack_slices": 0, "flash_attention": 0}
+
+    def counted(fn):
+        """``fn()`` with the three wrappers' launches added to
+        ``launches``; returns (its result, its launches)."""
+        for name in launches:
+            getattr(ops, name).launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: getattr(ops, name).launches for name in launches}
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    def train_run(mode):
+        return RunConfig(model=cfg, shape=shape, total_steps=5,
+                         warmup_steps=1, seed=0,
+                         comm=CommConfig(mode=mode, channels=4,
+                                         compress="bf16", pack="pallas"))
+
+    # -- a. one recorded train step against the ring plan -------------------
+    release_memory("before phase 13's trainer")
+    run = train_run("hadronio")
+    trainer = Trainer(run, device=dev, log_every=10)
+    try:
+        state = trainer.init_state()
+        batches = [trainer.batch(i) for i in range(2)]
+        prof, got = counted(lambda: hlo.profile(trainer.step_fn, state,
+                                                batches[0]))
+        plan = agg.make_plan(state.params, run.comm)
+        wire = torch.finfo(torch.bfloat16).bits // 8
+        loss = prof.out[1]["loss"]
+        coll = hlo.collective_stats(prof.log)
+        want = ({"all-reduce": plan.n_slices + 1},
+                {"all-reduce": plan.n_slices * plan.slice_elems * wire
+                 + loss.numel() * loss.element_size()})
+        flops, mem = prof.flops, prof.memory
+        cost = hlo.costs(prof)
+        print(f"[analysis] recorded train step: {len(prof.log)} ops, "
+              f"collectives {coll.counts} {coll.bytes_} B; the ring plan: "
+              f"{plan.n_slices} slices x {plan.slice_elems} elems x {wire} "
+              f"B + the loss's {loss.element_size()} B; launches {got}; "
+              f"memory {mem}")
+        assert (coll.counts, coll.bytes_) == want, (coll.as_dict(), want)
+        assert got == {"pack_slices": 1, "unpack_slices": 1,
+                       "flash_attention": 0}, got
+        del prof, loss
+        out, got = counted(lambda: trainer.run_loop(state))
+        assert got == {"pack_slices": 5, "unpack_slices": 5,
+                       "flash_attention": 0}, got
+        assert all(np.isfinite(out["losses"])), out["losses"]
+        t_s = statistics.median(out["step_s"][1:])
+        del out
+    finally:
+        trainer.close()
+    mf = hlo.model_flops(cfg, shape)
+    terms = hlo.roofline_terms(
+        flops=mf, hbm_bytes=hlo.analytic_hbm_bytes(cfg, shape, 1, tp=1,
+                                                   dp=1),
+        collective_bytes=coll.total_bytes, n_chips=1)
+    print(f"[analysis] qwen2-0.5b train step (B=4, S=1024, hadronio/bf16/"
+          f"pallas): counted FLOPs {flops:.6e}, model_flops {mf:.6e} "
+          f"(counted / model {flops / mf:.4f}); pre-fusion bytes_accessed "
+          f"{cost['bytes_accessed']:.6e}; median step (steps 2-5, not "
+          f"recorded) {t_s * 1e3:.2f} ms; roofline at the data sheet's "
+          f"peaks {terms}; compute share model_flops / (t x PEAK_FLOPS) "
+          f"{mf / (t_s * hlo.PEAK_FLOPS):.4f} | {smi}")
+    assert flops > mf > 0
+
+    dry = start_dryruns(os.path.join(HERE, "build", "dryrun"))
+    try:
+        # -- b. the served path's emission position -------------------------
+        toks = torch.randint(cfg.vocab_size, (2, 1024), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(13))
+        big = {"tokens": toks,
+               "last_pos": torch.full((2,), 1023, device=dev)}
+        wired = dispatch.make_serve_step(cfg, CommConfig(
+            mode="hadronio", channels=4), ring=ring)
+        local = dispatch.make_serve_step(cfg, CommConfig(mode="gspmd"))
+        with hlo.record() as plog:
+            (lp, cache), got = counted(lambda: wired.prefill(params, big))
+        assert got["flash_attention"] == cfg.num_layers, got
+        cache = api.grow_cache(cfg, cache, 1040)
+        dec = {"token": lp.argmax(-1),
+               "pos": torch.full((2,), 1024, device=dev)}
+        pos = {"hadronio prefill": hlo.first_collective_position(plog)}
+        for label, step in (("hadronio decode", wired),
+                            ("gspmd local decode", local)):
+            with hlo.record() as log:
+                step.decode(params, cache, dec)
+            torch.cuda.synchronize()
+            pos[label] = hlo.first_collective_position(log)
+        print(f"[analysis] served qwen2-0.5b (B=2, S=1024) on the one-peer "
+              f"ring: first collective position {pos}; flash launches in "
+              f"the recorded prefill {got['flash_attention']} | {smi}")
+        for label in ("hadronio prefill", "hadronio decode"):
+            first, total = pos[label]
+            assert 0 < first < total, (label, pos[label])
+        assert pos["gspmd local decode"] is None, pos
+        del lp, cache, dec, big
+
+        # -- d. the degenerate pod ring: hadronio_rs bitwise the flat ring's
+        rs = train_run("hadronio_rs")
+        release_memory("before phase 13's pod ring")
+        losses = {}
+        for label in ("flat", "pod"):
+            r = Ring(channels=4) if label == "flat" else Ring(
+                channels=4, pods=1, pod_axis="pod")
+            try:
+                step = steps_mod.make_train_step(rs, r)
+                st = steps_mod.tac_state(state.params, rs,
+                                         pod_size=r.pods)
+                ls = []
+                for b in batches:
+                    (st, metrics), got = counted(lambda: step(st, b))
+                    assert got["pack_slices"] == 1 and \
+                        got["unpack_slices"] == 1, (label, got)
+                    ls.append(metrics["loss"])
+                losses[label] = ls
+                del st
+            finally:
+                r.close()
+        print(f"[analysis] hadronio_rs/bf16/pallas, 2 steps: losses "
+              f"{[float(x) for x in losses['pod']]} on Ring(pods=1, "
+              f"pod_axis='pod'), {[float(x) for x in losses['flat']]} flat "
+              f"| {smi}")
+        assert all(torch.equal(a, b) for a, b in zip(losses["pod"],
+                                                     losses["flat"]))
+        del state, batches
+    except BaseException:
+        for proc, _, _ in dry.values():     # stop them, then fail
+            proc.kill()
+            proc.wait()
+        raise
+    # -- c. the dry runs ----------------------------------------------------
+    finish_dryruns(smi, dry)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3709,10 +3998,13 @@ def main() -> int:
 
     # -- 12. the two-level pod fabric ------------------------------------------
     pod_flash = serve_pods(smi, chaos_params, chaos_base, chaos_wall, dev)
+
+    # -- 13. the analysis layer and the dry run --------------------------------
+    an = analysis_phase(smi, chaos_params, ring, dev)
     del ring, chaos_params
     dist.destroy_process_group()
 
-    # -- 13. result lines -----------------------------------------------------
+    # -- 14. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -3721,7 +4013,7 @@ def main() -> int:
          "launches": launches + ring_flash + rg_launches["flash_attention"]
          + fam_flash + encvlm_flash + ckpt_flash
          + ten_launches["flash_attention"] + chaos_flash + sup_flash
-         + pod_flash,
+         + pod_flash + an["flash_attention"],
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
@@ -3738,7 +4030,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/ring_pack.py:61",
          "launches": train_launches["pack_slices"]
          + vma_launches["pack_slices"] + family_launches["pack_slices"]
-         + ft_launches["pack_slices"] + fam_train["pack_slices"],
+         + ft_launches["pack_slices"] + fam_train["pack_slices"]
+         + an["pack_slices"],
          "max_abs_err": pack_err,
          "ms": rp["pack_ef"]["ms"], "plain_ms": rp["pack_ef"]["plain_ms"],
          "bound_ms": rp["pack_ef"]["bound_ms"], "bound_by": "bytes",
@@ -3748,7 +4041,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/ring_pack.py:100",
          "launches": train_launches["unpack_slices"]
          + vma_launches["unpack_slices"] + family_launches["unpack_slices"]
-         + ft_launches["unpack_slices"] + fam_train["unpack_slices"],
+         + ft_launches["unpack_slices"] + fam_train["unpack_slices"]
+         + an["unpack_slices"],
          "max_abs_err": unpack_err,
          "ms": rp["unpack"]["ms"], "plain_ms": rp["unpack"]["plain_ms"],
          "bound_ms": rp["unpack"]["bound_ms"], "bound_by": "bytes",

@@ -80,6 +80,14 @@ class ModelConfig:
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode state is O(window) / O(1) rather than O(seq):
+        the ssm and hybrid families, and sliding-window attention."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
     def param_count(self) -> int:
         """Analytic parameter count, the reference's formula term for term
         (final norm not counted; the hybrid's gate term is the
@@ -145,6 +153,30 @@ class ShapeConfig:
         if self.kind not in self.KINDS:
             raise ValueError(f"unknown shape kind {self.kind!r}: expected "
                              f"one of {self.KINDS}")
+
+
+# The reference's four input shapes (its assigned cells): every arch is
+# paired with all four, and ``cell_skip_reason`` says which pairs skip.
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+def cell_skip_reason(model: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """A reason string if (model, shape) is an assigned but skipped cell,
+    else None: ``long_500k`` needs sub-quadratic attention (the
+    reference's rule and words)."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return ("pure full attention: 500k-token decode requires a 500k KV "
+                "cache and O(seq) attention per step — skipped per brief")
+    return None
+
+
+def cells_for(model: ModelConfig) -> list[ShapeConfig]:
+    return [s for s in SHAPES.values() if cell_skip_reason(model, s) is None]
 
 
 @dataclass(frozen=True)

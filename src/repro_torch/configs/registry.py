@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      cell_skip_reason, cells_for, reduced)
 
 _ARCH_MODULES = {
     "qwen1.5-4b": "qwen1_5_4b",
@@ -39,4 +40,9 @@ def get_config(arch: str) -> ModelConfig:
     return reduced(cfg) if want_reduced else cfg
 
 
-__all__ = ["ARCH_IDS", "get_config", "reduced"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "cell_skip_reason", "cells_for",
+           "get_config", "get_shape", "reduced"]

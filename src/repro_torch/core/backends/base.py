@@ -10,8 +10,9 @@ name, and callers reach one only through the registry
 
 * ``sync(grads, ctx) -> SyncResult`` — the collective schedule of one
   gradient exchange;
-* ``state_specs(run, n_shards)`` — the optimizer and error-feedback
-  state layout it needs (tree moments, or ZeRO-1 flat shards);
+* ``state_specs(run, n_shards, pod_size)`` — the optimizer and
+  error-feedback state layout it needs (tree moments, or ZeRO-1 flat
+  shards, in-pod when the ring has pods);
 * ``apply_update(...)`` — how synced gradients become a parameter
   update (tree AdamW by default; the ZeRO-1 shard update and its gather
   epilogue for the reduce-scatter strategies);
@@ -106,6 +107,13 @@ class UpdateContext:
     ring: Ring
     eff_shards: int = 1
     donate: bool = False
+
+    @property
+    def shard_index(self) -> int:
+        """This peer's index in its ZeRO-1 scatter group: the in-pod
+        index when the group is in-pod (pod-major ranks), the ring rank
+        when it is the whole ring."""
+        return self.ring.rank % self.eff_shards
     memo: dict = field(default_factory=dict, compare=False, repr=False)
 
     def cached(self, key, build: Callable[[], Any]):
@@ -118,16 +126,17 @@ class UpdateContext:
 
 def scatter_group_size(n_shards: int, pod_size: int,
                        comm: CommConfig) -> int:
-    """ZeRO-1 scatter-group size: the whole flat ring. The reference
-    scatters in-pod when its collectives are pod-aware (hierarchical
-    ZeRO), which it reaches only through a train mesh with a pod axis
-    (``repro/launch/train.py --mesh``); the port's training over pods
-    waits for that mesh (ROADMAP.md Queue 1 item 8)."""
-    if pod_size > 1:
-        raise NotImplementedError(
-            f"a ZeRO-1 scatter group inside pods of {pod_size} belongs to "
-            "training over pods, which waits for the train mesh in "
-            "repro_torch (ROADMAP.md Queue 1 item 8)")
+    """ZeRO-1 scatter-group size, the reference's rule: with
+    hierarchical (pod-aware) collectives the reduce-scatter runs IN-POD,
+    so shards are ``1/in-pod`` of a slice and replicate across pods
+    (hierarchical ZeRO); otherwise the whole flat ring. ``pod_size`` is
+    the size of the pod axis (the number of pods), as in the reference's
+    ``mesh.shape["pod"]``."""
+    if comm.hierarchical and pod_size > 1:
+        if n_shards % pod_size:
+            raise ValueError(f"{pod_size} pods do not divide a ring of "
+                             f"{n_shards} peers")
+        return n_shards // pod_size
     return n_shards
 
 
@@ -145,12 +154,13 @@ class CommBackend(abc.ABC):
     def needs_ef(self, comm: CommConfig) -> bool:
         return comm.compress in ("bf16", "int8_ef")
 
-    def state_specs(self, run: RunConfig, n_shards: int = 1) -> StateSpecs:
+    def state_specs(self, run: RunConfig, n_shards: int = 1,
+                    pod_size: int = 1) -> StateSpecs:
         """Default layout: f32 tree moments shaped like the params, and
         this peer's (n_slices, slice_elems) f32 error-feedback residual
-        when compression is on. (The reference's global state carries a
-        leading ring dim of ``n_shards``; each process here holds its own
-        row.)"""
+        when compression is on, whatever the ring. (The reference's
+        global state carries a leading ring dim of ``n_shards``; each
+        process here holds its own row.)"""
         specs = api.specs(run.model)
         meta = lambda shape: torch.empty(shape, dtype=torch.float32,
                                          device="meta")

@@ -193,7 +193,8 @@ def ready_serve_emit(flat, ctx: SyncContext, kind: str):
 @register("hadronio_overlap")
 class HadronioOverlapBackend(CommBackend):
 
-    def state_specs(self, run: RunConfig, n_shards: int = 1) -> StateSpecs:
+    def state_specs(self, run: RunConfig, n_shards: int = 1,
+                    pod_size: int = 1) -> StateSpecs:
         """Tree moments (DDP-style), plus per-bucket error feedback when
         compression is on, keyed by bucket id (this mode never builds a
         ring plan)."""

@@ -124,7 +124,7 @@ class HadronioOverlapRsBackend(CommBackend):
             wires, new_efs, scales = pack_buckets_wire(leaves, plan, ctx)
             shards = shard_of_buckets(
                 [comp.int8_allreduce(q, s, ctx.ring.group).reshape(-1)
-                 for q, s in zip(wires, scales)], plan, group, ctx.rank)
+                 for q, s in zip(wires, scales)], plan, group, ctx.rank % group)
         else:
             # staged per-bucket reduce-scatter through the channel
             # schedule, unpacked per flush
@@ -137,11 +137,14 @@ class HadronioOverlapRsBackend(CommBackend):
     def serve_emit(self, flat, ctx, kind):
         return ready_serve_emit(flat, ctx, kind)
 
-    def state_specs(self, run: RunConfig, n_shards: int = 1) -> StateSpecs:
+    def state_specs(self, run: RunConfig, n_shards: int = 1,
+                    pod_size: int = 1) -> StateSpecs:
         """This peer's flat ZeRO-1 moment shards in bucketed layout,
-        ``(total_padded / ring,)``, and per-bucket error feedback."""
+        ``(total_padded / group,)`` (the scatter group: in-pod under
+        hierarchical collectives over pods), and per-bucket error
+        feedback."""
         specs = api.specs(run.model)
-        eff = scatter_group_size(n_shards, 1, run.comm)
+        eff = scatter_group_size(n_shards, pod_size, run.comm)
         plan = rs_bucket_plan(specs, run.comm, eff)
         ef = bucket_ef_specs(plan) if self.needs_ef(run.comm) else None
         shard = torch.empty((plan.total_padded // eff,), dtype=torch.float32,
@@ -153,9 +156,10 @@ class HadronioOverlapRsBackend(CommBackend):
                      res: SyncResult, run: RunConfig, uctx: UpdateContext):
         """Bucketed ZeRO-1: update this peer's flat parameter and moment
         shard, then all-gather the updated parameters, one gather per
-        epilogue group (:func:`gather_flush_groups`)."""
+        epilogue group (:func:`gather_flush_groups`). With hierarchical
+        collectives over pods the shard index is in-pod."""
         plan: BucketPlan = res.plan
-        eff, my = uctx.eff_shards, uctx.ring.rank
+        eff, my = uctx.eff_shards, uctx.shard_index
         paths = tree_paths(params)
         leaves_p = [leaf for _, leaf in paths]
         psl = shard_of_buckets(

@@ -2,6 +2,8 @@
 data-sharded (ZeRO-1) optimizer. Each peer reduces and keeps 1/ring of
 every ring slice, updates its flat parameter and moment shard, and
 all-gathers the updated parameter slices back (one gather per slice).
+With hierarchical collectives over pods the scatter group is in-pod and
+shards replicate across pods (hierarchical ZeRO).
 ``comm.aggregate="channel"`` coalesces each channel's slices into one
 peer-major-interleaved reduce-scatter flush; the flat-shard layout is
 the same (``pipeline.interleave_for_scatter``).
@@ -50,8 +52,9 @@ def gather_updated(flat_shard: torch.Tensor, plan: agg.PackPlan,
 def clip_shard(gsh: torch.Tensor, run: RunConfig, uctx: UpdateContext):
     """Clip this peer's gradient shard by the global norm of the whole
     flat gradient: the sum of squares all-reduced over the ring (each
-    element lies in exactly one peer's shard). Returns (clipped shard,
-    global norm)."""
+    element lies in one peer's shard of each pod; shards replicate
+    across pods under an in-pod scatter group, so the sum is divided by
+    the pod count). Returns (clipped shard, global norm)."""
     gn2 = gsh.square().sum()
     dist.all_reduce(gn2, group=uctx.ring.group)
     gn2 = gn2 / (uctx.ring.world_size // uctx.eff_shards)
@@ -74,15 +77,18 @@ class HadronioRsBackend(CommBackend):
                                                                    ctx)
         return SyncResult(None, flat_shard, plan, new_ef, gather_group)
 
-    def state_specs(self, run: RunConfig, n_shards: int = 1) -> StateSpecs:
-        """This peer's flat ZeRO-1 moment shards, ``(padded / ring,)``,
-        and its ring-keyed error feedback."""
+    def state_specs(self, run: RunConfig, n_shards: int = 1,
+                    pod_size: int = 1) -> StateSpecs:
+        """This peer's flat ZeRO-1 moment shards, ``(padded / group,)``
+        with ``group`` the scatter group (:func:`scatter_group_size`: the
+        pod under hierarchical collectives, else the ring), and its
+        ring-keyed error feedback."""
         plan = agg.make_plan(api.specs(run.model), run.comm)
         meta = lambda shape: torch.empty(shape, dtype=torch.float32,
                                          device="meta")
         ef = meta((plan.n_slices, plan.slice_elems)) \
             if self.needs_ef(run.comm) else None
-        eff = scatter_group_size(n_shards, 1, run.comm)
+        eff = scatter_group_size(n_shards, pod_size, run.comm)
         if plan.padded_elems % eff:
             raise ValueError(f"{plan.padded_elems} packed elements do not "
                              f"shard over {eff} peers")
@@ -94,9 +100,10 @@ class HadronioRsBackend(CommBackend):
                      res: SyncResult, run: RunConfig, uctx: UpdateContext):
         """ZeRO-1: update this peer's flat parameter and moment shard
         (its chunk of every slice, the gradient shard's layout), then
-        all-gather the updated parameter slices."""
+        all-gather the updated parameter slices. With hierarchical
+        collectives over pods the shard index is in-pod."""
         plan, eff = res.plan, uctx.eff_shards
-        my = uctx.ring.rank
+        my = uctx.shard_index
         nsl = plan.n_slices
         flat_p = agg.pack(params, plan)
         psl = flat_p.view(nsl, eff, -1)[:, my].reshape(-1)

@@ -121,9 +121,11 @@ ring and bypasses the leader split (:func:`begin_emission`). Any other
 pod-aware flush (``aggregate="slice"``, a one-lane pool) runs the
 channel's two-level ``all_reduce`` / ``reduce_scatter``.
 
-The ZeRO-1 scatter group inside a pod (:func:`scatter_group`) belongs to
-training over pods, which waits for the train mesh (ROADMAP.md Queue 1
-item 8).
+Training over pods (a pod-aware context in a TAC step): the ZeRO-1
+scatter group is the pod (:func:`scatter_group`), each slice's
+reduce-scatter runs in-pod with a cross-pod all-reduce of the shard
+(the channel's two-level ``reduce_scatter``, or the leader emission's
+split stages), and shards replicate across pods.
 """
 from __future__ import annotations
 
@@ -856,18 +858,16 @@ def reduce_wire(wire: torch.Tensor, scale: Optional[torch.Tensor],
 
 
 def scatter_group(ctx: SyncContext):
-    """``(gather_group, group_size)`` of the ZeRO-1 reduce-scatter: the
-    whole ring. The reference's in-pod group under pod-aware collectives
-    belongs to training over pods, which waits for the train mesh
-    (ROADMAP.md Queue 1 item 8), and raises."""
+    """``(gather_group, group_size)`` of the ZeRO-1 reduce-scatter: this
+    peer's pod under a pod-aware context (the reference's in-pod
+    ``gather_axes``: shards replicate across pods), else the whole
+    ring. A peer's chunk of a slice is chunk ``rank % group_size``
+    (pod-major ranks)."""
     if ctx.ring is None:
         raise ValueError("a ZeRO-1 exchange needs the ring's process "
                          "group: SyncContext.ring is None")
     if ctx.pod_axis is not None:
-        raise NotImplementedError(
-            f"a ZeRO-1 scatter group inside the pods of axis "
-            f"{ctx.pod_axis!r} belongs to training over pods, which waits "
-            "for the train mesh in repro_torch (ROADMAP.md Queue 1 item 8)")
+        return ctx.ring.pod_group, ctx.ring.pod_size
     return ctx.ring.group, ctx.ring.world_size
 
 
@@ -885,10 +885,11 @@ def scatter_slices(slices: torch.Tensor, ctx: SyncContext):
     wire, new_ef, scale = pack_wire(slices, ctx.ef, ctx.comm)
     if scale is not None:
         # int8: the full dequant-sum everywhere, then this peer's chunk
+        # (pods replicate shards, matching the gather group)
         red = comp.int8_allreduce(wire, scale, ctx.ring.group)
-        c = s // group
-        return red[:, ctx.rank * c:(ctx.rank + 1) * c].reshape(-1), \
-            new_ef, gather_group
+        c, my = s // group, ctx.rank % group
+        return red[:, my * c:(my + 1) * c].reshape(-1), new_ef, \
+            gather_group
     shards = emit_through_channels(list(wire.unbind(0)), ctx,
                                    "reduce_scatter", group=group)
     # (n_slices, S/group) -> the flat local shard, ZeRO-1 layout

@@ -87,9 +87,16 @@ class Ring:
     ``pod_axis`` (None = a flat ring, a mesh without a pod axis) names
     the pod axis of a two-level layout of ``pods`` pods, pod-major; then
     each channel also gets its in-pod and cross-pod communicators
-    (``in_pod_groups``, ``cross_pod_groups``: this peer's, per channel).
+    (``in_pod_groups``, ``cross_pod_groups``: this peer's, per channel),
+    and the ring has ``pod_group``, this peer's pod (the in-pod ZeRO-1
+    scatter group of training over pods; None without a pod axis).
     Every rank creates every subgroup, in the same order. ``pods`` must
-    divide the ring size."""
+    divide the ring size.
+
+    A TAC step over a mesh runs on every mesh axis flattened pod-major
+    (``launch/mesh.make_ring``): ``pods`` is the pod axis's size and
+    each pod holds the ``data x model`` peers of its slice of the
+    mesh."""
 
     def __init__(self, group: Optional[dist.ProcessGroup] = None, *,
                  channels: int = 1, pods: int = 1,
@@ -134,6 +141,12 @@ class Ring:
                 g = dist.new_group(ranks=ranks[i::d])
                 if i == idx:
                     self.cross_pod_groups.append(g)
+        self.pod_group = None
+        if pod_axis is not None:
+            for p in range(pods):
+                g = dist.new_group(ranks=ranks[p * d:(p + 1) * d])
+                if p == pod:
+                    self.pod_group = g
         self.channel_groups = tuple(self.channel_groups)
         self.in_pod_groups = tuple(self.in_pod_groups)
         self.cross_pod_groups = tuple(self.cross_pod_groups)
@@ -152,14 +165,17 @@ class Ring:
         return {self.pod_axis: self.pods, "data": self.pod_size}
 
     def close(self) -> None:
-        """Destroy the channel communicators, the pod ones too (their
+        """Destroy the channel communicators, the pod ones and
+        ``pod_group`` too (their
         device buffers live outside PyTorch's allocator); ``group`` is left
         to its owner. Every rank closes its ring, as every rank created
         it. Only this peer's subgroups are handles here: a subgroup this
         rank is not in was never a communicator on it."""
         groups = self.channel_groups + self.in_pod_groups \
-            + self.cross_pod_groups
+            + self.cross_pod_groups \
+            + ((self.pod_group,) if self.pod_group is not None else ())
         self.channel_groups = self.in_pod_groups = self.cross_pod_groups = ()
+        self.pod_group = None
         for g in groups:
             dist.destroy_process_group(g)
 

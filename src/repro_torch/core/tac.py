@@ -43,7 +43,11 @@ def sync_grads(grads: Tree, comm: CommConfig, *, ring: Ring,
     """Sum this peer's gradients over ``ring`` with the strategy
     ``comm.mode`` names; ``ef`` is this peer's error-feedback residual
     (a tensor, or a tuple per bucket). The signature — and so every call
-    site — is the same for all modes."""
+    site — is the same for all modes. The context carries the ring's pod
+    axis when ``comm.hierarchical`` is on and the ring has one
+    (``SyncContext.pod_axis``), as the reference's TAC body passes its
+    ``pod_axis``: the collectives then run two-level and the ZeRO-1
+    scatter group is in-pod."""
     ctx = SyncContext(comm, world_size=ring.world_size, rank=ring.rank,
                       ring=ring, ef=ef)
     return get_backend(comm.mode).sync(grads, ctx)

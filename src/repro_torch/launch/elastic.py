@@ -102,7 +102,7 @@ def restore_elastic(store: CheckpointStore, run: RunConfig, ring: Ring,
     s = store.latest_step() if step is None else step
     if s is None:
         raise FileNotFoundError(f"no checkpoint under {store.dir}")
-    like = steps_mod.abstract_state(run, ring.world_size)
+    like = steps_mod.abstract_state(run, ring.world_size, ring.pods)
     state = store.restore(s, like, on_mismatch=make_on_mismatch(run),
                           device=device)
     return state, s

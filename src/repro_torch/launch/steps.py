@@ -13,7 +13,11 @@ backend's ``manual`` flag, never by a mode name:
   then the gather epilogue). The state layout is the backend's
   ``state_specs``. The reference runs this body inside a manual
   ``shard_map`` and its state carries a leading ring dim; here the
-  process *is* the peer and holds its own row.
+  process *is* the peer and holds its own row. A ring with pods (the
+  reference's mesh with a ``pod`` axis, every axis flattened pod-major:
+  ``launch/mesh.make_ring``) makes the collectives pod-aware under
+  ``comm.hierarchical`` and the ZeRO-1 scatter group in-pod
+  (``backends.scatter_group_size``), as the reference's TAC body.
 * gspmd (``manual=False``) — local gradients and a tree AdamW with no
   exchange, on one peer only (a wider ring needs FSDP2/DTensor,
   ROADMAP.md Queue 1 item 8).
@@ -122,23 +126,25 @@ def init_train_state(gen: torch.Generator, run: RunConfig,
 
 
 def init_tac_state(gen: torch.Generator, run: RunConfig,
-                   device: DeviceLike = None, *,
-                   n_shards: int = 1) -> TrainState:
+                   device: DeviceLike = None, *, n_shards: int = 1,
+                   pod_size: int = 1) -> TrainState:
     """Params from ``gen``; moments and error feedback laid out as the
-    backend's ``state_specs`` say for a ring of ``n_shards`` peers,
-    zero-filled on ``device``."""
+    backend's ``state_specs`` say for a ring of ``n_shards`` peers in
+    ``pod_size`` pods (the pod axis's size), zero-filled on
+    ``device``."""
     dev = resolve_device(device)
     return tac_state(api.init(gen, run.model, device=dev), run,
-                     n_shards=n_shards)
+                     n_shards=n_shards, pod_size=pod_size)
 
 
-def tac_state(params: Tree, run: RunConfig, *,
-              n_shards: int = 1) -> TrainState:
+def tac_state(params: Tree, run: RunConfig, *, n_shards: int = 1,
+              pod_size: int = 1) -> TrainState:
     """A step-0 TAC state around ``params``: moments and error feedback
     laid out as the backend's ``state_specs`` say for a ring of
-    ``n_shards`` peers, zero-filled on the params' device."""
+    ``n_shards`` peers in ``pod_size`` pods, zero-filled on the params'
+    device."""
     dev = tree_paths(params)[0][1].device
-    specs = get_backend(run.comm.mode).state_specs(run, n_shards)
+    specs = get_backend(run.comm.mode).state_specs(run, n_shards, pod_size)
     zeros = lambda m: torch.zeros(m.shape, dtype=m.dtype, device=dev)
     ef = specs.ef
     if ef is not None:
@@ -149,18 +155,20 @@ def tac_state(params: Tree, run: RunConfig, *,
                       step=0, ef=ef)
 
 
-def abstract_state(run: RunConfig, n_shards: int = 1) -> TrainState:
-    """The state's layout for a ring of ``n_shards`` peers, as ``meta``
-    tensors (no storage): params in their dtype, moments and error
-    feedback as the backend's ``state_specs`` say (this peer's row of
-    the ring-sharded leaves). The ``like`` tree of a checkpoint restore;
-    the counterpart of the reference's ``abstract_tac_state`` and
+def abstract_state(run: RunConfig, n_shards: int = 1,
+                   pod_size: int = 1) -> TrainState:
+    """The state's layout for a ring of ``n_shards`` peers in
+    ``pod_size`` pods, as ``meta`` tensors (no storage): params in their
+    dtype, moments and error feedback as the backend's ``state_specs``
+    say (this peer's row of the ring-sharded leaves). The ``like`` tree
+    of a checkpoint restore and the dry run's state; the counterpart of
+    the reference's ``abstract_tac_state`` and
     ``abstract_train_state``."""
     dtype = torch_dtype(run.model.param_dtype)
     params = tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
                                             device="meta"),
                       api.specs(run.model))
-    specs = get_backend(run.comm.mode).state_specs(run, n_shards)
+    specs = get_backend(run.comm.mode).state_specs(run, n_shards, pod_size)
     return TrainState(params=params, opt=specs.opt, step=0, ef=specs.ef)
 
 
@@ -177,13 +185,15 @@ def ring_rows(name: str) -> bool:
 def make_train_step_tac(run: RunConfig, ring: Ring, *,
                         donate: bool = False):
     """The TAC step over ``ring``: every process runs it on its own
-    shard of the global batch."""
+    shard of the global batch. The ring's pods (``ring.pods``) size the
+    ZeRO-1 scatter group; its state comes from ``tac_state`` /
+    ``abstract_state`` at the same ring size and pod count."""
     comm = run.comm
     backend = get_backend(comm.mode)
     backend.validate(comm)
     n_shards = ring.world_size
     uctx = UpdateContext(ring=ring, eff_shards=scatter_group_size(
-        n_shards, 1, comm), donate=donate)
+        n_shards, ring.pods, comm), donate=donate)
 
     def step_fn(state: TrainState, batch: dict):
         # local loss scaled so the ring sum of the grads is the global mean

@@ -37,6 +37,12 @@ CLI::
   python -m repro_torch.launch.train --arch qwen2-0.5b-reduced \\
       --device cpu --steps 2 --global-batch 2 --seq-len 32
 
+  # two pods of two peers (the reference's --mesh 2x2x1): collectives
+  # two-level, the ZeRO-1 shards in-pod and replicated across pods
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen2-0.5b-reduced --device cpu --steps 3 --global-batch 4 \\
+      --seq-len 32 --mode hadronio_rs --mesh 2x2x1
+
   # ZeRO-1 on a ring of 2 peers on the CPU (gloo), then continued on 4:
   # the restore re-slices the flat moment shards
   torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
@@ -69,6 +75,7 @@ from repro_torch.core.channels import Ring
 from repro_torch.data import DataConfig, batch_at, make_source
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.elastic import make_on_mismatch
+from repro_torch.launch.mesh import Mesh, make_ring, parse_mesh
 
 
 class Watchdog:
@@ -108,9 +115,13 @@ class Trainer:
     """``donate``: each step consumes the state it is given
     (``steps.make_train_step``), so the state passed to :meth:`run_loop`
     must not be read again; the reference's Trainer always donates, and
-    so does the CLI."""
+    so does the CLI. ``mesh`` (``launch/mesh.Mesh``; None: one flat ring
+    of every peer) lays the peers out as the reference's train mesh: its
+    axes flattened pod-major into one ring, with the pod axis as the
+    ring's (``mesh.make_ring``)."""
 
-    def __init__(self, run: RunConfig, *, device: DeviceLike = None,
+    def __init__(self, run: RunConfig, mesh: Optional[Mesh] = None, *,
+                 device: DeviceLike = None,
                  log_every: int = 10, watchdog_secs: float = 0.0,
                  log_fn: Callable[[str], None] = print,
                  donate: bool = False):
@@ -126,7 +137,8 @@ class Trainer:
         self.store = None
         self.watchdog = None
         try:
-            self.ring = Ring(channels=run.comm.channels)
+            self.ring = (Ring(channels=run.comm.channels) if mesh is None
+                         else make_ring(mesh, channels=run.comm.channels))
             self.source = make_source(run)
             self.dc = DataConfig(seq_len=run.shape.seq_len,
                                  global_batch=run.shape.global_batch,
@@ -157,7 +169,8 @@ class Trainer:
             self.run.seed if seed is None else seed)
         if get_backend(self.run.comm.mode).manual:
             return steps_mod.init_tac_state(gen, self.run, self.device,
-                                            n_shards=self.ring.world_size)
+                                            n_shards=self.ring.world_size,
+                                            pod_size=self.ring.pods)
         return steps_mod.init_train_state(gen, self.run, self.device)
 
     def restore_or_init(self) -> steps_mod.TrainState:
@@ -170,7 +183,7 @@ class Trainer:
                 self.log_fn(f"[trainer] restoring step {latest}")
                 return self.store.restore(
                     latest, steps_mod.abstract_state(
-                        self.run, self.ring.world_size),
+                        self.run, self.ring.world_size, self.ring.pods),
                     on_mismatch=make_on_mismatch(self.run),
                     device=self.device)
         return self.init_state()
@@ -321,10 +334,8 @@ def main(argv=None) -> int:
                         "when its last slice is staged")
     p.add_argument("--slice-bytes", type=int, default=4 * 1024 * 1024)
     p.add_argument("--flat-collectives", action="store_true",
-                   help="CommConfig.hierarchical=False: a pod axis, where "
-                        "there is one, is folded into one flat ring (the "
-                        "trainer's ring has none until the train mesh is "
-                        "ported)")
+                   help="CommConfig.hierarchical=False: the pod axis of "
+                        "--mesh AxBxC is folded into one flat ring")
     p.add_argument("--microbatches", type=int, default=1,
                    help="gradient accumulation: each peer's batch in this "
                         "many sequential microbatches, one exchange a step")
@@ -342,9 +353,15 @@ def main(argv=None) -> int:
     p.add_argument("--max-restarts", type=int, default=None,
                    help="restarts from the last checkpoint after a failed "
                         "step (default: the run config's)")
+    p.add_argument("--mesh", default="",
+                   help="'AxB' (data, model) or 'AxBxC' (pod, data, "
+                        "model): the peers' layout, every axis flattened "
+                        "pod-major into the ring; the product must be the "
+                        "world size (default: one data axis of every peer)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)
+    mesh = parse_mesh(args.mesh) if args.mesh else None
 
     # under torchrun each process is one peer: join the launcher's ring
     own_group = "WORLD_SIZE" in os.environ and not dist.is_initialized()
@@ -360,7 +377,7 @@ def main(argv=None) -> int:
         log = print if rank0 else lambda line: None
         run = build_run(args)
         out = train_with_restarts(
-            lambda: Trainer(run, device=args.device,
+            lambda: Trainer(run, mesh, device=args.device,
                             watchdog_secs=args.watchdog_secs, log_fn=log,
                             donate=True),
             max_restarts=args.max_restarts, log_fn=log)

@@ -6,6 +6,7 @@
   prefill(params, batch, cfg, ...)             -> (last-token logits, cache)
   decode_step(params, cache, batch, cfg, ...)  -> (logits, cache)
   init_cache / grow_cache
+  input_specs(cfg, shape, device=)             -> one cell's inputs, no storage
 
 Counterpart of ``repro/models/api.py``. ``batch`` is a dict: train
 {"tokens", "labels": (B,S) int, "loss_mask"?: (B,S)}; prefill
@@ -37,7 +38,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import attention as att
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import rwkv6 as rwkv
@@ -143,6 +144,30 @@ def stub_inputs(cfg: ModelConfig, batch: int,
     return {name: torch.zeros((batch, n, cfg.d_model),
                               dtype=torch_dtype(cfg.compute_dtype),
                               device=resolve_device(device))}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                device: str = "meta") -> dict:
+    """Model inputs for one cell, the reference's ``input_specs``: the
+    same keys and shapes, as storage-free tensors. ``device="meta"``
+    gives meta tensors; the dry run passes ``"cpu"`` inside a
+    ``FakeTensorMode``, which makes them fake. Token ids are int64, as
+    the port's batches are."""
+    b, s = shape.global_batch, shape.seq_len
+    ids = lambda *dims: torch.empty(dims, dtype=torch.int64, device=device)
+    if shape.kind == "decode":
+        # one new token against a cache of length seq_len
+        return {"token": ids(b), "pos": ids()}
+    out = {"tokens": ids(b, s)}
+    if shape.kind == "train":
+        out["labels"] = ids(b, s)
+    prefix = {"encdec": ("frames", cfg.num_frames),
+              "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if prefix is not None:
+        out[prefix[0]] = torch.empty(
+            (b, prefix[1], cfg.d_model),
+            dtype=torch_dtype(cfg.compute_dtype), device=device)
+    return out
 
 
 def prefill(params: Tree, batch: dict, cfg: ModelConfig,

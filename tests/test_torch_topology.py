@@ -6,7 +6,9 @@ and ``tests/test_obs.py``'s leader-flush nesting:
   divisibility error give the reference's messages; the leader split,
   ``channel_affinity``'s topology grid, ``make_leader_plan``,
   ``pod_aligned_groups`` and ``reshard_affinity``'s topology form equal
-  the reference's on the same inputs.
+  the reference's on the same inputs; so do ``launch/mesh``'s shapes,
+  ``data_axes`` and ``axis_size`` (against a device-free reference
+  mesh), and ``make_ring`` refuses a mesh of another size.
 * THE (1, 1) POD RING in this process (a one-peer gloo group): every
   serving kind through ``emit_flat``'s leader emission equals its input
   under both flush schedules, with the split kinds in order on the
@@ -22,9 +24,15 @@ and ``tests/test_obs.py``'s leader-flush nesting:
   1e-5 with equal argmax) for the three hadronio modes and against the
   reference's at atol = rtol = 1e-4, engine-group tokens equal at 1 and 2
   loops, cross-pod collectives per decode emission 1, 2 and 4 from the
-  collective hook, leader flushes nested, and a supervised resize on the
-  pod ring.
+  collective hook, and the recorded decode's in-pod and cross-pod
+  collectives by kind (``hlo_analysis.cross_pod_collective_count``)
+  equal to the reference's count of its lowered decode, leader flushes
+  nested, and a supervised resize on the pod ring; then TAC training
+  over the pods (``--mesh 2x2x1``): two steps of ``hadronio`` and of
+  ``hadronio_rs`` (the in-pod ZeRO-1 group) against the reference's
+  ``Trainer`` on a (2, 2, 1) mesh of 4 host devices.
 """
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -209,6 +217,34 @@ def group():
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("dims,axes", [
+    ((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")),
+    ((4,), ("data",)), ((1, 4, 1), ("pod", "data", "model"))])
+def test_train_mesh_matches_reference(group, dims, axes):
+    """``launch/mesh``'s shapes and axis helpers against the reference's
+    on a device-free mesh; the CLI's ``--mesh`` spelling; ``make_ring``
+    refuses a mesh of another size than the group and treats a pod axis
+    of size 1 as none, as the reference's TAC step does."""
+    from repro.launch import mesh as jmesh
+    from repro_torch.launch import mesh
+    m, jm = mesh.make_mesh(dims, axes), jmesh.make_abstract_mesh(dims, axes)
+    assert m.shape == dict(jm.shape) and m.axis_names == jm.axis_names
+    assert mesh.data_axes(m) == jmesh.data_axes(jm)
+    for name in ("pod", "data", "model"):
+        assert mesh.axis_size(m, name) == jmesh.axis_size(jm, name)
+    assert mesh.parse_mesh("x".join(map(str, dims))) == m
+    multi = len(dims) == 3 and dims[1:] == (16, 16)
+    if dims[-2:] == (16, 16):
+        assert mesh.make_production_mesh(multi_pod=multi) == m
+    with pytest.raises(ValueError, match="needs"):
+        mesh.make_ring(m)
+    one = mesh.make_ring(mesh.parse_mesh("1x1x1"))
+    assert one.pod_axis is None and one.pods == 1
+    one.close()
+    with pytest.raises(ValueError, match="integer dims"):
+        mesh.parse_mesh("2x")
+
+
 @pytest.fixture(scope="module")
 def pod_ring(group):
     ring = Ring(channels=4, pods=1, pod_axis="pod")
@@ -334,10 +370,13 @@ def test_serve_step_reports_pod_topology_facts(pod_ring, flat_ring, qwen):
         dispatch.make_serve_step(tcfg, comm, ring=flat_ring, pod_axis="pod")
     with pytest.raises(ValueError, match="in-pod axis"):
         dispatch.make_serve_step(tcfg, comm, ring=pod_ring, pod_axis="data")
-    # training over pods waits for the train mesh: the in-pod ZeRO-1
-    # scatter group raises with a named error
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pipeline.scatter_group(SyncContext(comm, ring=pod_ring))
+    # training over pods: the ZeRO-1 scatter group is this peer's pod
+    # under pod-aware collectives, the whole ring otherwise
+    assert pipeline.scatter_group(SyncContext(comm, ring=pod_ring)) == \
+        (pod_ring.pod_group, 1)
+    flat_comm = dataclasses.replace(comm, hierarchical=False)
+    assert pipeline.scatter_group(SyncContext(flat_comm, ring=pod_ring)) == \
+        (pod_ring.group, 1)
     assert pipeline.scatter_group(SyncContext(comm, ring=flat_ring))[1] == 1
     flat = dispatch.make_serve_step(tcfg, comm, ring=flat_ring)
     assert (flat.pod_axis, flat.n_pods) == (None, 1)
@@ -449,11 +488,18 @@ _WORKER = textwrap.dedent('''
     from repro_torch.core.channels import Ring
     from repro_torch.core.hierarchical import (psum_hierarchical,
                                                psum_scatter_hierarchical)
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
     from repro_torch.models import api
+    from repro_torch.models.common import tree_paths
     from repro_torch.models.convert import from_numpy_params
     from repro_torch.serving import (Request, Supervisor, SupervisorConfig,
                                      dispatch, make_engine_group)
 
+    TRAIN = (("hadronio", "slice"), ("hadronio_rs", "channel"))
     rank, world, store, inp, out = (int(sys.argv[1]), int(sys.argv[2]),
                                     *sys.argv[3:])
     dist.init_process_group("gloo", init_method="file://" + store,
@@ -517,7 +563,7 @@ _WORKER = textwrap.dedent('''
             seen = []
             channels_mod.set_collective_hook(lambda ch, k: seen.append(k))
             try:
-                with obs.capture() as rec:
+                with obs.capture() as rec, hlo.record() as log:
                     ld, _ = step.decode(params, cache, dec)
             finally:
                 channels_mod.clear_collective_hook()
@@ -525,6 +571,7 @@ _WORKER = textwrap.dedent('''
                 res["count", count] = (seen.count("cross_pod_all_reduce")
                                        if c.hierarchical
                                        else seen.count("all_reduce"))
+                res["xpod", count] = hlo.cross_pod_collective_count(log, 2)
             if trace:
                 leads = rec.spans_of("leader_flush")
                 res["nested"] = bool(leads) and all(
@@ -572,6 +619,35 @@ _WORKER = textwrap.dedent('''
                              [a[1:] for a in sup.healing_trace()],
                              tuple(l.channels for l in sup.group.loops))
         ring.close()
+
+        # TAC training over the pods: the reference's (2, 2, 1) mesh,
+        # flattened pod-major, from the reference's start params
+        for mode, aggregate in TRAIN:
+            run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", 16, 8),
+                            comm=CommConfig(mode=mode, slice_bytes=16 * 1024,
+                                            channels=4, aggregate=aggregate,
+                                            flush="ready"),
+                            warmup_steps=1, total_steps=2)
+            trainer = Trainer(run, make_mesh((2, 2, 1),
+                                             ("pod", "data", "model")),
+                              device="cpu", log_fn=lambda line: None,
+                              donate=True)
+            try:
+                assert trainer.ring.pods == 2 and trainer.ring.pod_size == 2
+                start = steps.tac_state(from_numpy_params(data["params"],
+                                                          "cpu"),
+                                        run, n_shards=4, pod_size=2)
+                with hlo.record() as log:
+                    o = trainer.run_loop(start)
+            finally:
+                trainer.close()
+            st = o["state"]
+            res["train", mode] = (
+                o["losses"],
+                {p: t.numpy() for p, t in tree_paths(st.params)},
+                st.opt.mu.numpy() if trainer.run.comm.mode.endswith("_rs")
+                else None,
+                hlo.cross_pod_collective_count(log, 2))
         with open(out, "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -582,9 +658,12 @@ _JAX = textwrap.dedent('''
     import os, pickle, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax, jax.numpy as jnp, numpy as np
-    from repro.configs.base import CommConfig
+    from repro.configs.base import CommConfig, RunConfig, ShapeConfig
     from repro.configs.registry import get_config
-    from repro.launch.mesh import make_serve_mesh
+    from repro import compat
+    from repro.launch import hlo_analysis as hlo
+    from repro.launch.mesh import make_mesh, make_serve_mesh
+    from repro.launch.train import Trainer
     from repro.models import api
     from repro.serving import dispatch
 
@@ -608,8 +687,33 @@ _JAX = textwrap.dedent('''
     ld, _ = step.decode(params, cache, {
         "token": jnp.argmax(lp, -1).astype(jnp.int32),
         "pos": jnp.asarray(lens, jnp.int32)})
+    xpod = {}
+    for leaders, hier in ((1, True), (2, True), (1, False)):
+        c = CommConfig(mode="hadronio_overlap", slice_bytes=512, channels=4,
+                       aggregate="channel", flush="ready",
+                       hierarchical=hier, leader_channels=leaders)
+        xpod[leaders, hier] = hlo.cross_pod_collective_count(
+            dispatch.lowered_decode_text(cfg, c, batch=4, max_len=24,
+                                         mesh=mesh, pod_axis="pod"), 2)
+    train = {}
+    tmesh = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    for mode, aggregate in (("hadronio", "slice"), ("hadronio_rs", "channel")):
+        run = RunConfig(model=cfg, shape=ShapeConfig("t", "train", 16, 8),
+                        comm=CommConfig(mode=mode, slice_bytes=16 * 1024,
+                                        channels=4, aggregate=aggregate,
+                                        flush="ready"),
+                        warmup_steps=1, total_steps=2)
+        t = Trainer(run, tmesh, log_fn=lambda line: None)
+        with compat.set_mesh(tmesh):
+            p0 = jax.tree.map(np.asarray, t.init_state().params)
+        o = t.run_loop()
+        st = jax.tree.map(np.asarray, o["state"])
+        train[mode] = (o["losses"], p0, st.params,
+                       st.opt.mu if mode.endswith("_rs") else None,
+                       np.asarray(st.opt.nu) if mode.endswith("_rs")
+                       else None)
     with open(out, "wb") as f:
-        pickle.dump((np.asarray(lp), np.asarray(ld)), f)
+        pickle.dump((np.asarray(lp), np.asarray(ld), xpod, train), f)
 ''')
 
 
@@ -694,7 +798,7 @@ def test_pod_ring_dispatch_flat_vs_hierarchical(pod_rings, mode):
 
 
 def test_pod_ring_matches_reference(pod_rings):
-    outs, (jp, jd) = pod_rings
+    outs, (jp, jd, _, _) = pod_rings
     hp, hd = outs[0]["logits", "hadronio", True]
     np.testing.assert_allclose(hp, jp, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(hd, jd, atol=1e-4, rtol=1e-4)
@@ -714,6 +818,66 @@ def test_pod_ring_tokens_flat_vs_hierarchical(pod_rings, el):
                                                (1, False, 4)])
 def test_pod_ring_cross_pod_collectives(pod_rings, leaders, hier, want):
     assert pod_rings[0][0]["count", (leaders, hier)] == want
+
+
+@pytest.mark.parametrize("leaders,hier", [(1, True), (2, True), (1, False)])
+def test_pod_ring_cross_pod_counts_match_reference(pod_rings, leaders, hier):
+    """The recorded decode step's collectives, in-pod and cross-pod by
+    kind (``hlo_analysis.cross_pod_collective_count`` at in-pod size 2),
+    equal the reference's count of its lowered decode on the (2, 2)
+    serve mesh; every peer's log gives the same."""
+    outs, (_, _, xpod, _) = pod_rings
+    for o in outs:
+        assert o["xpod", (leaders, hier)] == xpod[leaders, hier]
+    want = {(1, True): 1, (2, True): 2, (1, False): 4}[leaders, hier]
+    assert xpod[leaders, hier]["cross_pod_total"] == want
+
+
+@pytest.mark.parametrize("mode", ["hadronio", "hadronio_rs"])
+def test_pod_ring_tac_training_matches_reference(pod_rings, qwen, mode):
+    """Two TAC steps on 2 pods x 2 gloo peers, hierarchical (``hadronio``
+    per slice, ``hadronio_rs`` through the leader emission with the
+    in-pod ZeRO-1 group) against the reference's ``Trainer`` on a
+    (2, 2, 1) mesh of 4 host devices: losses at 1e-4, params at
+    atol 1e-5 / rtol 1e-4 (``test_torch_train``'s bounds), the flat
+    moment shards of every peer against the reference's row and equal
+    bit for bit across pods, and one cross-pod collective per slice or
+    leader flush plus the loss and norm all-reduces."""
+    outs, (_, _, _, train) = pod_rings
+    jlosses, p0, jparams, jmu, jnu = train[mode]
+    for path, leaf in _flat(p0).items():     # the same start params
+        np.testing.assert_array_equal(leaf, _flat(qwen[3])[path])
+    jp = _flat(jparams)
+    for r, o in enumerate(outs):
+        losses, params, mu, xpod = o["train", mode]
+        np.testing.assert_allclose(losses, jlosses, atol=1e-4, rtol=1e-4)
+        assert params.keys() == jp.keys()
+        for path, leaf in params.items():
+            np.testing.assert_allclose(leaf, jp[path], atol=1e-5,
+                                       rtol=1e-4, err_msg=path)
+            np.testing.assert_array_equal(leaf, outs[0]["train",
+                                                        mode][1][path])
+        if mode == "hadronio_rs":
+            assert mu.shape == jmu.shape[1:]
+            scale = float(np.abs(jmu).max())
+            np.testing.assert_allclose(mu, jmu[r], atol=1e-3 * scale,
+                                       rtol=2 ** -7)
+            # in-pod shards: peer r and peer r + 2 (the other pod, same
+            # in-pod index) hold the same shard
+            np.testing.assert_array_equal(mu, outs[r % 2]["train", mode][2])
+        assert xpod["cross_pod_total"] > 0 and xpod["in_pod_total"] > 0
+        assert xpod == outs[0]["train", mode][3]
+
+
+def _flat(tree, prefix=""):
+    """{path: leaf} of a nested dict of arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
 
 
 def test_pod_ring_leader_flush_nested(pod_rings):

@@ -174,8 +174,13 @@ def test_modes_and_scatter_group(jx):
     assert [get_backend(m).zero1 for m in available_modes()] == \
         [jax_backend(m).zero1 for m in jax_modes()]
     assert scatter_group_size(4, 1, CommConfig()) == 4
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scatter_group_size(8, 2, CommConfig())
+    # training over pods: the ZeRO-1 group is in-pod under hierarchical
+    # collectives, the whole ring otherwise (the reference's rule)
+    for n, pods, hier in ((8, 2, True), (8, 2, False), (512, 2, True),
+                          (4, 4, True), (4, 1, True)):
+        assert scatter_group_size(n, pods, CommConfig(hierarchical=hier)) \
+            == jsteps.tac_scatter_size(n, pods,
+                                       JCommConfig(hierarchical=hier))
 
 
 # -- pure functions ----------------------------------------------------------
