@@ -284,7 +284,20 @@ non-zero (no phase's failure is caught):
    fewer cross-pod collectives than the flat one, and ``gspmd`` recorded
    as ``fail`` with its named error; each run's seconds and memory
    estimate printed;
-14. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+14. the GSPMD step family on DTensor (``gspmd_mesh_phase``): qwen2-0.5b
+   at full width, bf16, B=4, S=1024, 3 steps of ``gspmd`` through the
+   ``Trainer`` on a one-rank NCCL ``DeviceMesh`` of shape (1, 1)
+   (``steps.make_train_step_gspmd``: params and AdamW moments DTensors at
+   ``param_shardings``, ``make_shard_fn``'s constraints, the gradients
+   redistributed to their params' placements), from phase 5's seed-0
+   init and batches, beside the plain one-peer ``gspmd`` step: the losses
+   and the worst param difference after step 3 (bitwise equal expected;
+   otherwise held to the tests' tolerances), the median step ms of each
+   in turns (plain, mesh, mesh, plain: the difference is DTensor's host
+   cost), the peak memory, the collectives ``hlo_analysis.record()``
+   sees in one step, a save and restore of the DTensor state bit for
+   bit; no kernel launches;
+15. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -3133,6 +3146,142 @@ def analysis_phase(smi, params, ring, dev) -> dict:
     return launches
 
 
+def gspmd_mesh_phase(smi, dev, arch: str = "qwen2-0.5b",
+                     seq_len: int = 1024) -> None:
+    """Phase 14 (module docstring): ``arch`` at B=4, ``seq_len``, 3
+    ``gspmd`` steps on a (1, 1) ``DeviceMesh`` against the plain
+    one-peer step, in turns, from the same seed-0 init and batches. The
+    current process group must have one rank."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.common import tree_paths
+    from torch.distributed.tensor import DTensor
+    cuda = dev.type == "cuda"
+    cfg = get_config(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "smoke", "train", seq_len=seq_len, global_batch=4),
+        comm=CommConfig(mode="gspmd", channels=1), total_steps=3,
+        warmup_steps=1, seed=0)
+    wrappers = (ops.flash_attention, ops.pack_slices, ops.unpack_slices,
+                ops.wkv6, ops.rglru)
+    before = [w.launches for w in wrappers]
+    if cuda:
+        release_memory("before phase 14")
+    t0 = time.perf_counter()
+    trainers = {"plain": Trainer(run, device=dev, log_every=10),
+                "mesh (1, 1)": Trainer(run, make_mesh((1, 1), (
+                    "data", "model")), device=dev, log_every=10)}
+    assert trainers["plain"].mesh is None
+    mesh = trainers["mesh (1, 1)"].mesh
+    assert mesh is not None and tuple(mesh.shape) == (1, 1)
+    samples = {label: [] for label in trainers}
+    finals, peaks = {}, {}
+    try:
+        for label in ("plain", "mesh (1, 1)", "mesh (1, 1)", "plain"):
+            t = trainers[label]
+            state = t.init_state()
+            if cuda:
+                torch.cuda.synchronize()
+                live = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            out = t.run_loop(state)
+            del state
+            if cuda:
+                torch.cuda.synchronize()
+                peaks.setdefault(label, (torch.cuda.max_memory_allocated()
+                                         - live, live))
+            samples[label] += [x * 1e3 for x in out["step_s"][1:]]
+            finals.setdefault(label, out)
+            print(f"[gspmd] {cfg.name} {label}: losses {out['losses']}, "
+                  f"step ms {[round(x * 1e3, 2) for x in out['step_s']]} "
+                  f"| {smi}")
+        a, b = finals["plain"], finals["mesh (1, 1)"]
+        leaves = [(p, x, y) for (p, x), (_, y) in zip(
+            tree_paths(a["state"].params), tree_paths(b["state"].params))]
+        assert all(isinstance(y, DTensor) for _, _, y in leaves)
+        worst = max(float((x.float() - y.to_local().float()).abs().max())
+                    for _, x, y in leaves)
+        bitwise = a["losses"] == b["losses"] and all(
+            torch.equal(x, y.to_local()) for _, x, y in leaves)
+        med = {k: statistics.median(v) for k, v in samples.items()}
+        print(f"[gspmd] {cfg.name} B=4 S={seq_len}, 3 steps on a (1, 1) "
+              f"DeviceMesh vs the plain one-peer step: losses "
+              f"{b['losses']} vs {a['losses']}, worst |param diff| after "
+              f"step 3 {worst:.3e}, bitwise {bitwise}; median step ms "
+              f"(steps 2-3 of two runs each) mesh {med['mesh (1, 1)']:.2f}"
+              f" vs plain {med['plain']:.2f} (DTensor's host cost "
+              f"{med['mesh (1, 1)'] - med['plain']:.2f} ms); peak memory "
+              + ", ".join(f"{k} {v[0] / 1e9:.2f} GB above {v[1] / 1e9:.2f}"
+                          f" GB live" for k, v in peaks.items())
+              + f" | {smi}")
+        if not bitwise:     # the tests' tolerances (test_torch_gspmd.py)
+            la, lb = a["losses"], b["losses"]
+            assert abs(la[0] - lb[0]) < 1e-4 and all(
+                abs(x - y) < 1e-3 for x, y in zip(la[1:], lb[1:])), (la, lb)
+            for p, x, y in leaves:
+                assert torch.allclose(y.to_local().float(), x.float(),
+                                      atol=1e-5, rtol=1e-4), p
+        assert all(np.isfinite(b["losses"])), b["losses"]
+        del a, leaves
+
+        # one step recorded: the collectives DTensor issues at (1, 1)
+        t = trainers["mesh (1, 1)"]
+        state, batch = b["state"], t.batch(3)
+        del b, finals
+        with hlo.record() as log:
+            state, metrics = t.step_fn(state, batch)
+        coll = hlo.collective_stats(log)
+        print(f"[gspmd] one recorded (1, 1) step: {len(log)} ops, "
+              f"collectives {coll.as_dict()} | {smi}")
+        assert len(log) > 0 and np.isfinite(float(metrics["loss"]))
+
+        # save and restore the DTensor state, bit for bit
+        root = checkpoint_root(8e9) if cuda else None
+        tmp = tempfile.mkdtemp(prefix="gspmd_ckpt_", dir=root)
+        try:
+            store = CheckpointStore(tmp, group=torch.distributed.group.WORLD)
+            ts = time.perf_counter()
+            store.save(state.step, state)
+            tw = time.perf_counter() - ts
+            back = store.restore(
+                state.step, steps_mod.abstract_train_state(run), device=dev,
+                shardings=steps_mod.train_state_shardings(mesh, run))
+            tr = time.perf_counter() - ts - tw
+            pairs = [(x, y) for tree, ref in (
+                (back.params, state.params), (back.opt.mu, state.opt.mu),
+                (back.opt.nu, state.opt.nu))
+                for (_, x), (_, y) in zip(tree_paths(tree), tree_paths(ref))]
+            same = all(isinstance(x, DTensor) and x.placements ==
+                       y.placements and torch.equal(x.to_local(), y.to_local())
+                       for x, y in pairs) and (back.step, back.opt.count) \
+                == (state.step, state.opt.count)
+            print(f"[gspmd] DTensor state saved in {tw:.2f} s "
+                  f"({dir_bytes(store.step_dir(state.step)) / 1e9:.2f} GB, "
+                  f"global layout) and restored at param_shardings in "
+                  f"{tr:.2f} s: bitwise {same} | {smi}")
+            assert same
+            del back, pairs
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del state
+    finally:
+        for t in trainers.values():
+            t.close()
+    after = [w.launches for w in wrappers]
+    print(f"[gspmd] phase 14 took {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches {dict(zip((w.__name__ for w in wrappers), after))} "
+          f"unchanged: {after == before} | {smi}")
+    assert after == before, (before, after)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -4002,9 +4151,12 @@ def main() -> int:
     # -- 13. the analysis layer and the dry run --------------------------------
     an = analysis_phase(smi, chaos_params, ring, dev)
     del ring, chaos_params
+
+    # -- 14. the GSPMD step family on DTensor ----------------------------------
+    gspmd_mesh_phase(smi, dev)
     dist.destroy_process_group()
 
-    # -- 14. result lines -----------------------------------------------------
+    # -- 15. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",

@@ -29,6 +29,14 @@ the other::
   write has landed. On restore every peer reads the global array,
   resolves a changed ring size through ``on_mismatch`` (elastic
   restore, ``launch/elastic.py``) and keeps its own row.
+* **Meshes**: a DTensor leaf (the gspmd step's params and moments over a
+  ``DeviceMesh``) is written in the reference's global layout, its
+  ``full_tensor()``, under the same file name and with the same bytes.
+  ``restore(..., shardings=)`` places each leaf at its
+  ``launch/sharding.Sharding`` on the mesh it names: every peer reads
+  only its own block of the file. A gspmd checkpoint is therefore
+  mesh-agnostic, as the reference's is: saved on one mesh, it restores
+  on another or on one peer.
 * **bf16**: the reference's ``np.save`` of an ml_dtypes ``bfloat16``
   array writes raw 2-byte records (descr ``<V2``), manifest dtype
   ``bfloat16``. The port writes the same bytes from the int16 bit
@@ -49,8 +57,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.compat import DeviceLike, resolve_device
+from repro_torch.launch.sharding import block_slices
 
 Tree = Any
 
@@ -181,7 +191,9 @@ class CheckpointStore:
         the writing peer only): [(file, array, manifest dtype)]."""
         host = []
         for name, leaf in leaf_files(tree):
-            if self.rows(name):
+            if isinstance(leaf, DTensor):       # every peer gathers
+                leaf = leaf.full_tensor()
+            elif self.rows(name):
                 leaf = self._gather(leaf)
             if self.rank == 0:
                 host.append((name, *_to_host(leaf)))
@@ -269,7 +281,8 @@ class CheckpointStore:
     # -- restore -------------------------------------------------------
 
     def restore(self, step: int, like: Tree, on_mismatch=None, *,
-                device: DeviceLike = None) -> Tree:
+                device: DeviceLike = None,
+                shardings: Optional[Tree] = None) -> Tree:
         """Restore into the structure of ``like`` (tensors, ``meta``
         tensors or ints) on ``device`` (the card unless "cpu"), each
         leaf cast to ``like``'s dtype. A ring-row leaf's global array is
@@ -277,14 +290,22 @@ class CheckpointStore:
         size, or another layout), ``on_mismatch(name, arr, ref) -> arr``
         resolves it against ``ref``, a ``meta`` tensor of the wanted
         global shape (``launch/elastic.make_on_mismatch``); then this
-        peer keeps its own row."""
+        peer keeps its own row. ``shardings``: a tree like ``like`` of
+        ``launch/sharding.Sharding`` leaves; a tensor leaf with one comes
+        back a DTensor at it (this peer's block of the global array)."""
         dev = resolve_device(device)
         d = self.step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         files = {leaf["file"]: leaf for leaf in manifest["leaves"]}
+        names = leaf_files(like)
+        shs = ([None] * len(names) if shardings is None
+               else [sh for _, sh in _flatten(shardings)])
+        if len(shs) != len(names):
+            raise ValueError(f"{len(shs)} shardings for {len(names)} "
+                             "leaves")
         out = []
-        for name, ref in leaf_files(like):
+        for (name, ref), sh in zip(names, shs):
             if name not in files:
                 raise KeyError(f"checkpoint missing leaf {name}")
             arr = np.load(os.path.join(d, name), mmap_mode="r",
@@ -305,8 +326,14 @@ class CheckpointStore:
                                      f"expected {want}")
             if row:
                 arr = arr[self.rank]
+            if sh is not None:
+                pls = sh.placements
+                arr = arr[block_slices(arr.shape, sh.mesh, pls)]
             t = _from_host(arr, files[name]["dtype"]).to(dev)
-            out.append(t if t.dtype == ref.dtype else t.to(ref.dtype))
+            t = t if t.dtype == ref.dtype else t.to(ref.dtype)
+            if sh is not None:
+                t = DTensor.from_local(t, sh.mesh, pls, run_check=False)
+            out.append(t)
             del arr
         return _rebuild(like, iter(out))
 

@@ -1,9 +1,10 @@
 """``gspmd`` — the reference path without a manual exchange: in JAX,
-XLA's GSPMD owns every collective. In the port it trains one peer with
-local gradients and a tree AdamW (``manual=False``: ``sync`` is never
-called), which makes it the yardstick for what the hadronio exchange
-costs per step on the card. A ring of more than one peer needs FSDP2 /
-DTensor (ROADMAP.md Queue 1 item 8); ``launch/steps`` raises for it.
+XLA's GSPMD owns every collective. In the port (``manual=False``:
+``sync`` is never called) it trains over a ``DeviceMesh`` with DTensor's
+sharding propagation owning every collective
+(``launch/steps.make_train_step_gspmd``), and one peer with local
+gradients and a tree AdamW, which makes it the yardstick for what the
+hadronio exchange costs per step on the card.
 
 Serving: one whole-payload collective per emission on the ring's
 group, no ring-buffer slicing, no channel pool (``pipeline.raw_emit``).

@@ -35,8 +35,9 @@ channel`` under ``--mesh multipod`` runs the leader emission, whose
 cross-pod collectives ``--flat-collectives`` compares.
 
 Cells it cannot run raise a named ``NotImplementedError``: a ``gspmd``
-cell (the GSPMD step family is not ported) and every prefill and decode
-cell (the reference lowers those through the GSPMD serve steps).
+cell (its trace on the fake group is not ported: the GSPMD train step
+runs on a real ``DeviceMesh``) and every prefill and decode cell (the
+reference lowers those through the GSPMD serve steps, not ported).
 ``main`` records them as ``"status": "fail"`` with the error, as the
 reference records any failure; ``"skip"`` keeps the reference's meaning
 (``cell_skip_reason``). The dry run is an analysis tool: nothing in the
@@ -82,15 +83,15 @@ def check_cell(shape, mode: str) -> None:
     """Raise the named error of a cell the port cannot trace yet."""
     if not get_backend(mode).manual:
         raise NotImplementedError(
-            f"the dry run of mode {mode!r} needs the GSPMD step family "
-            "(launch/sharding.py, FSDP2/DTensor), which is not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1 item 8); use a TAC mode "
+            f"the dry run of mode {mode!r} traces the GSPMD step family "
+            "over a DeviceMesh on the fake group, which is not ported to "
+            "repro_torch yet (ROADMAP.md Queue 1 item 8b); use a TAC mode "
             "such as hadronio")
     if shape.kind != "train":
         raise NotImplementedError(
             f"a {shape.kind} cell ({shape.name}) lowers through the GSPMD "
             "serve steps (make_prefill_step / make_decode_step), which are "
-            "not ported to repro_torch yet (ROADMAP.md Queue 1 item 8)")
+            "not ported to repro_torch yet (ROADMAP.md Queue 1 item 8b)")
 
 
 @contextlib.contextmanager

@@ -7,7 +7,9 @@ port emits no HLO: eager PyTorch issues its ops one at a time, so
 :func:`record` watches that stream with a ``TorchDispatchMode`` and
 yields an :class:`OpLog` — every ``aten`` op and every ``c10d``
 collective, in issue order — which the reference's readers take in
-place of the text:
+place of the text. A DTensor op (the gspmd step over a ``DeviceMesh``)
+is logged as what it issues: the ops on its local blocks and the
+functional collectives (``_c10d_functional``) of its redistributions:
 
 * :func:`collective_stats` — op counts and RESULT bytes per collective
   kind (the reference counts result-type bytes). It stands for both
@@ -53,6 +55,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -75,6 +78,16 @@ _C10D_KINDS = {
     "_reduce_scatter_base_": "reduce-scatter",
     "reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+}
+
+# functional collectives (DTensor's redistributions) -> kind names
+_FUNCTIONAL_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
 }
 
 # the kinds the two-level fabric decomposes (an all-to-all carries
@@ -118,6 +131,16 @@ def _group_ranks(args) -> tuple:
     return ()
 
 
+def _functional_ranks(args) -> tuple:
+    """Global ranks of a functional collective's group (its name is the
+    op's last string argument)."""
+    names = [a for a in args if isinstance(a, str)]
+    if not names:
+        return ()
+    group = dist.distributed_c10d._resolve_process_group(names[-1])
+    return tuple(dist.get_process_group_ranks(group))
+
+
 class _Recorder(TorchDispatchMode):
 
     def __init__(self, log: OpLog):
@@ -125,10 +148,19 @@ class _Recorder(TorchDispatchMode):
         self.log = log
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor runs the op on its local blocks and issues its
+            # redistributions' collectives: those reach this mode
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         ns = func.namespace
-        if ns == "c10d":
+        if ns == "_c10d_functional":
+            kind = _FUNCTIONAL_KINDS.get(func._opname)
+            if kind:
+                self.log.append(Op(str(func), kind, _nbytes(tree_leaves(out)),
+                                   _functional_ranks(args)))
+        elif ns == "c10d":
             kind = _C10D_KINDS.get(func._opname)
             # the first argument is the result: the in-place tensors of
             # an all-reduce, the output of the others

@@ -14,8 +14,17 @@ mesh's size.
 ``make_production_mesh`` is the reference's 16x16 pod, or 2x16x16 with a
 pod axis; the dry run (``launch/dryrun``) lays a fake process group of
 that size out on it. The serving fabric keeps ``Ring(pods, pod_axis)``
-(``launch/serve --pods``). ``make_abstract_mesh`` and the GSPMD
-family's device meshes wait for ``launch/sharding``.
+(``launch/serve --pods``).
+
+The GSPMD step family (``launch/sharding``, ``steps.make_train_step_gspmd``)
+runs on a ``torch.distributed`` ``DeviceMesh`` with the same axis names:
+:func:`make_device_mesh` builds it (``init_device_mesh`` with
+``mesh_dim_names``, on the card unless the caller names the CPU), the
+reference's ``make_mesh``. :func:`make_mesh` and
+:func:`make_abstract_mesh` give the device-free :class:`Mesh`, the
+reference's ``AbstractMesh`` (the sharding rules' tests read it).
+:func:`mesh_shape`, :func:`data_axes` and :func:`axis_size` read either
+kind.
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from repro_torch.compat import DeviceLike, resolve_device
 from repro_torch.core.channels import Ring
 
 
@@ -67,6 +78,40 @@ def make_mesh(shape: tuple, axes: tuple) -> Mesh:
     return Mesh(tuple(int(d) for d in shape), tuple(axes))
 
 
+def make_abstract_mesh(shape: tuple, axes: tuple) -> Mesh:
+    """Device-free mesh for the sharding rules (the reference's
+    ``AbstractMesh``)."""
+    return make_mesh(shape, axes)
+
+
+def make_device_mesh(shape: tuple, axes: tuple,
+                     device: DeviceLike = None) -> DeviceMesh:
+    """The GSPMD family's mesh over the peers of the default process
+    group: ``init_device_mesh`` with ``mesh_dim_names``, on the card
+    unless ``device`` names the CPU. Rank r sits at the row-major index r
+    of ``shape`` (pod-major, as :func:`make_ring` lays the ring out). The
+    group's size must equal the mesh's."""
+    m = make_mesh(shape, axes)
+    dev = resolve_device(device)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != m.size:
+        raise ValueError(
+            f"a device mesh of {m.dims} over {m.axis_names} needs "
+            f"{m.size} peers in an initialized process group; it has "
+            f"{world}")
+    return init_device_mesh(dev.type, m.dims, mesh_dim_names=m.axis_names)
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis: size}`` of a :class:`Mesh` or a named ``DeviceMesh``."""
+    if isinstance(mesh, Mesh):
+        return mesh.shape
+    if mesh.mesh_dim_names is None:
+        raise ValueError("the sharding rules need a DeviceMesh with "
+                         "mesh_dim_names")
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
 def parse_mesh(spec: str) -> Mesh:
     """The train CLI's ``--mesh``: ``"AxB"`` is ``("data", "model")``
     (``"A"`` alone ``("data",)``), ``"AxBxC"`` is ``("pod", "data",
@@ -83,13 +128,14 @@ def parse_mesh(spec: str) -> Mesh:
     return make_mesh(dims, axes)
 
 
-def data_axes(mesh: Mesh) -> tuple:
-    """The DP axes of a mesh (everything that is not 'model')."""
-    return tuple(a for a in mesh.axis_names if a != "model")
+def data_axes(mesh) -> tuple:
+    """The DP axes of a mesh (everything that is not 'model'); a
+    :class:`Mesh` or a ``DeviceMesh``."""
+    return tuple(a for a in mesh_shape(mesh) if a != "model")
 
 
-def axis_size(mesh: Mesh, name: str) -> int:
-    return mesh.shape.get(name, 1)
+def axis_size(mesh, name: str) -> int:
+    return mesh_shape(mesh).get(name, 1)
 
 
 def make_ring(mesh: Mesh, group: Optional[dist.ProcessGroup] = None, *,

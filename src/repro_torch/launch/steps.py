@@ -18,9 +18,22 @@ backend's ``manual`` flag, never by a mode name:
   ``launch/mesh.make_ring``) makes the collectives pod-aware under
   ``comm.hierarchical`` and the ZeRO-1 scatter group in-pod
   (``backends.scatter_group_size``), as the reference's TAC body.
-* gspmd (``manual=False``) — local gradients and a tree AdamW with no
-  exchange, on one peer only (a wider ring needs FSDP2/DTensor,
-  ROADMAP.md Queue 1 item 8).
+* gspmd (``manual=False``) — the production 2-D sharded step over a
+  ``DeviceMesh`` (``launch/mesh.make_device_mesh``): params and AdamW
+  moments are DTensors at ``launch/sharding.param_shardings`` (FSDP over
+  ``data``, TP over ``model``), the global batch is placed at
+  ``batch_sharding``, ``api.loss`` runs with ``make_shard_fn(mesh)``'s
+  activation constraints (SP), and DTensor's sharding propagation owns
+  every collective, as XLA's GSPMD does in the reference. Plain tensors
+  inside the model (positions, masks, softmax state) join DTensor ops as
+  replicated values (``implicit_replication``). The gradients arrive
+  ``Partial`` or at whatever placement the backward left them, and are
+  redistributed to their param's placements before the tree AdamW, which
+  updates each DTensor's local block with the global norm taken over the
+  whole tree. Without a mesh the step is one peer's local step on plain
+  tensors, as before. The families whose ``shard_fn`` sites are threaded
+  (``GSPMD_FAMILIES``) train over a mesh; the others raise a named error
+  on a mesh of more than one peer and train on one peer as before.
 
 Both families accumulate gradients over ``run.microbatches`` sequential
 microbatches (``_accumulate_grads``), as the reference does: one
@@ -28,22 +41,29 @@ microbatch gives the gradients in the parameter dtype, more give their
 f32 mean. The exchange runs once per step, after the accumulation.
 
 A step is ``step_fn(state, batch) -> (state, metrics)`` with ``batch``
-{"tokens", "labels"} on the device; metrics are 0-d tensors plus the
-Python float ``lr``. A step built with ``donate=True`` consumes the
-state it is given, as the reference's ``Trainer`` donates its state to
-the jitted step: the tree AdamW writes the new params and moments into
-that state's tensors, so one copy of them lives instead of two (the
-ZeRO-1 backends' flat update still makes new shards). The caller must
-not read the given state again. ``abstract_state`` is the state's layout as
-``meta`` tensors (the ``like`` tree of a checkpoint restore) and
-``ring_rows`` names the checkpoint leaves each peer holds one row of.
+{"tokens", "labels"} on the device (the gspmd step over a mesh takes the
+global batch, the same on every peer); metrics are 0-d
+tensors plus the Python float ``lr``. A step built with ``donate=True``
+consumes the state it is given, as the reference's ``Trainer`` donates
+its state to the jitted step: the tree AdamW writes the new params and
+moments into that state's tensors, so one copy of them lives instead of
+two (the ZeRO-1 backends' flat update still makes new shards). The
+caller must not read the given state again. ``abstract_state`` is the
+state's layout as ``meta`` tensors (the ``like`` tree of a checkpoint
+restore, with ``train_state_shardings`` as its placements over a mesh)
+and ``ring_rows`` names the checkpoint leaves each peer holds one row
+of.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import math
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import RunConfig
@@ -52,9 +72,17 @@ from repro_torch.core.backends import (UpdateContext, get_backend,
                                        scatter_group_size)
 from repro_torch.core.backends.base import EF
 from repro_torch.core.channels import Ring
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.launch.sharding import (Sharding, batch_sharding,
+                                         distribute, make_shard_fn,
+                                         param_shardings)
 from repro_torch.models import api
 from repro_torch.models.common import tree_map, tree_paths
+from repro_torch.models.layers import ShardFn, no_shard
 from repro_torch.optim import adamw
+
+# families whose shard_fn sites are threaded: they train gspmd over a mesh
+GSPMD_FAMILIES = ("dense",)
 
 Tree = Any
 
@@ -69,16 +97,29 @@ class TrainState(NamedTuple):
     #                               tuple keyed by bucket id
 
 
+def _at_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient at its param's placements (a ``Partial`` one is
+    reduced, reduce-scattered onto a sharded param); a plain one as it
+    is."""
+    if isinstance(p, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _loss_and_grads(params: Tree, batch: dict, run: RunConfig,
-                    n_shards: int):
+                    n_shards: int, shard_fn: ShardFn = no_shard):
     """(loss / n_shards, its grads) by autograd over fresh leaves that
-    alias the params. ``backward`` frees the graph before this returns."""
+    alias the params. ``backward`` frees the graph before this returns.
+    DTensor params give a plain loss (the global value on every peer)
+    and gradients at the params' placements."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss, _aux = api.loss(leaves, batch, run.model)
+        loss, _aux = api.loss(leaves, batch, run.model, shard_fn)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
         loss = loss / n_shards
         loss.backward()
-    return loss.detach(), tree_map(lambda p: p.grad, leaves)
+    return loss.detach(), tree_map(lambda p: _at_param(p.grad, p), leaves)
 
 
 def _microbatches(batch: dict, n: int) -> dict:
@@ -93,24 +134,28 @@ def _microbatches(batch: dict, n: int) -> dict:
 
 
 def _accumulate_grads(params: Tree, batch: dict, run: RunConfig,
-                      n_shards: int):
+                      n_shards: int, shard_fn: ShardFn = no_shard,
+                      mesh: Optional[DeviceMesh] = None):
     """Mean loss and grads over ``run.microbatches`` sequential
     microbatches. One microbatch returns the grads in the parameter
     dtype; more sum them in f32 (``acc + g.float()`` from zeros, then
     ``x 1/n``, the reference's order) and return f32. Each microbatch's
     graph is freed by its backward before the next forward, so peak
-    memory falls with ``n``."""
+    memory falls with ``n``. With a ``mesh`` the batch is global and
+    each microbatch (its rows ``i·B/n`` onwards, as the reference's
+    reshape takes them) is placed at ``batch_sharding``."""
     n = run.microbatches
+    place = (lambda b: b) if mesh is None else (lambda b: _placed(b, mesh))
     if n == 1:
-        return _loss_and_grads(params, batch, run, n_shards)
+        return _loss_and_grads(params, place(batch), run, n_shards, shard_fn)
     micro = _microbatches(batch, n)
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params)
+    acc = tree_map(adamw.zeros_f32, params)
     lsum = torch.zeros((), dtype=torch.float32,
                        device=batch["tokens"].device)
     for i in range(n):
         loss, grads = _loss_and_grads(
-            params, {k: v[i] for k, v in micro.items()}, run, n_shards)
+            params, place({k: v[i] for k, v in micro.items()}), run,
+            n_shards, shard_fn)
         for (_, a), (_, g) in zip(tree_paths(acc), tree_paths(grads)):
             a.add_(g)
         lsum = lsum + loss
@@ -119,10 +164,67 @@ def _accumulate_grads(params: Tree, batch: dict, run: RunConfig,
     return lsum * inv, tree_map(lambda a: a.mul_(inv), acc)
 
 
+def _placed(batch: dict, mesh: DeviceMesh) -> dict:
+    """The global batch (the same on every peer) at ``batch_sharding``."""
+    sh = batch_sharding(mesh, batch)
+    return {k: distribute(v, sh[k]) for k, v in batch.items()}
+
+
 def init_train_state(gen: torch.Generator, run: RunConfig,
                      device: DeviceLike = None) -> TrainState:
     params = api.init(gen, run.model, device=device)
     return TrainState(params=params, opt=adamw.init(params), step=0)
+
+
+def abstract_train_state(run: RunConfig) -> TrainState:
+    """The gspmd state's layout as ``meta`` tensors (no storage): params
+    in their dtype, f32 tree moments."""
+    specs = get_backend("gspmd").state_specs(run, 1)
+    return TrainState(params=api.abstract(run.model), opt=specs.opt, step=0)
+
+
+def train_state_shardings(mesh, run: RunConfig, *,
+                          fsdp: bool = True) -> TrainState:
+    """``launch/sharding.Sharding`` tree matching
+    :func:`abstract_train_state`: params and both moments at
+    ``param_shardings``, the counters replicated."""
+    ps = param_shardings(mesh, api.specs(run.model), fsdp=fsdp)
+    scalar = Sharding(mesh, ())
+    return TrainState(params=ps,
+                      opt=adamw.AdamState(mu=ps, nu=ps, count=scalar),
+                      step=scalar)
+
+
+def distribute_state(state: TrainState, shardings: TrainState) -> TrainState:
+    """A full gspmd state (the same on every peer) placed at
+    ``shardings``: params and moments as DTensors (this peer's blocks,
+    no collective), the counters as they are."""
+    return TrainState(
+        params=tree_map(distribute, state.params, shardings.params),
+        opt=adamw.AdamState(
+            tree_map(distribute, state.opt.mu, shardings.opt.mu),
+            tree_map(distribute, state.opt.nu, shardings.opt.nu),
+            state.opt.count),
+        step=state.step, ef=state.ef)
+
+
+def uses_dtensor(run: RunConfig, mesh: Optional[DeviceMesh]) -> bool:
+    """Whether ``run`` trains on DTensors over ``mesh``: a gspmd run of a
+    threaded family with a mesh. Raises the named error for a family
+    whose sites are not threaded on a mesh of more than one peer."""
+    if mesh is None or get_backend(run.comm.mode).manual:
+        return False
+    if run.model.family in GSPMD_FAMILIES:
+        return True
+    size = math.prod(mesh_shape(mesh).values())
+    if size > 1:
+        raise NotImplementedError(
+            f"gspmd training of the {run.model.family} family over a mesh "
+            f"of {size} peers needs its shard_fn sites "
+            "threaded, which is not ported yet (ROADMAP.md Queue 1 item "
+            "8b); train it on one peer or use a TAC mode such as "
+            "hadronio")
+    return False
 
 
 def init_tac_state(gen: torch.Generator, run: RunConfig,
@@ -210,31 +312,43 @@ def make_train_step_tac(run: RunConfig, ring: Ring, *,
     return step_fn
 
 
-def make_train_step_gspmd(run: RunConfig, ring: Ring, *,
+def make_train_step_gspmd(run: RunConfig,
+                          mesh: Optional[DeviceMesh] = None, *,
                           donate: bool = False):
-    """Local gradients and a tree AdamW, no exchange: one peer only."""
-    if ring.world_size != 1:
-        raise NotImplementedError(
-            f"gspmd training over a ring of {ring.world_size} peers needs "
-            "FSDP2/DTensor, which is not ported yet (ROADMAP.md Queue 1 "
-            "item 8); use a TAC mode such as hadronio")
+    """The gspmd step over ``mesh`` (a ``DeviceMesh``; its state from
+    :func:`distribute_state` at :func:`train_state_shardings`), or one
+    peer's local step on plain tensors when ``mesh`` is None or the
+    family is not threaded (``uses_dtensor``, which raises for such a
+    family on a mesh of more than one peer)."""
+    if not uses_dtensor(run, mesh):
+        mesh = None
+    shard_fn = make_shard_fn(mesh)
 
     def step_fn(state: TrainState, batch: dict):
-        loss, grads = _accumulate_grads(state.params, batch, run, 1)
-        new_params, new_opt, metrics = adamw.update(
-            grads, state.opt, state.params, run, inplace=donate)
+        with implicit_replication():
+            loss, grads = _accumulate_grads(state.params, batch, run, 1,
+                                            shard_fn, mesh)
+            new_params, new_opt, metrics = adamw.update(
+                grads, state.opt, state.params, run, inplace=donate)
         return TrainState(new_params, new_opt, state.step + 1,
                           state.ef), dict(metrics, loss=loss)
 
     return step_fn
 
 
-def make_train_step(run: RunConfig, ring: Ring, *, donate: bool = False):
+def make_train_step(run: RunConfig, ring: Optional[Ring] = None, *,
+                    mesh: Optional[DeviceMesh] = None,
+                    donate: bool = False):
     """Dispatch on the registered backend's step family (callers never
-    change, and no mode names appear here). ``donate``: the step
+    change, and no mode names appear here): a TAC step over ``ring``, or
+    the gspmd step over ``mesh`` (None: one peer). ``donate``: the step
     consumes its state (module docstring)."""
     backend = get_backend(run.comm.mode)
     backend.validate(run.comm)
     if backend.manual:
         return make_train_step_tac(run, ring, donate=donate)
-    return make_train_step_gspmd(run, ring, donate=donate)
+    if mesh is None and ring is not None and ring.world_size > 1:
+        raise ValueError(
+            f"gspmd over {ring.world_size} peers runs on a DeviceMesh "
+            "(launch/mesh.make_device_mesh), not a ring: pass mesh=")
+    return make_train_step_gspmd(run, mesh, donate=donate)

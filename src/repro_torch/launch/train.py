@@ -26,6 +26,15 @@ process per peer of the ring). Without one it creates a group of one
 peer in-process (NCCL on the card, gloo on the CPU, a ``HashStore`` so
 that no port is opened) and destroys it in :meth:`Trainer.close`.
 
+A TAC mode runs on the ring (``--mesh`` folds every axis into it,
+pod-major). ``gspmd`` with ``--mesh`` (or on more than one peer, where
+the default is the reference's one ``data`` axis of every peer) runs on
+a ``DeviceMesh`` of that shape (``launch/mesh.make_device_mesh``): the
+state is DTensors at ``steps.train_state_shardings``, each step takes
+the global batch, and checkpoints are written in the global layout and
+restored onto whatever mesh the new Trainer has. ``gspmd`` on one peer
+without ``--mesh`` trains plain tensors, as before.
+
 CLI::
 
   python -m repro_torch.launch.train --arch qwen2-0.5b --steps 50 \\
@@ -36,6 +45,12 @@ CLI::
   # CPU-sized smoke run
   python -m repro_torch.launch.train --arch qwen2-0.5b-reduced \\
       --device cpu --steps 2 --global-batch 2 --seq-len 32
+
+  # gspmd over a (data, model) mesh of 2 x 2 gloo peers: FSDP over
+  # data, TP and SP over model, DTensor owning every collective
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen1.5-4b-reduced --device cpu --steps 3 --global-batch 8 \\
+      --seq-len 32 --mode gspmd --mesh 2x2
 
   # two pods of two peers (the reference's --mesh 2x2x1): collectives
   # two-level, the ZeRO-1 shards in-pod and replicated across pods
@@ -75,7 +90,8 @@ from repro_torch.core.channels import Ring
 from repro_torch.data import DataConfig, batch_at, make_source
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.elastic import make_on_mismatch
-from repro_torch.launch.mesh import Mesh, make_ring, parse_mesh
+from repro_torch.launch.mesh import (Mesh, make_device_mesh, make_ring,
+                                     parse_mesh)
 
 
 class Watchdog:
@@ -116,9 +132,12 @@ class Trainer:
     (``steps.make_train_step``), so the state passed to :meth:`run_loop`
     must not be read again; the reference's Trainer always donates, and
     so does the CLI. ``mesh`` (``launch/mesh.Mesh``; None: one flat ring
-    of every peer) lays the peers out as the reference's train mesh: its
-    axes flattened pod-major into one ring, with the pod axis as the
-    ring's (``mesh.make_ring``)."""
+    of every peer) lays the peers out as the reference's train mesh: for
+    a TAC mode its axes flattened pod-major into one ring, with the pod
+    axis as the ring's (``mesh.make_ring``); for ``gspmd`` a
+    ``DeviceMesh`` of its shape (``self.mesh``; None on one peer without
+    a mesh, or for a family whose sites are not threaded on one
+    peer)."""
 
     def __init__(self, run: RunConfig, mesh: Optional[Mesh] = None, *,
                  device: DeviceLike = None,
@@ -136,20 +155,33 @@ class Trainer:
                 store=dist.HashStore(), rank=0, world_size=1)
         self.store = None
         self.watchdog = None
+        self.ring = self.mesh = None
         try:
-            self.ring = (Ring(channels=run.comm.channels) if mesh is None
-                         else make_ring(mesh, channels=run.comm.channels))
+            world = dist.get_world_size()
+            if not get_backend(run.comm.mode).manual and (
+                    mesh is not None or world > 1):
+                m = mesh or Mesh((world,), ("data",))
+                dmesh = make_device_mesh(m.dims, m.axis_names, self.device)
+                if steps_mod.uses_dtensor(run, dmesh):
+                    self.mesh = dmesh
+            if self.mesh is None:
+                self.ring = (Ring(channels=run.comm.channels)
+                             if mesh is None else
+                             make_ring(mesh, channels=run.comm.channels))
             self.source = make_source(run)
-            self.dc = DataConfig(seq_len=run.shape.seq_len,
-                                 global_batch=run.shape.global_batch,
-                                 host_index=self.ring.rank,
-                                 num_hosts=self.ring.world_size)
-            self.step_fn = steps_mod.make_train_step(run, self.ring,
-                                                     donate=donate)
+            # a DTensor step takes the global batch; a ring peer its share
+            self.dc = DataConfig(
+                seq_len=run.shape.seq_len,
+                global_batch=run.shape.global_batch,
+                host_index=0 if self.ring is None else self.ring.rank,
+                num_hosts=1 if self.ring is None else self.ring.world_size)
+            self.step_fn = steps_mod.make_train_step(
+                run, self.ring, mesh=self.mesh, donate=donate)
             if run.checkpoint_dir:
+                group = None if self.ring is None else self.ring.group
                 self.store = CheckpointStore(
                     run.checkpoint_dir, keep=run.keep_checkpoints,
-                    group=self.ring.group or dist.group.WORLD,
+                    group=group or dist.group.WORLD,
                     rows=steps_mod.ring_rows)
         except Exception:
             self.close()
@@ -171,7 +203,11 @@ class Trainer:
             return steps_mod.init_tac_state(gen, self.run, self.device,
                                             n_shards=self.ring.world_size,
                                             pod_size=self.ring.pods)
-        return steps_mod.init_train_state(gen, self.run, self.device)
+        state = steps_mod.init_train_state(gen, self.run, self.device)
+        if self.mesh is None:
+            return state
+        return steps_mod.distribute_state(
+            state, steps_mod.train_state_shardings(self.mesh, self.run))
 
     def restore_or_init(self) -> steps_mod.TrainState:
         """The latest checkpoint's state when there is one (a changed
@@ -181,6 +217,12 @@ class Trainer:
             latest = self.store.latest_step()
             if latest is not None:
                 self.log_fn(f"[trainer] restoring step {latest}")
+                if self.mesh is not None:
+                    return self.store.restore(
+                        latest, steps_mod.abstract_train_state(self.run),
+                        device=self.device,
+                        shardings=steps_mod.train_state_shardings(
+                            self.mesh, self.run))
                 return self.store.restore(
                     latest, steps_mod.abstract_state(
                         self.run, self.ring.world_size, self.ring.pods),
@@ -189,7 +231,8 @@ class Trainer:
         return self.init_state()
 
     def batch(self, step: int) -> dict:
-        """This peer's batch for ``step`` on the device."""
+        """This peer's batch for ``step`` on the device (over a
+        ``DeviceMesh``: the global batch, which the step places)."""
         return {k: torch.as_tensor(v).long().to(self.device)
                 for k, v in batch_at(self.source, self.dc, step).items()}
 
@@ -355,9 +398,11 @@ def main(argv=None) -> int:
                         "step (default: the run config's)")
     p.add_argument("--mesh", default="",
                    help="'AxB' (data, model) or 'AxBxC' (pod, data, "
-                        "model): the peers' layout, every axis flattened "
-                        "pod-major into the ring; the product must be the "
-                        "world size (default: one data axis of every peer)")
+                        "model): the peers' layout; a TAC mode flattens "
+                        "every axis pod-major into the ring, gspmd trains "
+                        "on a DeviceMesh of this shape; the product must "
+                        "be the world size (default: one data axis of "
+                        "every peer)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)

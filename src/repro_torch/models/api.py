@@ -2,10 +2,12 @@
 
   specs(cfg)                                   -> ParamSpec tree
   init(gen, cfg, device=)                      -> params
-  loss(params, batch, cfg)                     -> (loss, aux)
+  abstract(cfg)                                -> params as meta tensors
+  loss(params, batch, cfg, shard_fn)           -> (loss, aux)
   prefill(params, batch, cfg, ...)             -> (last-token logits, cache)
   decode_step(params, cache, batch, cfg, ...)  -> (logits, cache)
   init_cache / grow_cache
+  cache_specs(cfg, batch, max_len)             -> the cache as meta tensors
   input_specs(cfg, shape, device=)             -> one cell's inputs, no storage
 
 Counterpart of ``repro/models/api.py``. ``batch`` is a dict: train
@@ -30,6 +32,12 @@ own: an encdec prefill reads the logits of the LAST position of the
 padded batch, whatever ``last_pos`` says; a vlm prefill reads row
 ``last_pos`` of the prefixed sequence, so ``last_pos = len - 1`` (the
 engine's) lands in the patch prefix (ROADMAP.md, Queue 3).
+
+``loss`` takes the reference's ``shard_fn`` (``layers.ShardFn``, the
+identity by default): the embedded input's ``("batch", "seq", None)``
+constraint, the LM head's, and the dense stack's sites
+(``models/transformer``). The moe, ssm, hybrid, encdec and vlm stacks'
+own sites are not threaded yet (ROADMAP.md Queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -45,9 +53,9 @@ from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whi
 from repro_torch.models.common import init_params, tree_map
-from repro_torch.models.layers import (apply_norm, cross_entropy,
+from repro_torch.models.layers import (ShardFn, apply_norm, cross_entropy,
                                        embedding_specs, embed_tokens,
-                                       lm_logits, norm_specs)
+                                       lm_logits, no_shard, norm_specs)
 
 Tree = Any
 
@@ -75,7 +83,16 @@ def init(gen: torch.Generator, cfg: ModelConfig,
                        resolve_device(device))
 
 
-def loss(params: Tree, batch: dict, cfg: ModelConfig):
+def abstract(cfg: ModelConfig) -> Tree:
+    """The params' layout as ``meta`` tensors in the param dtype (no
+    storage)."""
+    dt = torch_dtype(cfg.param_dtype)
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dt, device="meta"),
+                    specs(cfg))
+
+
+def loss(params: Tree, batch: dict, cfg: ModelConfig,
+         shard_fn: ShardFn = no_shard):
     """Token-mean cross entropy of next-token prediction and the
     reference's aux dict: {"xent", "aux"}, ``aux`` the moe balance plus
     z-loss (zero for the other families) added to the loss; {"xent"}
@@ -87,7 +104,7 @@ def loss(params: Tree, batch: dict, cfg: ModelConfig):
     ``"frames"`` feed the encoder."""
     dt = torch_dtype(cfg.compute_dtype)
     x = embed_tokens(params["embed"], batch["tokens"], dt)
-    head = lambda x: lm_logits(params["embed"], x)
+    head = lambda x: lm_logits(params["embed"], x, shard_fn)
     xent = lambda logits: cross_entropy(logits, batch["labels"],
                                         batch.get("loss_mask"))
     if cfg.family == "encdec":
@@ -102,18 +119,21 @@ def loss(params: Tree, batch: dict, cfg: ModelConfig):
     if cfg.family == "vlm":
         prefix = batch["patches"].shape[1]
         x = torch.cat([batch["patches"].to(dt), x], dim=1)
-    x, _, aux = _trunk(params, x, cfg, mode="train")
+    x = shard_fn(x, ("batch", "seq", None))
+    x, _, aux = _trunk(params, x, cfg, mode="train", shard_fn=shard_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     l = xent(head(x[:, prefix:]))
     return l + aux, {"xent": l, "aux": aux}
 
 
 def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-           cache=None, pos=None, attend=None, scan=None, expert_fn=None):
+           cache=None, pos=None, attend=None, scan=None, expert_fn=None,
+           shard_fn: ShardFn = no_shard):
     """The family stack. Returns (x, cache, aux): ``aux`` is the moe
     blocks' summed balance loss, zero for the other families.
     ``expert_fn`` replaces the moe expert stage; the other families
-    have none."""
+    have none. ``shard_fn`` reaches the transformer stack's sites; the
+    recurrent stacks' are not threaded yet."""
     zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = apply_norm(params["ln_in"], x, "layernorm")
@@ -127,7 +147,8 @@ def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         return x, cache, zero()
     return tfm.apply_stack(params["layers"], x, cfg, mode=mode,
                            kind=cfg.family, cache=cache, pos=pos,
-                           attend=attend, expert_fn=expert_fn)
+                           attend=attend, expert_fn=expert_fn,
+                           shard_fn=shard_fn)
 
 
 def stub_inputs(cfg: ModelConfig, batch: int,
@@ -249,6 +270,23 @@ def _cache_len(cfg: ModelConfig, max_len: int) -> int:
     n = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
     return n + cfg.num_patches
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Tree:
+    """The layout of :func:`init_cache` as ``meta`` tensors in the
+    compute dtype (no storage)."""
+    dt = cfg.compute_dtype
+    if cfg.family == "ssm":
+        return rwkv.init_state_specs(cfg, batch, dt)
+    if cfg.family == "hybrid":
+        return hyb.hybrid_cache_specs(cfg, batch, dt)
+    kv = att.kv_cache_specs(cfg.num_layers, batch, _cache_len(cfg, max_len),
+                            cfg.num_kv_heads, cfg.head_dim, dt)
+    if cfg.family != "encdec":
+        return kv
+    cross = att.kv_cache_specs(cfg.num_layers, batch, cfg.num_frames,
+                               cfg.num_kv_heads, cfg.head_dim, dt)
+    return {"self": kv, "cross_k": cross["k"], "cross_v": cross["v"]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

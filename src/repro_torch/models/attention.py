@@ -17,6 +17,13 @@ KV caches: full-attention caches are (B, S_max, KV, Dh) written at
 ``pos``; windowed caches are rolling (slot = pos % window). Decode
 writes the new token's K/V into the cache IN PLACE (the reference
 returns a new array), which saves a cache-sized copy per layer and step.
+``kv_cache_specs`` is the cache's layout as ``meta`` tensors.
+
+``shard_fn`` (``layers.ShardFn``) pins the reference's activation
+constraints at its 11 sites: q, k and v after the projections, the
+output projection, and decode's flash-decoding layout (q replicated, the
+cache's length over ``model``, the scores length-sharded, the output
+back at its heads).
 """
 from __future__ import annotations
 
@@ -24,8 +31,9 @@ import math
 
 import torch
 
+from repro_torch.compat import torch_dtype
 from repro_torch.models.common import ParamSpec
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import ShardFn, no_shard, rope
 
 NEG_INF = -1e30
 
@@ -53,7 +61,7 @@ def attention_specs(d: int, num_heads: int, num_kv: int, head_dim: int,
 
 def project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor,
                 q_positions: torch.Tensor, kv_positions: torch.Tensor,
-                rope_theta: float):
+                rope_theta: float, shard_fn: ShardFn = no_shard):
     """Returns q (B,Sq,H,Dh), k/v (B,Skv,KV,Dh); RoPE applied to q and k."""
     dt = xq.dtype
     q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(dt))
@@ -63,12 +71,18 @@ def project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor,
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    return rope(q, q_positions, rope_theta), rope(k, kv_positions,
-                                                  rope_theta), v
+    q = rope(q, q_positions, rope_theta)
+    k = rope(k, kv_positions, rope_theta)
+    q = shard_fn(q, ("batch", None, "heads", None))
+    k = shard_fn(k, ("batch", None, "kv_heads", None))
+    v = shard_fn(v, ("batch", None, "kv_heads", None))
+    return q, k, v
 
 
-def out_project(p: dict, attn: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(attn.dtype))
+def out_project(p: dict, attn: torch.Tensor,
+                shard_fn: ShardFn = no_shard) -> torch.Tensor:
+    out = torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(attn.dtype))
+    return shard_fn(out, ("batch", None, "embed"))
 
 
 def expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -222,16 +236,33 @@ def init_kv_cache(num_layers: int, batch: int, max_len: int, num_kv: int,
             "v": torch.zeros(sh, dtype=dtype, device=device)}
 
 
+def kv_cache_specs(num_layers: int, batch: int, max_len: int, num_kv: int,
+                   head_dim: int, dtype: str) -> dict:
+    """The layout of :func:`init_kv_cache` as ``meta`` tensors
+    (``dtype``: a config dtype name)."""
+    dt = torch_dtype(dtype)
+    sh = (num_layers, batch, max_len, num_kv, head_dim)
+    return {"k": torch.empty(sh, dtype=dt, device="meta"),
+            "v": torch.empty(sh, dtype=dt, device="meta")}
+
+
 def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
                   cache_v: torch.Tensor, new_k: torch.Tensor,
                   new_v: torch.Tensor, pos: torch.Tensor, *,
-                  num_heads: int, window: int = 0):
+                  num_heads: int, window: int = 0,
+                  shard_fn: ShardFn = no_shard):
     """Single-token decode. q: (B,1,H,Dh); cache_k/v: (B,S_max,KV,Dh);
     new_k/v: (B,1,KV,Dh) (already roped at ``pos``). ``pos`` is a 0-d
     tensor (whole batch at one position) or (B,) (the engine's
     mixed-length batches). Writes the new K/V into the caches in place
-    and returns (out, cache_k, cache_v)."""
+    and returns (out, cache_k, cache_v). ``shard_fn`` pins the
+    reference's flash-decoding layout: where the reference constrains
+    the expanded cache, this constrains the cache the grouped heads read,
+    and its scores carry the KV and group dims in place of the heads."""
     b, s_max, kv, dh = cache_k.shape
+    q = shard_fn(q, ("batch", "rep", "rep", "rep"))
+    cache_k = shard_fn(cache_k, ("batch", "seq_model", "rep", "rep"))
+    cache_v = shard_fn(cache_v, ("batch", "seq_model", "rep", "rep"))
     slot = pos % s_max if window > 0 else pos
     if pos.ndim == 0:
         cache_k.index_copy_(1, slot.reshape(1), new_k)
@@ -240,10 +271,13 @@ def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
         rows = torch.arange(b, device=q.device)
         cache_k[rows, slot] = new_k[:, 0]
         cache_v[rows, slot] = new_v[:, 0]
+    ck = shard_fn(cache_k, ("batch", "seq_model", "rep", "rep"))
+    cv = shard_fn(cache_v, ("batch", "seq_model", "rep", "rep"))
     g = num_heads // kv
     scale = 1.0 / math.sqrt(dh)
     qg = q.float().reshape(b, 1, kv, g, dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.float()) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, ck.float()) * scale
+    s = shard_fn(s, ("batch", "rep", "rep", "rep", "seq_model"))
     j = torch.arange(s_max, device=q.device)
     if window > 0:
         valid = ((pos[..., None] - j) % s_max) <= pos[..., None]   # rolling
@@ -253,6 +287,8 @@ def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
     valid = valid.reshape(-1 if valid.ndim == 2 else 1, 1, 1, 1, s_max)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(cache_v.dtype).float(),
-                       cache_v.float())
-    return out.reshape(b, 1, num_heads, dh).to(q.dtype), cache_k, cache_v
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(cv.dtype).float(),
+                       cv.float())
+    out = out.reshape(b, 1, num_heads, dh).to(q.dtype)
+    out = shard_fn(out, ("batch", None, "heads", None))   # late reshard
+    return out, cache_k, cache_v

@@ -37,6 +37,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as att
@@ -182,6 +183,13 @@ def init_hybrid_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     for i, k in enumerate(tail):
         out[f"tail{i}_{k}"] = _cache_entry(cfg, k, (batch,), dtype, device)
     return out
+
+
+def hybrid_cache_specs(cfg: ModelConfig, batch: int, dtype) -> dict:
+    """The layout of :func:`init_hybrid_cache` as ``meta`` tensors
+    (``dtype``: a config dtype name)."""
+    return init_hybrid_cache(cfg, batch, torch_dtype(dtype),
+                             torch.device("meta"))
 
 
 def _apply_kind(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,

@@ -3,17 +3,43 @@ cross entropy, the SwiGLU and GELU MLPs.
 
 Counterpart of ``repro/models/layers.py``. Functions
 are pure and take their parameters as dict subtrees built from the
-matching ``*_specs`` helpers. The reference's activation-sharding hook
-(``shard_fn``) has no counterpart: a single card holds every tensor.
+matching ``*_specs`` helpers. Activation sharding constraints are
+injected through the ``shard_fn`` threaded through model code: the
+identity (:func:`no_shard`) on one peer, ``launch/sharding.make_shard_fn``
+over a ``DeviceMesh``, where parameters and activations are DTensors.
+
+Two ops have no DTensor sharding strategy at the rules' placements, and
+each takes an explicit ``torch.distributed.tensor.experimental.local_map``
+here (the values are those of the plain path):
+
+* :func:`embed_tokens` on a table whose vocab dim is sharded (the
+  ``vocab -> model`` rule): DTensor's masked-embedding buffer breaks when
+  the ids are sharded over another mesh dim. The table is redistributed
+  with its ``embed`` dim gathered (its vocab sharding kept), each peer
+  looks its vocab rows up with the others masked to zero, and the
+  result is ``Partial`` (a sum) over the vocab's mesh dims: Megatron's
+  vocab-parallel embedding.
+* :func:`cross_entropy` over vocab-sharded logits (the ``("batch", None,
+  "vocab")`` constraint): ``gather`` over a sharded dim. The logits are
+  redistributed with the vocab dim whole (the batch sharding kept), and
+  each peer computes its own rows' token losses.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.common import ParamSpec
+
+ShardFn = Callable[[torch.Tensor, tuple], torch.Tensor]
+
+
+def no_shard(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+    return x
 
 
 def _check_kind(what: str, kind: str, kinds: tuple) -> None:
@@ -90,25 +116,96 @@ def embedding_specs(vocab: int, d: int, tie: bool) -> dict:
 
 def embed_tokens(p: dict, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(p["tok"], DTensor):
+        return _embed_vocab_parallel(p["tok"], tokens, dtype)
     return p["tok"][tokens].to(dtype)
 
 
-def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
+def _as_dtensor(x: torch.Tensor, mesh) -> DTensor:
+    """A plain tensor (the same on every peer) as a replicated DTensor."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _embed_vocab_parallel(tok: DTensor, tokens: torch.Tensor,
+                          dtype: torch.dtype) -> DTensor:
+    """The lookup of ``tokens`` in a DTensor table: ``embed`` gathered,
+    vocab rows looked up where they live (module docstring)."""
+    mesh = tok.device_mesh
+    ids = _as_dtensor(tokens, mesh)
+    vocab = [i for i, pl in enumerate(tok.placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    t_pl = [Shard(0) if i in vocab else Replicate()
+            for i in range(mesh.ndim)]
+    i_pl = [Replicate() if i in vocab else pl
+            for i, pl in enumerate(ids.placements)]
+    out_pl = [Partial() if i in vocab else pl for i, pl in enumerate(i_pl)]
+    # the table's gradient: each peer's rows over the ids' sharded mesh
+    # dims add up (a sum), its vocab block stays its own
+    g_pl = [Shard(0) if i in vocab else
+            Partial() if isinstance(pl, Shard) else Replicate()
+            for i, pl in enumerate(i_pl)]
+    # this peer's first vocab row: its block index over the vocab's mesh
+    # dims, in mesh order (DTensor's nesting), times the block's rows
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in vocab:
+        block = block * mesh.size(i) + coord[i]
+    n_blocks = 1
+    for i in vocab:
+        n_blocks *= mesh.size(i)
+    rows = tok.shape[0] // n_blocks
+
+    def lookup(table, ids):
+        if not vocab:
+            return table[ids].to(dtype)
+        local = ids - block * rows
+        inside = (local >= 0) & (local < rows)
+        got = table[torch.where(inside, local, 0)].to(dtype)
+        return torch.where(inside[..., None], got, 0)
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(t_pl, i_pl),
+                     in_grad_placements=(g_pl, i_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(tok, ids)
+
+
+def lm_logits(p: dict, x: torch.Tensor,
+              shard_fn: ShardFn = no_shard) -> torch.Tensor:
     """(B,S,D) -> (B,S,V); tied embeddings use ``tok.T``."""
     w = p.get("out")
     if w is None:
         w = p["tok"].T
-    return torch.matmul(x, w.to(x.dtype))
+    return shard_fn(torch.matmul(x, w.to(x.dtype)), ("batch", None, "vocab"))
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
+def _token_nll_sharded(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """Per-token losses of DTensor logits: the vocab dim whole on each
+    peer, the leading dims as the logits have them (module docstring)."""
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    pl = [Replicate() if isinstance(p, Partial)
+          or (isinstance(p, Shard) and p.dim == last) else p
+          for p in logits.placements]
+    return local_map(_token_nll, out_placements=pl, in_placements=(pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, _as_dtensor(labels, mesh))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy with f32 reductions (the reference's
     formulation: logsumexp minus the gold logit)."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    nll = (_token_nll_sharded if isinstance(logits, DTensor)
+           else _token_nll)(logits, labels)
     if mask is not None:
         m = mask.float()
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
@@ -140,7 +237,8 @@ def mlp_specs(d: int, f: int, kind: str, depth_scale: float) -> dict:
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor, kind: str,
+              shard_fn: ShardFn = no_shard) -> torch.Tensor:
     """The gelu form is ``jax.nn.gelu``'s default, the tanh
     approximation (PyTorch's default is the erf form); ``bo`` is added
     after the down-projection."""
@@ -151,6 +249,7 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = F.silu(g) * h
     else:
         h = F.gelu(h + p["bi"].to(x.dtype), approximate="tanh")
+    h = shard_fn(h, ("batch", None, "mlp"))
     out = torch.matmul(h, p["wo"].to(x.dtype))
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models.common import ParamSpec, remat, stacked, tree_map
@@ -167,6 +168,12 @@ def init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
         "tm_x": torch.zeros((L, batch, 1, d), dtype=dtype, device=device),
         "cm_x": torch.zeros((L, batch, 1, d), dtype=dtype, device=device),
     }
+
+
+def init_state_specs(cfg: ModelConfig, batch: int, dtype) -> dict:
+    """The layout of :func:`init_state` as ``meta`` tensors (``dtype``: a
+    config dtype name)."""
+    return init_state(cfg, batch, torch_dtype(dtype), torch.device("meta"))
 
 
 def apply_rwkv_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,

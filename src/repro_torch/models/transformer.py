@@ -25,6 +25,13 @@ hold the prefill kernel against the plain path on the same inputs.
 ``block_specs``/``apply_block`` take the window
 explicitly, so the hybrid stack (``models/hybrid.py``) runs them as its
 local-attention blocks with ``window=cfg.local_window``.
+
+``shard_fn`` (``layers.ShardFn``) pins the reference's sequence-parallel
+constraints: ``seq_gather`` on each normed input (one all-gather of the
+sequence per block under ``REPRO_SP_EXPLICIT=1``, else unconstrained),
+``seq`` on the residual after attention and after the MLP, and it is
+passed on to the attention and MLP sites. The moe block's own sites are
+not threaded yet (ROADMAP.md Queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -36,8 +43,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import stacked, tree_map
-from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
-                                       norm_specs)
+from repro_torch.models.layers import (ShardFn, apply_mlp, apply_norm,
+                                       mlp_specs, no_shard, norm_specs)
 from repro_torch.kernels import ops
 
 
@@ -71,11 +78,13 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache_k: Optional[torch.Tensor] = None,
                 cache_v: Optional[torch.Tensor] = None,
                 pos: Optional[torch.Tensor] = None,
-                expert_fn: Optional[Callable] = None):
+                expert_fn: Optional[Callable] = None,
+                shard_fn: ShardFn = no_shard):
     """Returns (x, new_cache_k, new_cache_v, aux): ``aux`` is the moe
     block's balance loss, None for a dense block."""
     s = x.shape[1]
     h = apply_norm(p["ln1"], x, cfg.norm_kind)
+    h = shard_fn(h, ("batch", "seq_gather", None))   # SP: one AG per block
     if mode != "decode":
         q_positions = torch.arange(s, device=x.device)
     else:
@@ -83,12 +92,12 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         q_positions = pos[..., None] + torch.zeros(s, dtype=pos.dtype,
                                                    device=x.device)
     q, k, v = att.project_qkv(p["attn"], h, h, q_positions, q_positions,
-                              cfg.rope_theta)
+                              cfg.rope_theta, shard_fn)
     new_k = new_v = None
     if mode == "decode":
         out, new_k, new_v = att.decode_attend(
             q, cache_k, cache_v, k, v, pos, num_heads=cfg.num_heads,
-            window=window)
+            window=window, shard_fn=shard_fn)
     else:
         # k/v at their KV heads: the kernel reads GQA/MQA in place, the
         # plain versions expand them themselves
@@ -99,13 +108,15 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                     v, window)
             else:
                 new_k, new_v = k, v
-    x = x + att.out_project(p["attn"], out)
+    x = x + att.out_project(p["attn"], out, shard_fn)
+    x = shard_fn(x, ("batch", "seq", None))
     h = apply_norm(p["ln2"], x, cfg.norm_kind)
+    h = shard_fn(h, ("batch", "seq_gather", None))   # SP: one AG per block
     if kind == "moe":
         y, aux = moe_mod.apply_moe(p["moe"], h, cfg, expert_fn=expert_fn)
     else:
-        y, aux = apply_mlp(p["mlp"], h, cfg.mlp_kind), None
-    return x + y, new_k, new_v, aux
+        y, aux = apply_mlp(p["mlp"], h, cfg.mlp_kind, shard_fn), None
+    return shard_fn(x + y, ("batch", "seq", None)), new_k, new_v, aux
 
 
 def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -113,7 +124,8 @@ def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 cache: Optional[dict] = None,
                 pos: Optional[torch.Tensor] = None,
                 attend: Optional[Callable] = None,
-                expert_fn: Optional[Callable] = None):
+                expert_fn: Optional[Callable] = None,
+                shard_fn: ShardFn = no_shard):
     """Run the block over the stacked params. Returns (x, cache, aux):
     ``cache`` is {"k","v"}: (L,B,S,KV,Dh) for prefill (new) and decode
     (the given cache, updated in place), None in train mode; ``aux`` is
@@ -129,7 +141,7 @@ def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         x, nk, nv, a = apply_block(p, x, cfg, mode=mode, kind=kind,
                                    window=cfg.sliding_window, attend=attend,
                                    cache_k=ck, cache_v=cv, pos=pos,
-                                   expert_fn=expert_fn)
+                                   expert_fn=expert_fn, shard_fn=shard_fn)
         if a is not None:
             aux = aux + a
         ks.append(nk)

@@ -5,6 +5,11 @@ Counterpart of ``repro/optim/adamw.py``, step for step. Moments are f32
 whatever the parameter dtype; the update is computed in f32 and cast
 back. The schedule is computed in f32 arithmetic, as the reference's
 jnp scalars are, so the learning rate is the reference's bit for bit.
+
+Over a ``DeviceMesh`` (the gspmd step) params, gradients and moments are
+DTensors at one placement per leaf: the global norm sums each leaf's
+squares over the whole mesh, and the update, which is elementwise, runs
+on each DTensor's local block.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.common import tree_map, tree_paths
@@ -25,11 +31,21 @@ class AdamState(NamedTuple):
     count: int     # updates applied so far
 
 
+def zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros shaped and placed like ``p`` (a DTensor's at its
+    placements)."""
+    if isinstance(p, DTensor):
+        local = p.to_local()
+        return DTensor.from_local(
+            torch.zeros(local.shape, dtype=torch.float32,
+                        device=local.device), p.device_mesh, p.placements,
+            run_check=False)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init(params: Tree) -> AdamState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-    return AdamState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
-                     count=0)
+    return AdamState(mu=tree_map(zeros_f32, params),
+                     nu=tree_map(zeros_f32, params), count=0)
 
 
 def schedule(cfg: RunConfig, step: int) -> float:
@@ -43,9 +59,28 @@ def schedule(cfg: RunConfig, step: int) -> float:
     return float(cfg.lr * warm * (0.1 + 0.9 * cos))
 
 
+def _sq_sum(x: torch.Tensor) -> torch.Tensor:
+    s = x.float().square().sum()
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    leaves = [x.float().square().sum() for _, x in tree_paths(tree)]
+    leaves = [_sq_sum(x) for _, x in tree_paths(tree)]
     return torch.stack(leaves).sum().sqrt()
+
+
+def _local(ts: tuple) -> tuple:
+    """The local blocks of a leaf's gradient, moments and param: DTensors
+    at one placement, or plain tensors."""
+    if not any(isinstance(t, DTensor) for t in ts):
+        return ts
+    if not all(isinstance(t, DTensor) for t in ts) or len(
+            {(t.device_mesh, t.placements) for t in ts}) != 1:
+        raise ValueError(
+            "the update needs the gradient, moments and param of a leaf as "
+            "DTensors at one placement, got "
+            + ", ".join(str(getattr(t, "placements", "plain")) for t in ts))
+    return tuple(t.to_local() for t in ts)
 
 
 # elements of a leaf that one pass of the update takes: its f32
@@ -85,6 +120,7 @@ def update(grads: Tree, state: AdamState, params: Tree,
             tree_paths(grads), tree_paths(mu), tree_paths(nu),
             tree_paths(params)):
         decay = p.dim() >= 2
+        g, m, v, p = _local((g, m, v, p))
         g = g.reshape(-1)
         m, v, p = (t.view(-1) for t in (m, v, p))
         for i in range(0, p.numel(), CHUNK):
