@@ -281,9 +281,8 @@ non-zero (no phase's failure is caught):
    (a)'s timing, the dry run of qwen2-0.5b x train_4k: ``hadronio`` on
    256 fake peers, on 2 pods of 256 (global batch 512, ``channel``) with
    the leader emission and flat, all ``ok``, the leader emission issuing
-   fewer cross-pod collectives than the flat one, and ``gspmd`` recorded
-   as ``fail`` with its named error; each run's seconds and memory
-   estimate printed;
+   fewer cross-pod collectives than the flat one; each run's seconds and
+   memory estimate printed (phase 15's two GSPMD cells start with them);
 14. the GSPMD step family on DTensor (``gspmd_mesh_phase``): qwen2-0.5b
    at full width, bf16, B=4, S=1024, 3 steps of ``gspmd`` through the
    ``Trainer`` on a one-rank NCCL ``DeviceMesh`` of shape (1, 1)
@@ -297,7 +296,23 @@ non-zero (no phase's failure is caught):
    cost), the peak memory, the collectives ``hlo_analysis.record()``
    sees in one step, a save and restore of the DTensor state bit for
    bit; no kernel launches;
-15. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+15. the GSPMD serve steps on DTensor (``gspmd_serve_phase``): qwen2-0.5b
+   whole, bf16, B=2, S=1024 (per-row prompt ends), one
+   ``steps.make_prefill_step`` call and 16 ``make_decode_step`` steps at
+   a 0-d ``pos`` and 16 at a (B,) ``pos``, on the (1, 1) NCCL
+   ``DeviceMesh`` (params at ``param_shardings``, inputs at
+   ``batch_sharding``, the cache at ``cache_shardings``), in turns with
+   ``api.prefill``/``api.decode_step`` on plain tensors (plain, mesh,
+   mesh, plain) from one seed-0 init: logits and caches bitwise (or
+   within ``ROW_BOUND``), each decode step returning the cache it was
+   given at its placements, the flash kernel launched 24 times per mesh
+   prefill on local blocks (its wrapper refuses a DTensor), the median
+   prefill and decode ms of each (the difference is DTensor's host
+   cost) and the peak memory; meanwhile, started with phase 13's dry
+   runs, qwen2-0.5b x train_4k and x decode_32k with the default
+   ``--mode gspmd`` over the (16, 16) ``DeviceMesh`` on 256 fake peers,
+   both ``ok``;
+16. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -2881,85 +2896,90 @@ def serve_pods(smi, params, base, flat_wall, dev) -> int:
 
 
 DRYRUN_ARCH = "qwen2-0.5b"
-DRYRUNS = (("pod", ["--mode", "hadronio"]),
-           ("multipod", ["--mode", "hadronio", "--mesh", "multipod",
-                         "--global-batch", "512", "--aggregate", "channel"]),
-           ("multipod flat", ["--mode", "hadronio", "--mesh", "multipod",
-                              "--global-batch", "512", "--aggregate",
-                              "channel", "--flat-collectives"]),
-           ("gspmd", ["--mode", "gspmd"]))
+# (label, shape, extra arguments): phase 13's TAC cells, then phase 15's
+# GSPMD cells (the default ``--mode gspmd``: a train step and a decode
+# step over the (16, 16) DeviceMesh)
+DRYRUNS = (("pod", "train_4k", ["--mode", "hadronio"]),
+           ("multipod", "train_4k", ["--mode", "hadronio", "--mesh",
+                                     "multipod", "--global-batch", "512",
+                                     "--aggregate", "channel"]),
+           ("multipod flat", "train_4k", ["--mode", "hadronio", "--mesh",
+                                          "multipod", "--global-batch",
+                                          "512", "--aggregate", "channel",
+                                          "--flat-collectives"]))
+GSPMD_DRYRUNS = (("gspmd train_4k", "train_4k", ["--mode", "gspmd"]),
+                 ("gspmd decode_32k", "decode_32k", ["--mode", "gspmd"]))
+GSPMD_DRYRUN_WAIT_S = 420.0      # after phase 15 ends
 
 
-def start_dryruns(out_dir: str) -> dict:
-    """Phase 13c's dry runs of ``DRYRUN_ARCH`` x train_4k (``DRYRUNS``:
-    hadronio on the 256-peer pod, on 2 pods of 256 with the leader
-    emission and flat, and gspmd), one subprocess each, started together,
-    each with its own ``--out`` under ``out_dir``, the card hidden (a
-    fake process group and fake tensors compute nothing) and one CPU
-    thread. Returns {label: (process, out dir, start time)}."""
+def start_dryruns(out_dir: str, runs=DRYRUNS) -> dict:
+    """Dry runs of ``DRYRUN_ARCH`` (``runs``: label, shape, arguments),
+    one subprocess each, started together, each with its own ``--out``
+    under ``out_dir``, the card hidden (a fake process group and fake
+    tensors compute nothing) and one CPU thread. Returns {label:
+    (process, out dir, start time, shape, mode)}."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONWARNINGS="ignore")
     procs = {}
-    for label, extra in DRYRUNS:
+    for label, shape, extra in runs:
         out = os.path.join(out_dir, label.replace(" ", "_"))
+        mode = extra[extra.index("--mode") + 1]
         procs[label] = (subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             DRYRUN_ARCH, "--shape", "train_4k", "--out", out] + extra,
+             DRYRUN_ARCH, "--shape", shape, "--out", out] + extra,
             cwd=HERE, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), out, time.perf_counter())
+            stderr=subprocess.STDOUT, text=True), out, time.perf_counter(),
+            shape, mode)
     return procs
 
 
-def finish_dryruns(smi, procs: dict, timeout_s: float = 600.0) -> None:
-    """Phase 13c: wait for ``start_dryruns``' processes (every one still
-    running at ``timeout_s`` is killed and fails the phase) and check
-    their artifacts: the three hadronio runs ``ok``, the leader emission
-    over 2 pods issuing fewer cross-pod collectives
-    (``cross_pod_collective_count`` at 256 peers a pod) than the flat
-    schedule, and gspmd recorded as ``fail`` with the GSPMD family's
-    named error, rc 1. Prints each run's wall and traced seconds, its
-    collectives, counted FLOPs and memory estimate."""
+def stop_dryruns(procs: dict) -> None:
+    for proc, *_ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def wait_dryruns(smi, procs: dict, timeout_s: float) -> dict:
+    """Wait for ``start_dryruns``' processes (every one still running
+    ``timeout_s`` after this call is killed and fails the phase), check
+    each ``ok`` with rc 0, print its wall and traced seconds, collectives,
+    counted FLOPs and memory estimate. Returns {label: artifact}."""
     from repro_torch.launch import dryrun
     ends, deadline = {}, time.perf_counter() + timeout_s
     try:
         while len(ends) < len(procs):
-            for label, (proc, _, _) in procs.items():
+            for label, (proc, *_) in procs.items():
                 if label not in ends and proc.poll() is not None:
                     ends[label] = time.perf_counter()
             assert time.perf_counter() < deadline, \
                 f"dry runs still running after {timeout_s} s"
             time.sleep(0.2)
     finally:
-        for proc, _, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
-    arts = {}
-    for label, (proc, out, t0) in procs.items():
+        stop_dryruns(procs)
+    arts, failed = {}, {}
+    for label, (proc, out, t0, shape, mode) in procs.items():
         log = proc.stdout.read()
         mesh = "multipod" if label.startswith("multipod") else "pod"
-        mode = "gspmd" if label == "gspmd" else "hadronio"
-        with open(dryrun.artifact_path(DRYRUN_ARCH, "train_4k", mesh, mode,
+        with open(dryrun.artifact_path(DRYRUN_ARCH, shape, mesh, mode,
                                        out)) as f:
             art = arts[label] = json.load(f)
-        wall = ends[label] - t0
-        if label == "gspmd":
-            assert proc.returncode == 1 and art["status"] == "fail", log
-            assert "GSPMD step family" in art["error"], art["error"]
-            print(f"[dryrun] gspmd: status fail, rc 1, {wall:.1f} s wall: "
-                  f"{art['error'][:100]}")
+        if proc.returncode or art["status"] != "ok":
+            print(f"[dryrun] {label}: rc {proc.returncode}, status "
+                  f"{art['status']}, {ends[label] - t0:.1f} s wall | {smi}")
+            failed[label] = log[-3000:]
             continue
-        assert proc.returncode == 0 and art["status"] == "ok", log[-3000:]
         mem, coll, cp = (art["memory_analysis"], art["collectives"],
                          art["cross_pod"])
-        print(f"[dryrun] {label} ({art['n_chips']} fake peers, global "
-              f"batch {art['global_batch']}, aggregate "
+        print(f"[dryrun] {label} ({art['n_chips']} fake peers, {shape}, "
+              f"global batch {art['global_batch']}, mode {mode}, aggregate "
               f"{art['comm']['aggregate']}, hierarchical "
-              f"{art['comm']['hierarchical']}): status ok, {wall:.1f} s "
-              f"wall, traced step {art['compile_seconds']} s; collectives "
-              f"{coll['counts']} {coll['total_bytes']} B, cross-pod "
-              f"{cp['cross_pod']} in-pod {cp['in_pod']}; counted FLOPs "
+              f"{art['comm']['hierarchical']}): status ok, "
+              f"{ends[label] - t0:.1f} s wall, traced step "
+              f"{art['compile_seconds']} s; collectives {coll['counts']} "
+              f"{coll['total_bytes']} B, cross-pod {cp['cross_pod']} "
+              f"in-pod {cp['in_pod']}; counted FLOPs "
               f"{art['cost_analysis']['flops']:.4e} vs model "
               f"{art['model_flops_per_chip']:.4e} per peer (useful "
               f"{art['useful_flops_ratio']:.4f}); memory estimate: "
@@ -2968,6 +2988,16 @@ def finish_dryruns(smi, procs: dict, timeout_s: float = 600.0) -> None:
               f"{mem['peak_size_in_bytes'] / 1e9:.3f} GB; roofline "
               f"bottleneck {art['roofline']['bottleneck']} (data-sheet "
               f"figures) | {smi}")
+    assert not failed, failed
+    return arts
+
+
+def finish_dryruns(smi, procs: dict, timeout_s: float = 600.0) -> None:
+    """Phase 13c: the three hadronio runs ``ok`` (``wait_dryruns``), the
+    leader emission over 2 pods issuing fewer cross-pod collectives
+    (``cross_pod_collective_count`` at 256 peers a pod) than the flat
+    schedule."""
+    arts = wait_dryruns(smi, procs, timeout_s)
     hier = arts["multipod"]["cross_pod"]["cross_pod_total"]
     flat = arts["multipod flat"]["cross_pod"]["cross_pod_total"]
     print(f"[dryrun] 2 pods x 256: cross-pod collectives per step, leader "
@@ -2985,7 +3015,8 @@ def analysis_phase(smi, params, ring, dev) -> dict:
     counted FLOPs against ``model_flops``, its memory, the median of
     steps 2-5 of an unrecorded run, ``roofline_terms`` and the compute
     share ``model_flops / (t * PEAK_FLOPS)``. Then the dry runs start
-    (``start_dryruns``). (b) on phase 4b's ``ring`` with ``params``
+    (``start_dryruns``: phase 13's ``DRYRUNS`` and phase 15's
+    ``GSPMD_DRYRUNS``). (b) on phase 4b's ``ring`` with ``params``
     (qwen2-0.5b, bf16): one recorded ``hadronio`` prefill (B=2, S=1024)
     and decode step, each with a collective position ``0 < first <
     total``, 24 flash launches in the prefill (the recorder hides no
@@ -2994,7 +3025,8 @@ def analysis_phase(smi, params, ring, dev) -> dict:
     ring ``Ring(channels=4, pods=1, pod_axis="pod")`` (two-level
     collectives, the in-pod ZeRO-1 group) and on a flat ring from one
     state: losses bitwise equal. (c) ``finish_dryruns``. Returns the
-    kernel launches of the phase."""
+    kernel launches of the phase and phase 15's dry-run processes, still
+    running (``finish_gspmd_dryruns``)."""
     from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.core import aggregation as agg
@@ -3077,6 +3109,8 @@ def analysis_phase(smi, params, ring, dev) -> dict:
     assert flops > mf > 0
 
     dry = start_dryruns(os.path.join(HERE, "build", "dryrun"))
+    gspmd_dry = start_dryruns(os.path.join(HERE, "build", "dryrun"),
+                              GSPMD_DRYRUNS)
     try:
         # -- b. the served path's emission position -------------------------
         toks = torch.randint(cfg.vocab_size, (2, 1024), device=dev,
@@ -3136,14 +3170,13 @@ def analysis_phase(smi, params, ring, dev) -> dict:
         assert all(torch.equal(a, b) for a, b in zip(losses["pod"],
                                                      losses["flat"]))
         del state, batches
+        # -- c. the dry runs ------------------------------------------------
+        finish_dryruns(smi, dry)
     except BaseException:
-        for proc, _, _ in dry.values():     # stop them, then fail
-            proc.kill()
-            proc.wait()
+        stop_dryruns(dry)           # stop them, then fail
+        stop_dryruns(gspmd_dry)
         raise
-    # -- c. the dry runs ----------------------------------------------------
-    finish_dryruns(smi, dry)
-    return launches
+    return launches, gspmd_dry
 
 
 def gspmd_mesh_phase(smi, dev, arch: str = "qwen2-0.5b",
@@ -3280,6 +3313,177 @@ def gspmd_mesh_phase(smi, dev, arch: str = "qwen2-0.5b",
           f"launches {dict(zip((w.__name__ for w in wrappers), after))} "
           f"unchanged: {after == before} | {smi}")
     assert after == before, (before, after)
+
+
+def finish_gspmd_dryruns(smi, procs: dict, timeout_s: float) -> None:
+    """Phase 15's dry runs (``GSPMD_DRYRUNS``, started with phase 13's):
+    qwen2-0.5b x train_4k and x decode_32k with the default ``--mode
+    gspmd`` over the (16, 16) ``DeviceMesh`` on 256 fake peers, each
+    ``ok`` with collectives in its schedule."""
+    arts = wait_dryruns(smi, procs, timeout_s)
+    for label, art in arts.items():
+        assert art["collectives"]["total_ops"] > 0, (label, art)
+
+
+def gspmd_serve_phase(smi, dev, arch: str = "qwen2-0.5b", b: int = 2,
+                      seq_len: int = 1024, n_decode: int = 16) -> int:
+    """Phase 15 (module docstring): ``arch`` whole, the GSPMD serve steps
+    (``steps.make_prefill_step`` / ``make_decode_step``) on a (1, 1)
+    ``DeviceMesh`` against ``api.prefill`` / ``api.decode_step`` on
+    plain tensors, in turns (plain, mesh, mesh, plain), from one seed-0
+    init. The current process group must have one rank. Returns the
+    flash launches of the mesh prefills."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    from torch.distributed.tensor import DTensor
+    cuda = dev.type == "cuda"
+    cfg = get_config(arch)
+    max_len = seq_len + n_decode
+    run = RunConfig(model=cfg, shape=ShapeConfig("smoke", "decode", max_len,
+                                                 b),
+                    comm=CommConfig(mode="gspmd"))
+    if cuda:
+        release_memory("before phase 15")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = api.init(torch.Generator(device="cpu").manual_seed(0), cfg,
+                      device=dev)
+    toks = torch.randint(cfg.vocab_size, (b, seq_len), device=dev,
+                         generator=gen)
+    last = torch.tensor([seq_len - 1 - 7 * i for i in range(b)], device=dev)
+    batch = {"tokens": toks, "last_pos": last}
+    mesh = make_device_mesh((1, 1), ("data", "model"), dev)
+    csh_of = lambda c: sharding.cache_shardings(mesh, c)
+    place = lambda t: sharding.distribute_tree(
+        t, sharding.batch_sharding(mesh, t))
+    dparams = sharding.distribute_tree(params, sharding.param_shardings(
+        mesh, api.specs(cfg)))
+    prefill = {"plain": lambda: api.prefill(params, batch, cfg),
+               "mesh": lambda: steps_mod.make_prefill_step(run, mesh)(
+                   dparams, place(batch))}
+    decode_mesh = steps_mod.make_decode_step(run, mesh)
+    tok0 = torch.randint(cfg.vocab_size, (n_decode, b), device=dev,
+                         generator=gen)
+
+    def decs(form):
+        """The decode batches of one ``pos`` form: 0-d after the padded
+        prompt, or (B,) after each row's own end."""
+        return [{"token": tok0[i], "pos": torch.tensor(seq_len + i,
+                                                       device=dev)
+                 if form == "scalar" else last + 1 + i}
+                for i in range(n_decode)]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    times = {k: {"prefill": [], "decode": []} for k in ("plain", "mesh")}
+    outs, peaks, flash = {}, {}, []
+    # one untimed call of each first: the kernel's build and load, and
+    # DTensor's sharding propagation, fill their caches
+    for label, fn in prefill.items():
+        before = ops.flash_attention.launches
+        logits, cache = fn()
+        if label == "mesh":
+            flash.append(ops.flash_attention.launches - before)
+            grown = api.grow_cache(cfg, {k: v.full_tensor() for k, v in
+                                         cache.items()}, max_len)
+            decode_mesh(dparams, sharding.distribute_tree(
+                grown, csh_of(grown)), place(decs("rows")[0]))
+        else:
+            api.decode_step(params, api.grow_cache(cfg, cache, max_len),
+                            decs("rows")[0], cfg)
+        del logits, cache
+    sync()
+    kept = True
+    for label in ("plain", "mesh", "mesh", "plain"):
+        if cuda:
+            sync()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        before = ops.flash_attention.launches
+        sync()
+        ts = time.perf_counter()
+        logits, cache = prefill[label]()
+        sync()
+        times[label]["prefill"].append((time.perf_counter() - ts) * 1e3)
+        if label == "mesh":
+            flash.append(ops.flash_attention.launches - before)
+            assert all(isinstance(t, DTensor) for t in cache.values())
+            cache = {k: v.full_tensor() for k, v in cache.items()}
+        got = {"prefill": logits.full_tensor() if label == "mesh"
+               else logits}
+        grown = api.grow_cache(cfg, cache, max_len)
+        del cache
+        for form in ("scalar", "rows"):
+            c = {k: v.clone() for k, v in grown.items()}
+            if label == "mesh":
+                csh = csh_of(c)
+                c = sharding.distribute_tree(c, csh)
+            ls = []
+            for d in decs(form):
+                sync()
+                ts = time.perf_counter()
+                if label == "mesh":
+                    lg, c2 = decode_mesh(dparams, c, place(d))
+                    sync()
+                    kept &= c2 is c and all(
+                        tuple(c[k].placements) == tuple(csh[k].placements)
+                        for k in c)
+                    lg = lg.full_tensor()
+                else:
+                    lg, c = api.decode_step(params, c, d, cfg)
+                    sync()
+                times[label]["decode"].append(
+                    (time.perf_counter() - ts) * 1e3)
+                ls.append(lg)
+            got[form] = torch.stack(ls)
+            got[form + " cache"] = {k: v.full_tensor() if label == "mesh"
+                                    else v for k, v in c.items()}
+            del c
+        del grown
+        outs.setdefault(label, got)
+        if cuda:
+            sync()
+            peaks.setdefault(label, (torch.cuda.max_memory_allocated()
+                                     - live, live))
+    a, m = outs["plain"], outs["mesh"]
+    pairs = [(m["prefill"], a["prefill"])] + [
+        (m[f], a[f]) for f in ("scalar", "rows")]
+    cache_pairs = [(m[f + " cache"][k], a[f + " cache"][k])
+                   for f in ("scalar", "rows") for k in ("k", "v")]
+    bitwise = all(torch.equal(x, y) for x, y in pairs + cache_pairs)
+    worst = max(rel_l2(x, y) for x, y in pairs + cache_pairs)
+    med = {k: {w: statistics.median(v[w]) for w in v}
+           for k, v in times.items()}
+    print(f"[gspmd serve] {cfg.name} whole, B={b} S={seq_len}, prefill and "
+          f"{n_decode} decode steps at a 0-d and a (B,) pos on a (1, 1) "
+          f"DeviceMesh vs api.prefill/decode_step on plain tensors: logits "
+          f"and caches bitwise {bitwise}, worst rel_l2 {worst:.3e} (bound "
+          f"{ROW_BOUND}); caches at cache_shardings after every step, the "
+          f"given objects: {kept}; flash launches per mesh prefill {flash} "
+          f"(an untimed first call, then the two timed) "
+          f"(layers {cfg.num_layers}); median ms (two runs each) prefill "
+          f"mesh {med['mesh']['prefill']:.2f} vs plain "
+          f"{med['plain']['prefill']:.2f}, decode step mesh "
+          f"{med['mesh']['decode']:.2f} vs plain "
+          f"{med['plain']['decode']:.2f} (DTensor's host cost "
+          f"{med['mesh']['decode'] - med['plain']['decode']:.2f} ms a "
+          f"step); peak memory "
+          + ", ".join(f"{k} {v[0] / 1e9:.2f} GB above {v[1] / 1e9:.2f} GB "
+                      f"live" for k, v in peaks.items())
+          + f"; phase {time.perf_counter() - t0:.1f} s | {smi}")
+    assert kept and flash == [cfg.num_layers] * 3, (kept, flash)
+    assert all(bool(torch.isfinite(x).all()) for x, _ in pairs)
+    assert bitwise or worst <= ROW_BOUND, worst
+    for f in ("scalar", "rows"):      # the decode tokens are the plain ones
+        assert m[f].shape == (n_decode, b, cfg.vocab_size), m[f].shape
+    return sum(flash)
 
 
 def main() -> int:
@@ -4149,14 +4353,21 @@ def main() -> int:
     pod_flash = serve_pods(smi, chaos_params, chaos_base, chaos_wall, dev)
 
     # -- 13. the analysis layer and the dry run --------------------------------
-    an = analysis_phase(smi, chaos_params, ring, dev)
+    an, gspmd_dry = analysis_phase(smi, chaos_params, ring, dev)
     del ring, chaos_params
+    try:
+        # -- 14. the GSPMD step family on DTensor ------------------------------
+        gspmd_mesh_phase(smi, dev)
 
-    # -- 14. the GSPMD step family on DTensor ----------------------------------
-    gspmd_mesh_phase(smi, dev)
+        # -- 15. the GSPMD serve steps on DTensor ------------------------------
+        serve_flash = gspmd_serve_phase(smi, dev)
+    except BaseException:
+        stop_dryruns(gspmd_dry)
+        raise
     dist.destroy_process_group()
+    finish_gspmd_dryruns(smi, gspmd_dry, GSPMD_DRYRUN_WAIT_S)
 
-    # -- 15. result lines -----------------------------------------------------
+    # -- 16. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -4165,7 +4376,7 @@ def main() -> int:
          "launches": launches + ring_flash + rg_launches["flash_attention"]
          + fam_flash + encvlm_flash + ckpt_flash
          + ten_launches["flash_attention"] + chaos_flash + sup_flash
-         + pod_flash + an["flash_attention"],
+         + pod_flash + an["flash_attention"] + serve_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],

@@ -15,6 +15,7 @@ import threading
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
@@ -155,6 +156,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel (chosen by dtype, not a fallback: a failed launch raises).
     The bf16 kernel loads through TMA, which needs 16-byte-aligned
     bases: a misaligned view raises; nothing is copied."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes plain tensors: run it on "
+                        "each peer's local blocks of a DTensor "
+                        "(models/transformer.attend_blocks)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or (k.shape[0], k.shape[1], k.shape[3]) \
             != (q.shape[0], q.shape[1], q.shape[3]):

@@ -1,4 +1,5 @@
-"""The dry run: one cell's train step traced on a fake process group.
+"""The dry run: one cell's train or serve step traced on a fake process
+group.
 
 Counterpart of ``repro/launch/dryrun.py``. For an (architecture x input
 shape x mesh) cell the reference lowers and compiles the step on 256 or
@@ -34,14 +35,30 @@ replaces the shape's, and the artifact records it. ``--aggregate
 channel`` under ``--mesh multipod`` runs the leader emission, whose
 cross-pod collectives ``--flat-collectives`` compares.
 
-Cells it cannot run raise a named ``NotImplementedError``: a ``gspmd``
-cell (its trace on the fake group is not ported: the GSPMD train step
-runs on a real ``DeviceMesh``) and every prefill and decode cell (the
-reference lowers those through the GSPMD serve steps, not ported).
-``main`` records them as ``"status": "fail"`` with the error, as the
-reference records any failure; ``"skip"`` keeps the reference's meaning
-(``cell_skip_reason``). The dry run is an analysis tool: nothing in the
-serve or train paths computes through it.
+A ``gspmd`` train cell, and every prefill and decode cell whatever the
+mode (the reference lowers those through the GSPMD serve steps), runs
+the GSPMD step family instead (``trace_gspmd_cell``): a
+``launch/mesh.make_device_mesh`` over the fake group, ``(16, 16)`` or
+``(2, 16, 16)`` with a pod axis, and the step once on DTensors over
+fake local blocks: ``make_train_step_gspmd`` from a state at
+``train_state_shardings`` on the global batch, or ``make_prefill_step``
+/ ``make_decode_step`` on ``serve_specs``' layouts. DTensor's
+propagation owns its collectives (``_c10d_functional``, which the
+recorder reads), so their counts are DTensor's schedule, not XLA's:
+they are not the reference's (``PERF.md`` sets them side by side). The
+flash kernel launches outside the dispatcher and is not in the log
+(``hlo_analysis``); on the fake CPU blocks a prefill cell's attention is
+its plain version in ``kernels/ref``, whose ops and full (S, S) scores
+the log, the FLOPs and the memory estimate count.
+
+Cells it cannot run raise a named ``NotImplementedError``: the gspmd,
+prefill and decode cells of a family whose ``shard_fn`` sites are not
+threaded (the moe, ssm, hybrid and encdec families;
+``steps.GSPMD_FAMILIES``). ``main`` records them as ``"status":
+"fail"`` with the error, as the reference records any failure;
+``"skip"`` keeps the reference's meaning (``cell_skip_reason``). The dry
+run is an analysis tool: nothing in the serve or train paths computes
+through it.
 
 Usage (one process; the fake group cannot share it with a real one)::
 
@@ -50,6 +67,8 @@ Usage (one process; the fake group cannot share it with a real one)::
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k \\
       --mode hadronio --mesh multipod --global-batch 512 \\
       --aggregate channel                              # 2 pods = 512
+  python -m repro_torch.launch.dryrun --arch qwen2-0.5b \
+      --shape decode_32k                       # gspmd serve step, (16, 16)
   python -m repro_torch.launch.dryrun --all --mode hadronio
 """
 from __future__ import annotations
@@ -64,6 +83,7 @@ import traceback
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import CommConfig, RunConfig
 from repro_torch.configs.registry import (ARCH_IDS, SHAPES, cell_skip_reason,
@@ -71,7 +91,9 @@ from repro_torch.configs.registry import (ARCH_IDS, SHAPES, cell_skip_reason,
 from repro_torch.core.backends import available_modes, get_backend
 from repro_torch.launch import hlo_analysis as hlo
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import axis_size, make_production_mesh, make_ring
+from repro_torch.launch.mesh import (axis_size, make_device_mesh,
+                                     make_production_mesh, make_ring)
+from repro_torch.launch.sharding import distribute_tree
 from repro_torch.models import api
 from repro_torch.models.common import tree_map
 
@@ -79,19 +101,25 @@ ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "torch")
 
 
-def check_cell(shape, mode: str) -> None:
-    """Raise the named error of a cell the port cannot trace yet."""
+def check_cell(cfg, shape, mode: str) -> None:
+    """Raise the named error of a cell the port cannot trace yet: a
+    ``gspmd`` train cell, or a prefill or decode cell (the GSPMD serve
+    steps, whatever the mode), of a family whose ``shard_fn`` sites are
+    not threaded (``steps.GSPMD_FAMILIES``)."""
+    if cfg.family in steps.GSPMD_FAMILIES:
+        return
+    if shape.kind != "train":
+        raise NotImplementedError(
+            f"a {shape.kind} cell ({shape.name}) of the {cfg.family} family "
+            "lowers through the GSPMD serve steps over a DeviceMesh, whose "
+            "shard_fn sites for that family are not threaded yet "
+            "(ROADMAP.md Queue 1 item 8c)")
     if not get_backend(mode).manual:
         raise NotImplementedError(
             f"the dry run of mode {mode!r} traces the GSPMD step family "
-            "over a DeviceMesh on the fake group, which is not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1 item 8b); use a TAC mode "
-            "such as hadronio")
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"a {shape.kind} cell ({shape.name}) lowers through the GSPMD "
-            "serve steps (make_prefill_step / make_decode_step), which are "
-            "not ported to repro_torch yet (ROADMAP.md Queue 1 item 8b)")
+            f"over a DeviceMesh, whose shard_fn sites for the {cfg.family} "
+            "family are not threaded yet (ROADMAP.md Queue 1 item 8c); use "
+            "a TAC mode such as hadronio")
 
 
 @contextlib.contextmanager
@@ -127,7 +155,6 @@ def _fake_state(run: RunConfig, n_shards: int, pod_size: int):
 
 def trace_cell(run: RunConfig, mesh) -> hlo.Profile:
     """One TAC step of ``run`` on a fake ring over ``mesh``, profiled."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
     n = mesh.size
     with fake_world(n):
         ring = make_ring(mesh, channels=run.comm.channels)
@@ -141,6 +168,79 @@ def trace_cell(run: RunConfig, mesh) -> hlo.Profile:
             batch = api.input_specs(run.model, local, device="cpu")
             step_fn = steps.make_train_step(run, ring, donate=True)
             return hlo.profile(step_fn, state, batch)
+
+
+def _fake(like):
+    """A tree of ``meta`` tensors as fake tensors on the CPU device (call
+    inside a ``FakeTensorMode``)."""
+    return tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype,
+                                          device="cpu"), like)
+
+
+@contextlib.contextmanager
+def _real_strided_offsets():
+    """DTensor's redistribution planner computes a ``_StridedShard``'s
+    local size from a ``torch.arange`` of the dim's indices, read back
+    with ``tolist()`` (torch 2.13): under an active ``FakeTensorMode``
+    that ``arange`` is fake and the read raises
+    ``DataDependentOutputException``. A strided shard arises wherever
+    DTensor flattens two sharded dims (a train step's attention folds
+    the batch over ``data`` and the heads over ``model`` into one batch
+    of products). Inside this
+    context that index arithmetic runs on real tensors (the fake mode
+    unset for its duration): sizes of the mesh's blocks, not data.
+    Skipped where the attribute is absent."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import placement_types
+    cls = getattr(placement_types, "_StridedShard", None)
+    orig = getattr(cls, "local_shard_size_and_offset", None)
+    if orig is None:
+        yield
+        return
+
+    def real(*args, **kwargs):
+        with unset_fake_temporarily():
+            return orig(*args, **kwargs)
+
+    cls.local_shard_size_and_offset = real
+    try:
+        yield
+    finally:
+        cls.local_shard_size_and_offset = orig
+
+
+def trace_gspmd_cell(run: RunConfig, mesh) -> hlo.Profile:
+    """One GSPMD step of ``run`` over a ``DeviceMesh`` of ``mesh``'s
+    shape on the fake group, profiled: a ``gspmd`` train step
+    (``make_train_step_gspmd``) from a state at ``train_state_shardings``
+    on the global batch, or a serve step (``make_prefill_step`` /
+    ``make_decode_step``) on ``serve_specs``' layouts, every leaf a
+    DTensor over fake local blocks."""
+    shape = run.shape
+    with fake_world(mesh.size):
+        dmesh = make_device_mesh(mesh.dims, mesh.axis_names, "cpu")
+        with FakeTensorMode(), _real_strided_offsets():
+            if shape.kind == "train":
+                like = steps.abstract_train_state(run)
+                full = steps.TrainState(
+                    _fake(like.params), like.opt._replace(
+                        mu=_fake(like.opt.mu), nu=_fake(like.opt.nu)), 0)
+                state = steps.distribute_state(
+                    full, steps.train_state_shardings(dmesh, run))
+                batch = api.input_specs(run.model, shape, device="cpu")
+                step_fn = steps.make_train_step_gspmd(run, dmesh,
+                                                      donate=True)
+                return hlo.profile(step_fn, state, batch)
+            params, cache, inputs, psh, csh, ish = steps.serve_specs(
+                run, shape, dmesh)
+            params = distribute_tree(_fake(params), psh)
+            inputs = distribute_tree(_fake(inputs), ish)
+            if shape.kind == "prefill":
+                return hlo.profile(steps.make_prefill_step(run, dmesh),
+                                   params, inputs)
+            cache = distribute_tree(_fake(cache), csh)
+            return hlo.profile(steps.make_decode_step(run, dmesh), params,
+                               cache, inputs)
 
 
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -160,12 +260,13 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if skip:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "mode": mode, "status": "skip", "reason": skip}
-    check_cell(shape, mode)
+    check_cell(cfg, shape, mode)
     mesh = make_production_mesh(multi_pod=multi_pod)
     run = RunConfig(model=cfg, shape=shape, microbatches=microbatches,
                     comm=CommConfig(mode=mode, **comm))
     t0 = time.perf_counter()
-    prof = trace_cell(run, mesh)
+    tac = shape.kind == "train" and get_backend(mode).manual
+    prof = (trace_cell if tac else trace_gspmd_cell)(run, mesh)
     seconds = time.perf_counter() - t0
 
     n_chips = mesh.size

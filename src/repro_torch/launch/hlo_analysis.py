@@ -258,9 +258,12 @@ class Profile:
 
 
 def _storages(tree) -> dict:
-    """{storage id: bytes} of the tensors in ``tree``."""
+    """{storage id: bytes} of the tensors in ``tree`` (a DTensor's: its
+    local block's)."""
     out = {}
     for t in tree_leaves(tree):
+        if isinstance(t, DTensor):
+            t = t.to_local()
         if isinstance(t, torch.Tensor):
             s = t.untyped_storage()
             out[s._cdata] = s.nbytes()

@@ -30,7 +30,9 @@ constraints are ``redistribute`` calls, and the ops between them run on
 DTensors. :func:`distribute` places a full tensor by taking this rank's
 block of it locally (no collective): every peer holds the same full
 value, as every host of the reference holds the global arrays it
-``device_put``s.
+``device_put``s; :func:`distribute_tree` places a whole tree (a cache
+at :func:`cache_shardings`, as ``steps.distribute_state`` places the
+train state).
 """
 from __future__ import annotations
 
@@ -174,6 +176,14 @@ def distribute(full: torch.Tensor, sharding: Sharding) -> DTensor:
     local = full[block_slices(full.shape, sharding.mesh, pls)].clone(
         memory_format=torch.contiguous_format)
     return DTensor.from_local(local, sharding.mesh, pls, run_check=False)
+
+
+def distribute_tree(tree: Tree, shardings: Tree) -> Tree:
+    """Every full tensor of ``tree`` (the same on every peer) placed at
+    its leaf of ``shardings`` (:func:`distribute`): a cache tree at
+    :func:`cache_shardings`, params at :func:`param_shardings`, inputs
+    at :func:`batch_sharding`."""
+    return tree_map(distribute, tree, shardings)
 
 
 def act_partition(mesh, shape: tuple, logical: tuple, *,

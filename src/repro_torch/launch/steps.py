@@ -1,8 +1,10 @@
-"""Train-step builders of the port.
+"""Step builders of the port.
 
-Counterpart of ``repro/launch/steps.py`` (its train steps; the serve
-steps live in ``serving/dispatch.py``). Two step families, picked by the
-backend's ``manual`` flag, never by a mode name:
+Counterpart of ``repro/launch/steps.py``: its train steps, and its
+GSPMD serve steps (``make_prefill_step``, ``make_decode_step``,
+``serve_specs``; the ring serve step of the comm backends is
+``serving/dispatch.py``'s ``ServeStep``). Two train step families,
+picked by the backend's ``manual`` flag, never by a mode name:
 
 * TAC (every backend with ``manual=True``) — the paper's regime: each
   process is one data-parallel peer of the ring. The local loss is
@@ -34,6 +36,18 @@ backend's ``manual`` flag, never by a mode name:
   tensors, as before. The families whose ``shard_fn`` sites are threaded
   (``GSPMD_FAMILIES``) train over a mesh; the others raise a named error
   on a mesh of more than one peer and train on one peer as before.
+
+The GSPMD serve steps run ``api.prefill`` and ``api.decode_step`` over
+a mesh the same way, whatever the comm mode (the reference's dry run
+lowers every prefill and decode cell through them): params at
+``param_shardings`` (FSDP), the inputs at ``batch_sharding``, the decode
+cache at ``cache_shardings`` (``serve_specs`` gives the six layouts;
+``launch/sharding.distribute_tree`` places full trees at them), and
+``make_shard_fn(mesh)``'s constraints. Prefill attention runs the flash
+kernel on each peer's local blocks (``transformer.attend_blocks``); a
+decode step writes the new K/V into the given cache in place, at its
+own placement, and returns that cache object, as the reference's
+``out_shardings=(None, cache_shardings)`` returns it at its layout.
 
 Both families accumulate gradients over ``run.microbatches`` sequential
 microbatches (``_accumulate_grads``), as the reference does: one
@@ -74,15 +88,15 @@ from repro_torch.core.backends.base import EF
 from repro_torch.core.channels import Ring
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.launch.sharding import (Sharding, batch_sharding,
-                                         distribute, make_shard_fn,
-                                         param_shardings)
+                                         cache_shardings, distribute_tree,
+                                         make_shard_fn, param_shardings)
 from repro_torch.models import api
 from repro_torch.models.common import tree_map, tree_paths
 from repro_torch.models.layers import ShardFn, no_shard
 from repro_torch.optim import adamw
 
 # families whose shard_fn sites are threaded: they train gspmd over a mesh
-GSPMD_FAMILIES = ("dense",)
+GSPMD_FAMILIES = ("dense", "vlm")
 
 Tree = Any
 
@@ -166,8 +180,7 @@ def _accumulate_grads(params: Tree, batch: dict, run: RunConfig,
 
 def _placed(batch: dict, mesh: DeviceMesh) -> dict:
     """The global batch (the same on every peer) at ``batch_sharding``."""
-    sh = batch_sharding(mesh, batch)
-    return {k: distribute(v, sh[k]) for k, v in batch.items()}
+    return distribute_tree(batch, batch_sharding(mesh, batch))
 
 
 def init_train_state(gen: torch.Generator, run: RunConfig,
@@ -200,12 +213,29 @@ def distribute_state(state: TrainState, shardings: TrainState) -> TrainState:
     ``shardings``: params and moments as DTensors (this peer's blocks,
     no collective), the counters as they are."""
     return TrainState(
-        params=tree_map(distribute, state.params, shardings.params),
-        opt=adamw.AdamState(
-            tree_map(distribute, state.opt.mu, shardings.opt.mu),
-            tree_map(distribute, state.opt.nu, shardings.opt.nu),
-            state.opt.count),
+        params=distribute_tree(state.params, shardings.params),
+        opt=adamw.AdamState(distribute_tree(state.opt.mu, shardings.opt.mu),
+                            distribute_tree(state.opt.nu, shardings.opt.nu),
+                            state.opt.count),
         step=state.step, ef=state.ef)
+
+
+def _threaded(cfg, mesh: Optional[DeviceMesh], what: str) -> bool:
+    """Whether ``cfg``'s family runs on DTensors over ``mesh``: a
+    threaded family with a mesh. Raises the named error for a family
+    whose sites are not threaded on a mesh of more than one peer."""
+    if mesh is None:
+        return False
+    if cfg.family in GSPMD_FAMILIES:
+        return True
+    size = math.prod(mesh_shape(mesh).values())
+    if size > 1:
+        raise NotImplementedError(
+            f"gspmd {what} of the {cfg.family} family over a mesh of "
+            f"{size} peers needs its shard_fn sites threaded, which is not "
+            "ported yet (ROADMAP.md Queue 1 item 8c); run it on one peer "
+            "or use a TAC mode such as hadronio")
+    return False
 
 
 def uses_dtensor(run: RunConfig, mesh: Optional[DeviceMesh]) -> bool:
@@ -214,17 +244,7 @@ def uses_dtensor(run: RunConfig, mesh: Optional[DeviceMesh]) -> bool:
     whose sites are not threaded on a mesh of more than one peer."""
     if mesh is None or get_backend(run.comm.mode).manual:
         return False
-    if run.model.family in GSPMD_FAMILIES:
-        return True
-    size = math.prod(mesh_shape(mesh).values())
-    if size > 1:
-        raise NotImplementedError(
-            f"gspmd training of the {run.model.family} family over a mesh "
-            f"of {size} peers needs its shard_fn sites "
-            "threaded, which is not ported yet (ROADMAP.md Queue 1 item "
-            "8b); train it on one peer or use a TAC mode such as "
-            "hadronio")
-    return False
+    return _threaded(run.model, mesh, "training")
 
 
 def init_tac_state(gen: torch.Generator, run: RunConfig,
@@ -352,3 +372,61 @@ def make_train_step(run: RunConfig, ring: Optional[Ring] = None, *,
             f"gspmd over {ring.world_size} peers runs on a DeviceMesh "
             "(launch/mesh.make_device_mesh), not a ring: pass mesh=")
     return make_train_step_gspmd(run, mesh, donate=donate)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps (GSPMD)
+# ---------------------------------------------------------------------------
+
+
+def _serve_shard_fn(run: RunConfig, mesh: Optional[DeviceMesh]) -> ShardFn:
+    """The serve steps' constraints: ``make_shard_fn(mesh)`` for a
+    threaded family over a mesh, the identity otherwise (one peer's
+    plain step); the named error for an unthreaded family past one
+    peer."""
+    return make_shard_fn(mesh if _threaded(run.model, mesh, "serving")
+                         else None)
+
+
+def make_prefill_step(run: RunConfig, mesh: Optional[DeviceMesh] = None):
+    """``prefill_fn(params, batch) -> (last-token logits, cache)`` over
+    ``mesh`` (params, batch as DTensors at ``serve_specs``'
+    layouts), or one peer's plain prefill when ``mesh`` is None."""
+    cfg = run.model
+    shard_fn = _serve_shard_fn(run, mesh)
+
+    def prefill_fn(params, batch):
+        with implicit_replication():
+            return api.prefill(params, batch, cfg, shard_fn)
+
+    return prefill_fn
+
+
+def make_decode_step(run: RunConfig, mesh: Optional[DeviceMesh] = None):
+    """``decode_fn(params, cache, batch) -> (logits, cache)``: one new
+    token against a KV cache (the ``serve_step``), written in place at
+    the cache's placement; the given cache object comes back."""
+    cfg = run.model
+    shard_fn = _serve_shard_fn(run, mesh)
+
+    def decode_fn(params, cache, batch):
+        with implicit_replication():
+            return api.decode_step(params, cache, batch, cfg, shard_fn)
+
+    return decode_fn
+
+
+def serve_specs(run: RunConfig, shape, mesh):
+    """(abstract params, abstract cache, inputs, and their shardings) of
+    a prefill or decode cell, the reference's six-tuple: ``meta``
+    tensors (no storage) and ``launch/sharding.Sharding`` trees. The
+    cache length is the cell's seq_len (sliding-window archs cap at the
+    window: the sub-quadratic property)."""
+    cfg = run.model
+    params = api.abstract(cfg)
+    cache = api.cache_specs(cfg, shape.global_batch, shape.seq_len)
+    inputs = api.input_specs(cfg, shape)
+    pshard = param_shardings(mesh, api.specs(cfg), fsdp=True)
+    cshard = cache_shardings(mesh, cache)
+    ishard = batch_sharding(mesh, inputs)
+    return params, cache, inputs, pshard, cshard, ishard

@@ -4,8 +4,8 @@
   init(gen, cfg, device=)                      -> params
   abstract(cfg)                                -> params as meta tensors
   loss(params, batch, cfg, shard_fn)           -> (loss, aux)
-  prefill(params, batch, cfg, ...)             -> (last-token logits, cache)
-  decode_step(params, cache, batch, cfg, ...)  -> (logits, cache)
+  prefill(params, batch, cfg, shard_fn, ...)   -> (last-token logits, cache)
+  decode_step(params, cache, batch, cfg, shard_fn, ...) -> (logits, cache)
   init_cache / grow_cache
   cache_specs(cfg, batch, max_len)             -> the cache as meta tensors
   input_specs(cfg, shape, device=)             -> one cell's inputs, no storage
@@ -33,17 +33,24 @@ padded batch, whatever ``last_pos`` says; a vlm prefill reads row
 ``last_pos`` of the prefixed sequence, so ``last_pos = len - 1`` (the
 engine's) lands in the patch prefix (ROADMAP.md, Queue 3).
 
-``loss`` takes the reference's ``shard_fn`` (``layers.ShardFn``, the
-identity by default): the embedded input's ``("batch", "seq", None)``
-constraint, the LM head's, and the dense stack's sites
-(``models/transformer``). The moe, ssm, hybrid, encdec and vlm stacks'
-own sites are not threaded yet (ROADMAP.md Queue 1 item 8b).
+``loss``, ``prefill`` and ``decode_step`` take the reference's
+``shard_fn`` (``layers.ShardFn``, the identity by default; the fourth
+argument, as in the reference): the embedded input's ``("batch", "seq",
+None)`` constraint, the LM head's, and the dense and vlm stacks' sites
+(``models/transformer``). Over a ``DeviceMesh`` (the GSPMD steps of
+``launch/steps``) the params and inputs are DTensors; the prefill's
+per-row gather at ``last_pos`` is an explicit ``local_map``
+(:func:`_rows_at`), and the vlm prefix's concat and its ``pos`` offset
+run on DTensors as they are. The moe, ssm, hybrid and encdec stacks' own
+sites are not threaded yet (ROADMAP.md Queue 1 item 8c).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -53,9 +60,10 @@ from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whi
 from repro_torch.models.common import init_params, tree_map
-from repro_torch.models.layers import (ShardFn, apply_norm, cross_entropy,
-                                       embedding_specs, embed_tokens,
-                                       lm_logits, no_shard, norm_specs)
+from repro_torch.models.layers import (ShardFn, apply_norm, as_dtensor,
+                                       cross_entropy, embedding_specs,
+                                       embed_tokens, lm_logits, no_shard,
+                                       norm_specs)
 
 Tree = Any
 
@@ -132,8 +140,8 @@ def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     """The family stack. Returns (x, cache, aux): ``aux`` is the moe
     blocks' summed balance loss, zero for the other families.
     ``expert_fn`` replaces the moe expert stage; the other families
-    have none. ``shard_fn`` reaches the transformer stack's sites; the
-    recurrent stacks' are not threaded yet."""
+    have none. ``shard_fn`` reaches the transformer stack's sites in
+    every mode; the recurrent stacks' are not threaded yet."""
     zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = apply_norm(params["ln_in"], x, "layernorm")
@@ -192,17 +200,23 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def prefill(params: Tree, batch: dict, cfg: ModelConfig,
+            shard_fn: ShardFn = no_shard,
             logits_fn: Optional[Callable] = None,
             attend: Optional[Callable] = None,
             scan: Optional[Callable] = None,
             expert_fn: Optional[Callable] = None):
-    """Last-token logits (B, V) and the cache. ``logits_fn`` replaces
-    the LM head (signature of :func:`layers.lm_logits`; the serving
-    dispatch passes its tensor-parallel head). ``attend`` replaces the
+    """Last-token logits (B, V) and the cache. ``shard_fn`` pins the
+    reference's activation constraints (the GSPMD serve step passes
+    ``launch/sharding.make_shard_fn(mesh)``): the embedded input's
+    ``("batch", "seq", None)``, the dense and vlm stacks' sites and the
+    LM head's. ``logits_fn`` replaces the LM head (signature of
+    :func:`layers.lm_logits`; the serving dispatch passes its
+    tensor-parallel head). ``attend`` replaces the
     prefill attention (default: the CUDA kernel via
-    ``kernels.ops.flash_attention``) and ``scan`` the family's recurrence
-    (default: ``kernels.ops.wkv6`` for ssm, ``ops.rglru`` for hybrid);
-    the plain versions in ``kernels.ref`` give the plain path.
+    ``kernels.ops.flash_attention``; over a mesh on each peer's local
+    blocks, ``transformer.attend_blocks``) and ``scan`` the family's
+    recurrence (default: ``kernels.ops.wkv6`` for ssm, ``ops.rglru`` for
+    hybrid); the plain versions in ``kernels.ref`` give the plain path.
     ``expert_fn`` replaces the moe expert stage
     (``models/moe.apply_experts``; the serving dispatch passes its
     expert-parallel exchange)."""
@@ -217,30 +231,53 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig,
                                     cross_k=cross_k, cross_v=cross_v,
                                     attend=attend)
         # the reference's quirk: the last position, not ``last_pos``
-        return head(params["embed"], x[:, -1:])[:, 0], {
+        return head(params["embed"], x[:, -1:], shard_fn)[:, 0], {
             "self": cache, "cross_k": cross_k, "cross_v": cross_v}
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(dt), x], dim=1)
+    x = shard_fn(x, ("batch", "seq", None))
     x, cache, _ = _trunk(params, x, cfg, mode="prefill", attend=attend,
-                         scan=scan, expert_fn=expert_fn)
+                         scan=scan, expert_fn=expert_fn, shard_fn=shard_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
     if "last_pos" in batch:     # per-request prompt end (serving engine)
         # vlm: a row of the prefixed sequence (the reference's quirk)
-        rows = torch.arange(x.shape[0], device=x.device)
-        x_last = x[rows, batch["last_pos"]][:, None]
+        x_last = _rows_at(x, batch["last_pos"])
     else:
         x_last = x[:, -1:]
-    return head(params["embed"], x_last)[:, 0], cache
+    return head(params["embed"], x_last, shard_fn)[:, 0], cache
+
+
+def _rows_at(x: torch.Tensor, last_pos: torch.Tensor) -> torch.Tensor:
+    """``x[b, last_pos[b]]`` for every row b, as (B, 1, D). DTensor has
+    no sharding strategy for this gather, so a DTensor ``x`` takes an
+    explicit ``local_map``: its batch sharding kept, the sequence
+    gathered, each peer reading its own rows (the reference pins no
+    constraint here)."""
+    def take(xl, pl):
+        rows = torch.arange(xl.shape[0], device=xl.device)
+        return xl[rows, pl][:, None]
+
+    if not isinstance(x, DTensor):
+        return take(x, last_pos)
+    mesh = x.device_mesh
+    x_pl = [p if p == Shard(0) else Replicate() for p in x.placements]
+    return local_map(take, out_placements=x_pl, in_placements=(
+        x_pl, [Shard(0) if p == Shard(0) else Replicate() for p in x_pl]),
+        device_mesh=mesh, redistribute_inputs=True)(
+        x, as_dtensor(last_pos, mesh))
 
 
 def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
+                shard_fn: ShardFn = no_shard,
                 logits_fn: Optional[Callable] = None,
                 expert_fn: Optional[Callable] = None):
     """One token for the whole batch against ``cache``. batch: {"token":
-    (B,), "pos": () or (B,)}. Attention pages are written in place;
-    recurrent states come back as new tensors (rwkv6's decode runs the
-    WKV6 kernel at T=1; the hybrid's is the one-line RG-LRU update).
-    ``logits_fn`` and ``expert_fn`` as in :func:`prefill`."""
+    (B,), "pos": () or (B,)}. Attention pages are written in place, at
+    the cache's own placement over a mesh, and the given cache object is
+    returned; recurrent states come back as new tensors (rwkv6's decode
+    runs the WKV6 kernel at T=1; the hybrid's is the one-line RG-LRU
+    update). ``shard_fn``, ``logits_fn`` and ``expert_fn`` as in
+    :func:`prefill`."""
     head = logits_fn or lm_logits
     dt = torch_dtype(cfg.compute_dtype)
     pos = batch["pos"]
@@ -252,13 +289,13 @@ def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
                                 cross_k=cache["cross_k"],
                                 cross_v=cache["cross_v"],
                                 cache=cache["self"], pos=pos)
-        return head(params["embed"], x)[:, 0], cache
+        return head(params["embed"], x, shard_fn)[:, 0], cache
     if cfg.family == "vlm":
         pos = pos + cfg.num_patches   # cache slots 0..P-1 hold the prefix
     x, cache, _ = _trunk(params, x, cfg, mode="decode", cache=cache,
-                         pos=pos, expert_fn=expert_fn)
+                         pos=pos, expert_fn=expert_fn, shard_fn=shard_fn)
     x = apply_norm(params["ln_f"], x, cfg.norm_kind)
-    return head(params["embed"], x)[:, 0], cache
+    return head(params["embed"], x, shard_fn)[:, 0], cache
 
 
 def _cache_len(cfg: ModelConfig, max_len: int) -> int:

@@ -23,17 +23,24 @@ returns a new array), which saves a cache-sized copy per layer and step.
 constraints at its 11 sites: q, k and v after the projections, the
 output projection, and decode's flash-decoding layout (q replicated, the
 cache's length over ``model``, the scores length-sharded, the output
-back at its heads).
+back at its heads). Over a ``DeviceMesh`` the projections run on the
+flattened weights with the heads split after the product
+(``layers.even_reshape``), and decode writes the caller's cache at its
+own placement through an explicit ``local_map`` (:func:`_write_slot`),
+then reads a pinned copy.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.compat import torch_dtype
 from repro_torch.models.common import ParamSpec
-from repro_torch.models.layers import ShardFn, no_shard, rope
+from repro_torch.models.layers import (ShardFn, as_dtensor, even_reshape,
+                                       matmul, mesh_block, no_shard, rope)
 
 NEG_INF = -1e30
 
@@ -59,14 +66,25 @@ def attention_specs(d: int, num_heads: int, num_kv: int, head_dim: int,
     return s
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B,S,D) x (D,H,Dh) -> (B,S,H,Dh): the product on the flattened
+    (D, H*Dh) weight, the heads split after it through
+    ``layers.even_reshape`` (over a mesh, DTensor's einsum would split them
+    inside, where no gather can go). One path for plain tensors and
+    DTensors, so a one-peer mesh computes what one peer does."""
+    d, h, dh = w.shape
+    y = matmul(x, even_reshape(w, (d, h * dh)))
+    return even_reshape(y, (*y.shape[:-1], h, dh))
+
+
 def project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor,
                 q_positions: torch.Tensor, kv_positions: torch.Tensor,
                 rope_theta: float, shard_fn: ShardFn = no_shard):
     """Returns q (B,Sq,H,Dh), k/v (B,Skv,KV,Dh); RoPE applied to q and k."""
     dt = xq.dtype
-    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(dt))
+    q = _project(xq, p["wq"].to(dt))
+    k = _project(xkv, p["wk"].to(dt))
+    v = _project(xkv, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -81,7 +99,10 @@ def project_qkv(p: dict, xq: torch.Tensor, xkv: torch.Tensor,
 
 def out_project(p: dict, attn: torch.Tensor,
                 shard_fn: ShardFn = no_shard) -> torch.Tensor:
-    out = torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(attn.dtype))
+    wo = p["wo"].to(attn.dtype)
+    h, dh, d = wo.shape                 # as in _project
+    out = matmul(even_reshape(attn, (*attn.shape[:-2], h * dh)),
+                 even_reshape(wo, (h * dh, d)))
     return shard_fn(out, ("batch", None, "embed"))
 
 
@@ -246,6 +267,53 @@ def kv_cache_specs(num_layers: int, batch: int, max_len: int, num_kv: int,
             "v": torch.empty(sh, dtype=dt, device="meta")}
 
 
+def _write_slot(cache: torch.Tensor, new: torch.Tensor,
+                slot: torch.Tensor) -> None:
+    """``cache[:, slot] = new[:, 0]`` IN PLACE, at the cache's own
+    placement: ``cache`` (B,S,KV,Dh), ``new`` (B,1,KV,Dh), ``slot`` 0-d
+    (every row) or (B,). A DTensor cache is written through an explicit
+    ``local_map`` (DTensor's ``index_copy_`` re-places the cache): each
+    peer writes the rows it holds, into its own block of the length,
+    where the slot falls in that block's range (a masked write of the
+    old value elsewhere, so nothing waits on the slot's value)."""
+    if not isinstance(cache, DTensor):
+        if slot.ndim == 0:
+            cache.index_copy_(1, slot.reshape(1), new)
+        else:
+            rows = torch.arange(cache.shape[0], device=cache.device)
+            cache[rows, slot] = new[:, 0]
+        return
+    mesh = cache.device_mesh
+    c_pl = list(cache.placements)
+    if any(not isinstance(p, (Shard, Replicate)) for p in c_pl):
+        raise ValueError(f"a KV cache at {c_pl} is not a stored value")
+    length = [i for i, p in enumerate(c_pl) if p == Shard(1)]
+    block, n = mesh_block(mesh, length)
+    lo = block * (cache.shape[1] // n)
+    new_pl = [Replicate() if i in length else p for i, p in enumerate(c_pl)]
+    slot_pl = [p if slot.ndim and p == Shard(0) else Replicate()
+               for p in c_pl]
+
+    def write(c, nw, sl):
+        local = sl - lo
+        inside = (local >= 0) & (local < c.shape[1])
+        idx = local.clamp(0, c.shape[1] - 1)
+        if sl.ndim == 0:
+            idx = idx.reshape(1)
+            c.index_copy_(1, idx, torch.where(inside, nw,
+                                              c.index_select(1, idx)))
+        else:
+            rows = torch.arange(c.shape[0], device=c.device)
+            c[rows, idx] = torch.where(inside[:, None, None], nw[:, 0],
+                                       c[rows, idx])
+        return c
+
+    local_map(write, out_placements=c_pl, in_placements=(c_pl, new_pl,
+                                                         slot_pl),
+              device_mesh=mesh, redistribute_inputs=True)(
+        cache, new, as_dtensor(slot, mesh))
+
+
 def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
                   cache_v: torch.Tensor, new_k: torch.Tensor,
                   new_v: torch.Tensor, pos: torch.Tensor, *,
@@ -254,23 +322,22 @@ def decode_attend(q: torch.Tensor, cache_k: torch.Tensor,
     """Single-token decode. q: (B,1,H,Dh); cache_k/v: (B,S_max,KV,Dh);
     new_k/v: (B,1,KV,Dh) (already roped at ``pos``). ``pos`` is a 0-d
     tensor (whole batch at one position) or (B,) (the engine's
-    mixed-length batches). Writes the new K/V into the caches in place
-    and returns (out, cache_k, cache_v). ``shard_fn`` pins the
-    reference's flash-decoding layout: where the reference constrains
-    the expanded cache, this constrains the cache the grouped heads read,
-    and its scores carry the KV and group dims in place of the heads."""
+    mixed-length batches). Writes the new K/V into the caller's caches
+    in place, at their own placement (:func:`_write_slot`), and returns
+    (out, cache_k, cache_v): the caller's cache objects. ``shard_fn``
+    pins the reference's flash-decoding layout on a copy of the written
+    caches: where the reference constrains the expanded cache, this
+    constrains the cache the grouped heads read, and its scores carry
+    the KV and group dims in place of the heads. The scores stay
+    length-sharded, but DTensor has no reduction form of the softmax
+    over a sharded dim: it gathers the (B,KV,G,1,S) scores over the
+    length's mesh dims where the reference's softmax max and sum are
+    small reductions (the cache itself is never gathered)."""
     b, s_max, kv, dh = cache_k.shape
     q = shard_fn(q, ("batch", "rep", "rep", "rep"))
-    cache_k = shard_fn(cache_k, ("batch", "seq_model", "rep", "rep"))
-    cache_v = shard_fn(cache_v, ("batch", "seq_model", "rep", "rep"))
     slot = pos % s_max if window > 0 else pos
-    if pos.ndim == 0:
-        cache_k.index_copy_(1, slot.reshape(1), new_k)
-        cache_v.index_copy_(1, slot.reshape(1), new_v)
-    else:
-        rows = torch.arange(b, device=q.device)
-        cache_k[rows, slot] = new_k[:, 0]
-        cache_v[rows, slot] = new_v[:, 0]
+    _write_slot(cache_k, new_k, slot)
+    _write_slot(cache_v, new_v, slot)
     ck = shard_fn(cache_k, ("batch", "seq_model", "rep", "rep"))
     cv = shard_fn(cache_v, ("batch", "seq_model", "rep", "rep"))
     g = num_heads // kv

@@ -26,6 +26,7 @@ here (the values are those of the plain path):
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -121,7 +122,7 @@ def embed_tokens(p: dict, tokens: torch.Tensor,
     return p["tok"][tokens].to(dtype)
 
 
-def _as_dtensor(x: torch.Tensor, mesh) -> DTensor:
+def as_dtensor(x: torch.Tensor, mesh) -> DTensor:
     """A plain tensor (the same on every peer) as a replicated DTensor."""
     if isinstance(x, DTensor):
         return x
@@ -129,12 +130,24 @@ def _as_dtensor(x: torch.Tensor, mesh) -> DTensor:
                               run_check=False)
 
 
+def mesh_block(mesh, dims: list) -> tuple:
+    """(this peer's block index, the number of blocks) of a tensor dim
+    split over the mesh dims ``dims``: they nest in mesh order, as
+    DTensor lays a dim out over several mesh dims."""
+    coord = mesh.get_coordinate()
+    block, n = 0, 1
+    for i in dims:
+        block = block * mesh.size(i) + coord[i]
+        n *= mesh.size(i)
+    return block, n
+
+
 def _embed_vocab_parallel(tok: DTensor, tokens: torch.Tensor,
                           dtype: torch.dtype) -> DTensor:
     """The lookup of ``tokens`` in a DTensor table: ``embed`` gathered,
     vocab rows looked up where they live (module docstring)."""
     mesh = tok.device_mesh
-    ids = _as_dtensor(tokens, mesh)
+    ids = as_dtensor(tokens, mesh)
     vocab = [i for i, pl in enumerate(tok.placements)
              if isinstance(pl, Shard) and pl.dim == 0]
     t_pl = [Shard(0) if i in vocab else Replicate()
@@ -147,15 +160,8 @@ def _embed_vocab_parallel(tok: DTensor, tokens: torch.Tensor,
     g_pl = [Shard(0) if i in vocab else
             Partial() if isinstance(pl, Shard) else Replicate()
             for i, pl in enumerate(i_pl)]
-    # this peer's first vocab row: its block index over the vocab's mesh
-    # dims, in mesh order (DTensor's nesting), times the block's rows
-    coord = mesh.get_coordinate()
-    block = 0
-    for i in vocab:
-        block = block * mesh.size(i) + coord[i]
-    n_blocks = 1
-    for i in vocab:
-        n_blocks *= mesh.size(i)
+    # this peer's first vocab row: its block index times the block's rows
+    block, n_blocks = mesh_block(mesh, vocab)
     rows = tok.shape[0] // n_blocks
 
     def lookup(table, ids):
@@ -172,13 +178,95 @@ def _embed_vocab_parallel(tok: DTensor, tokens: torch.Tensor,
                      redistribute_inputs=True)(tok, ids)
 
 
+def _even_placements(t: DTensor, shape: tuple) -> list:
+    """``t``'s placements with every mesh dim that shards a dim the
+    reshape to ``shape`` splits unevenly (its first factor not a multiple
+    of the mesh dim's size) made ``Replicate``."""
+    src, mesh = tuple(t.shape), t.device_mesh
+    out = list(t.placements)
+    for i, p in enumerate(out):
+        d = getattr(p, "dim", None)
+        if d is None:
+            continue
+        before, acc, j = math.prod(src[:d]), 1, 0
+        while j < len(shape) and acc < before:
+            acc *= shape[j]
+            j += 1
+        if acc == before and j < len(shape) and shape[j] != src[d] \
+                and shape[j] % mesh.size(i):
+            out[i] = Replicate()
+    return out
+
+
+def _even_view(t: DTensor, shape: tuple) -> DTensor:
+    pl = _even_placements(t, shape)
+    if pl != list(t.placements):
+        t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(shape)
+
+
+class _EvenView(torch.autograd.Function):
+    """A DTensor reshape whose forward gathers first the mesh dims of a
+    dim it would split unevenly, and whose backward first gathers every
+    dim the gradient shards where the forward's output did not: the
+    reverse of a valid reshape is then valid (the gradient may arrive
+    split along a dim the reshape merges, e.g. the sequence under SP,
+    which torch 2.11's DTensor cannot flatten)."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.src = tuple(t.shape)
+        out = _even_view(t, shape)
+        ctx.out_pl = tuple(out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pl = [Replicate() if getattr(p, "dim", None) is not None
+              and p != q else p for p, q in zip(g.placements, ctx.out_pl)]
+        if pl != list(g.placements):
+            g = g.redistribute(g.device_mesh, pl)
+        return _even_view(g, ctx.src), None
+
+
+def even_reshape(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``t.reshape(shape)``. DTensor's reshape has no strategy for a
+    split whose first factor the sharding mesh dim does not divide (it
+    raises), and its propagation picks such layouts (a decode step's few
+    rows shard a projection's flat ``H*Dh`` columns; a backward shards
+    the flat gradient): over a mesh that dim is gathered first, forward
+    and backward (e.g. 14 heads on a 16-way ``model`` axis)."""
+    if not isinstance(t, DTensor):
+        return t.reshape(shape)
+    return _EvenView.apply(t, tuple(shape))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``w``, the leading dims of ``x`` folded into
+    the rows of one ``mm``: ``torch.matmul``'s own fold on plain tensors
+    (the same ops, the same bits). On a DTensor ``torch.matmul`` does not
+    fold (a (B, 1, D) decode activation runs a batched product whose
+    sums round otherwise); folding here keeps a one-peer mesh bitwise
+    one peer. A (B, S, D) DTensor split along S (the sequence under SP)
+    is not folded: torch 2.11's DTensor cannot flatten a sharded inner
+    dim (its ``torch.matmul`` folds and raises), so it runs one batched
+    product against ``w`` broadcast over the batch, which keeps the dims
+    apart."""
+    lead = tuple(x.shape[:-1])
+    if isinstance(x, DTensor) and x.ndim == 3 and any(
+            getattr(p, "dim", 0) == 1 for p in x.placements):
+        return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+    y = torch.mm(even_reshape(x, (math.prod(lead), x.shape[-1])), w)
+    return even_reshape(y, (*lead, w.shape[-1]))
+
+
 def lm_logits(p: dict, x: torch.Tensor,
               shard_fn: ShardFn = no_shard) -> torch.Tensor:
     """(B,S,D) -> (B,S,V); tied embeddings use ``tok.T``."""
     w = p.get("out")
     if w is None:
         w = p["tok"].T
-    return shard_fn(torch.matmul(x, w.to(x.dtype)), ("batch", None, "vocab"))
+    return shard_fn(matmul(x, w.to(x.dtype)), ("batch", None, "vocab"))
 
 
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -197,7 +285,7 @@ def _token_nll_sharded(logits: DTensor, labels: torch.Tensor) -> DTensor:
           for p in logits.placements]
     return local_map(_token_nll, out_placements=pl, in_placements=(pl, pl),
                      device_mesh=mesh, redistribute_inputs=True)(
-        logits, _as_dtensor(labels, mesh))
+        logits, as_dtensor(labels, mesh))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -243,14 +331,14 @@ def apply_mlp(p: dict, x: torch.Tensor, kind: str,
     approximation (PyTorch's default is the erf form); ``bo`` is added
     after the down-projection."""
     _check_kind("mlp", kind, MLP_KINDS)
-    h = torch.matmul(x, p["wi"].to(x.dtype))
+    h = matmul(x, p["wi"].to(x.dtype))
     if kind == "swiglu":
-        g = torch.matmul(x, p["wg"].to(x.dtype))
+        g = matmul(x, p["wg"].to(x.dtype))
         h = F.silu(g) * h
     else:
         h = F.gelu(h + p["bi"].to(x.dtype), approximate="tanh")
     h = shard_fn(h, ("batch", None, "mlp"))
-    out = torch.matmul(h, p["wo"].to(x.dtype))
+    out = matmul(h, p["wo"].to(x.dtype))
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
     return out

@@ -30,21 +30,28 @@ local-attention blocks with ``window=cfg.local_window``.
 constraints: ``seq_gather`` on each normed input (one all-gather of the
 sequence per block under ``REPRO_SP_EXPLICIT=1``, else unconstrained),
 ``seq`` on the residual after attention and after the MLP, and it is
-passed on to the attention and MLP sites. The moe block's own sites are
-not threaded yet (ROADMAP.md Queue 1 item 8b).
+passed on to the attention and MLP sites, in every mode. Over a
+``DeviceMesh`` (DTensor activations) prefill attention runs the kernel
+on each peer's local blocks (:func:`attend_blocks`), and the new K/V
+become the cache as stored values (pending ``Partial`` sums reduced).
+The moe block's own sites are not threaded yet (ROADMAP.md Queue 1 item
+8c).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import stacked, tree_map
 from repro_torch.models.layers import (ShardFn, apply_mlp, apply_norm,
-                                       mlp_specs, no_shard, norm_specs)
+                                       mesh_block, mlp_specs, no_shard,
+                                       norm_specs)
 from repro_torch.kernels import ops
 
 
@@ -101,7 +108,11 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     else:
         # k/v at their KV heads: the kernel reads GQA/MQA in place, the
         # plain versions expand them themselves
-        out = attend(q, k, v, causal=True, window=window)
+        if mode == "prefill" and isinstance(q, DTensor):
+            k, v = _stored(k), _stored(v)     # the cache holds values
+            out = attend_blocks(attend, q, k, v, window=window)
+        else:
+            out = attend(q, k, v, causal=True, window=window)
         if mode == "prefill":
             if window > 0:     # rolling layout for windowed decode caches
                 new_k, new_v = att.to_rolling(k, window), att.to_rolling(
@@ -117,6 +128,64 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     else:
         y, aux = apply_mlp(p["mlp"], h, cfg.mlp_kind, shard_fn), None
     return shard_fn(x + y, ("batch", "seq", None)), new_k, new_v, aux
+
+
+def _stored(t: DTensor) -> DTensor:
+    """``t`` with its pending sums (``Partial``) reduced: a cache holds
+    values, not partial sums."""
+    pl = [Replicate() if p.is_partial() else p for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(
+        t.device_mesh, pl)
+
+
+def attend_blocks(attend: Callable, q: DTensor, k: DTensor, v: DTensor, *,
+                  window: int) -> DTensor:
+    """``attend`` (causal) on each peer's local blocks of DTensor q/k/v,
+    through an explicit ``local_map``: the kernel's wrapper reads
+    ``data_ptr()`` and takes plain, contiguous tensors, so no DTensor
+    reaches it. q keeps the batch and heads sharding that
+    ``project_qkv`` pinned (every other dim gathered: each peer needs
+    its rows' whole sequence); k/v keep the batch's, and the KV heads'
+    where they split over the same mesh dims as the query heads.
+    Otherwise (``heads`` divides the ``model`` axis and ``kv_heads`` does
+    not) k/v arrive whole and each peer takes the KV heads its own query
+    heads read in global numbering, query head ``g`` reading KV head
+    ``g // (H // KV)``: a slice of whole groups, the one KV head all of
+    them read, or one KV head per query head."""
+    mesh = q.device_mesh
+    h, kv = q.shape[2], k.shape[2]
+    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in q.placements]
+    heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    kv_split = bool(heads) and all(k.placements[i] == Shard(2)
+                                   for i in heads)
+    kv_pl = [p if p == Shard(0) or (p == Shard(2) and kv_split)
+             else Replicate() for p in q_pl]
+    take = None                 # which KV heads this peer's queries read
+    if heads and not kv_split:
+        block, n = mesh_block(mesh, heads)
+        h_loc, g = h // n, h // kv
+        first = block * h_loc
+        if h_loc % g == 0:
+            take = slice(first // g, (first + h_loc) // g)
+        elif g % h_loc == 0:
+            take = slice(first // g, first // g + 1)
+        else:
+            take = torch.arange(first, first + h_loc) // g
+
+    def local(ql, kl, vl):
+        if take is not None:
+            if isinstance(take, torch.Tensor):
+                idx = take.to(kl.device)
+                kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+            else:
+                kl, vl = kl[:, :, take], vl[:, :, take]
+        return attend(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                      causal=True, window=window)
+
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,

@@ -64,6 +64,7 @@ from repro_torch.core.ring_buffer import plan_slices
 from repro_torch.models import api
 from repro_torch.models import moe
 from repro_torch.models.common import tree_from_paths, tree_paths
+from repro_torch.models.layers import ShardFn, no_shard
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import cache_layout
 
@@ -168,7 +169,8 @@ def _make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
 
     # -- tensor-parallel LM head (the serving logit reduction) ----------
 
-    def tp_head(embed: dict, x: torch.Tensor) -> torch.Tensor:
+    def tp_head(embed: dict, x: torch.Tensor,
+                shard_fn: ShardFn = no_shard) -> torch.Tensor:
         w = embed.get("out")
         if w is None:
             w = embed["tok"].T                       # tied: (d, V)

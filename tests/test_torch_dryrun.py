@@ -11,15 +11,29 @@
   reference's artifact keys (read off ``repro/launch/dryrun.py``) plus
   the port's own; the model FLOPs and analytic bytes are the
   reference's; ``--skip-existing`` reuses an ``ok`` artifact.
+* THE GSPMD CELLS — ``main`` with the default ``--mode gspmd`` traces
+  qwen2-0.5b-reduced x ``train_4k`` (one ``make_train_step_gspmd``
+  step), ``prefill_32k`` and ``decode_32k`` (``make_prefill_step`` /
+  ``make_decode_step`` on ``serve_specs``' layouts) over a ``(16, 16)``
+  ``DeviceMesh`` on the fake group: each ``ok``, with the reference's
+  artifact keys and arithmetic. Their collective counts are DTensor's
+  schedule, not XLA's (``PERF.md`` sets the two side by side), so they
+  are not held to the reference's. The fake group does not change that
+  schedule: a prefill and a decode cell traced on a fake group of 4 over
+  ``(2, 2)`` issue, kind for kind and byte for byte, the collectives the
+  same steps issue on a real gloo world of 4.
 * CELLS IT CANNOT RUN — a dense model's ``long_500k`` is a ``skip`` with
-  the reference's reason; ``gspmd`` and ``prefill_32k`` are ``fail``
-  with the named ``NotImplementedError``; ``main`` writes every artifact
-  under ``--out`` and returns 1 only when a cell failed.
+  the reference's reason; a family whose ``shard_fn`` sites are not
+  threaded (mixtral-8x7b-reduced) records its ``gspmd``, ``prefill_32k``
+  and ``decode_32k`` cells as ``fail`` with the named
+  ``NotImplementedError``; ``main`` writes every artifact under
+  ``--out`` and returns 1 only when a cell failed.
 """
 import ast
 import importlib.util
 import json
 import os
+import pickle
 import subprocess
 import sys
 import textwrap
@@ -40,6 +54,8 @@ except ImportError:
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "qwen2-0.5b-reduced"
 MODES = ("hadronio", "hadronio_rs", "hadronio_overlap_rs")
+SERVE = ("train_4k", "prefill_32k", "decode_32k")      # --mode gspmd
+UNTHREADED = "mixtral-8x7b-reduced"
 
 _JAX = textwrap.dedent('''
     import json, sys
@@ -79,11 +95,13 @@ def cells(jx, tmp_path_factory):
     """Each mode's artifact from the port's CLI, its stdout and rc, and
     the reference's StableHLO stats, all run side by side."""
     tmp = tmp_path_factory.mktemp("dryrun")
-    procs = {mode: subprocess.Popen(
+    cli = lambda shape, mode: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
-         "--shape", "train_4k", "--mode", mode, "--out", str(tmp)],
+         "--shape", shape, "--mode", mode, "--out", str(tmp)],
         env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for mode in MODES}
+        text=True)
+    procs = {mode: cli("train_4k", mode) for mode in MODES}
+    procs.update({shape: cli(shape, "gspmd") for shape in SERVE})
     ref = subprocess.Popen(
         [sys.executable, "-c", _JAX, str(tmp / "jax.json"), *MODES],
         env=dict(_env(), JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE,
@@ -92,11 +110,12 @@ def cells(jx, tmp_path_factory):
     jlog = ref.communicate(timeout=300)[0]
     assert ref.returncode == 0, jlog
     out = {}
-    for mode, p in procs.items():
-        assert p.returncode == 0, logs[mode]
-        path = dryrun.artifact_path(ARCH, "train_4k", "pod", mode, str(tmp))
+    for key, p in procs.items():
+        assert p.returncode == 0, logs[key]
+        shape, mode = (key, "gspmd") if key in SERVE else ("train_4k", key)
+        path = dryrun.artifact_path(ARCH, shape, "pod", mode, str(tmp))
         with open(path) as f:
-            out[mode] = json.load(f)
+            out[key] = json.load(f)
     with open(tmp / "jax.json") as f:
         want = json.load(f)
     return tmp, out, logs, want
@@ -174,6 +193,148 @@ def test_dense_long_500k_is_a_skip_with_the_reference_reason(jx, tmp_path):
         assert json.load(f)["status"] == "skip"
 
 
+@pytest.mark.parametrize("shape", SERVE)
+def test_gspmd_cells_trace_with_the_reference_keys(cells, shape):
+    """The default ``--mode gspmd`` cells are ``ok``: the reference's
+    artifact keys plus the port's own, its model FLOPs, analytic bytes
+    and param count, and a traced schedule with collectives in it."""
+    _, out, logs, _ = cells
+    art = out[shape]
+    assert art["status"] == "ok", art
+    assert f"[ok]   {ARCH} x {shape} (pod,gspmd)" in logs[shape]
+    ref_keys = _reference_artifact_keys()
+    assert ref_keys <= art.keys()
+    assert art.keys() - ref_keys == {"cross_pod", "global_batch", "comm"}
+    jcfg, jshape = jax_config(ARCH), jax_shape(shape)
+    assert art["n_chips"] == 256
+    assert art["global_batch"] == jshape.global_batch
+    assert art["model_flops_global"] == jhlo.model_flops(jcfg, jshape)
+    assert art["analytic_hbm_bytes_per_chip"] == \
+        jhlo.analytic_hbm_bytes(jcfg, jshape, 256, tp=16, dp=16)
+    assert art["param_count"] == jcfg.param_count()
+    mem = art["memory_analysis"]
+    assert mem["peak_size_in_bytes"] >= mem["argument_size_in_bytes"] > 0
+    assert art["cost_analysis"]["flops"] > 0
+    assert art["scan_corrected"]["flops"] == art["cost_analysis"]["flops"]
+    assert art["useful_flops_ratio"] > 0
+    coll = art["collectives"]
+    assert coll["total_ops"] > 0 and coll["total_bytes"] > 0
+    assert {"all-gather", "all-reduce"} <= set(coll["counts"])
+    assert art["cross_pod"]["cross_pod_total"] == 0
+
+
+_REAL = textwrap.dedent('''
+    import pickle, sys
+    import torch, torch.distributed as dist
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    sys.path.insert(0, sys.argv[5])
+    from test_torch_dryrun import schedule_runs
+
+    rank, store, out = int(sys.argv[1]), sys.argv[3], sys.argv[4]
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=int(sys.argv[2]))
+    res = {}
+    try:
+        mesh = make_device_mesh((2, 2), ("data", "model"), "cpu")
+        gen = torch.Generator().manual_seed(0)
+        real = lambda t: {k: torch.zeros(v.shape, dtype=v.dtype)
+                          for k, v in t.items()}
+        for run in schedule_runs():
+            if run.shape.kind == "train":
+                state = steps.distribute_state(
+                    steps.init_train_state(gen, run, "cpu"),
+                    steps.train_state_shardings(mesh, run))
+                args = [state, real(api.input_specs(run.model, run.shape))]
+                step = steps.make_train_step_gspmd(run, mesh, donate=True)
+            else:
+                params, cache, inputs, psh, csh, ish = steps.serve_specs(
+                    run, run.shape, mesh)
+                args = [sharding.distribute_tree(
+                    api.init(gen, run.model, device="cpu"), psh),
+                    sharding.distribute_tree(real(inputs), ish)]
+                if run.shape.kind == "prefill":
+                    step = steps.make_prefill_step(run, mesh)
+                else:
+                    args.insert(1, sharding.distribute_tree(real(cache),
+                                                            csh))
+                    step = steps.make_decode_step(run, mesh)
+            log = hlo.profile(step, *args).log
+            res[run.shape.kind] = [(op.kind, op.nbytes, op.ranks)
+                                   for op in log.collectives]
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+''')
+
+_FAKE = textwrap.dedent('''
+    import pickle, sys
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    sys.path.insert(0, sys.argv[2])
+    from test_torch_dryrun import schedule_runs
+
+    res = {}
+    for run in schedule_runs():
+        prof = dryrun.trace_gspmd_cell(run, make_mesh((2, 2),
+                                                     ("data", "model")))
+        res[run.shape.kind] = [(op.kind, op.nbytes, op.ranks)
+                               for op in prof.log.collectives]
+    with open(sys.argv[1], "wb") as f:
+        pickle.dump(res, f)
+''')
+
+
+def schedule_runs():
+    """A gspmd train, prefill and decode step of ``ARCH`` at a small
+    shape (its 4 heads split over the (2, 2) mesh's ``model`` axis)."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    return [RunConfig(model=get_config(ARCH), shape=ShapeConfig(
+        "s", kind, 32, 8), comm=CommConfig(mode="gspmd"))
+        for kind in ("train", "prefill", "decode")]
+
+
+def test_fake_group_keeps_the_gspmd_schedule(tmp_path):
+    """A prefill and a decode cell traced on a fake group of 4 over a
+    (2, 2) mesh issue the collectives, in order, kind for kind, byte for
+    byte and group for group, that the same steps issue on rank 0 of a
+    real gloo world of 4 (values do not steer DTensor's schedule,
+    placements do). The train step traces too, though its attention
+    folds the batch and the heads, both split over this mesh, into a
+    strided shard (the planner's arithmetic, ``_real_strided_offsets``):
+    its collectives are of the real run's kinds and groups, but under a
+    fake mode DTensor plans each strided-shard redistribution with a
+    fresh planner where a real run reuses one whose search has widened,
+    so one gradient's gather comes out in one step instead of two
+    (``PERF.md``, PR 27) and the sequences are not held equal."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _REAL, str(r), "4", str(tmp_path / "store"),
+         str(tmp_path / f"real{r}.pkl"), here], env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    procs.append(subprocess.Popen(
+        [sys.executable, "-c", _FAKE, str(tmp_path / "fake.pkl"), here],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True))
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    with open(tmp_path / "real0.pkl", "rb") as f:
+        real = pickle.load(f)
+    with open(tmp_path / "fake.pkl", "rb") as f:
+        fake = pickle.load(f)
+    for kind in ("prefill", "decode"):
+        assert real[kind], kind
+        assert fake[kind] == real[kind], kind
+    groups = lambda log: {(k, ranks) for k, _, ranks in log}
+    assert fake["train"] and groups(fake["train"]) == groups(real["train"])
+
+
 @pytest.mark.parametrize("shape,mode,named", [
     ("train_4k", "gspmd", "GSPMD step family"),
     ("prefill_32k", "hadronio", "GSPMD serve steps"),
@@ -181,14 +342,16 @@ def test_dense_long_500k_is_a_skip_with_the_reference_reason(jx, tmp_path):
 ])
 def test_cells_it_cannot_run_fail_with_the_named_error(tmp_path, shape, mode,
                                                        named):
+    """A family whose sites are not threaded: its gspmd train cell and
+    its serve cells (whatever the mode) fail with the named error."""
     with pytest.raises(NotImplementedError, match=named):
-        dryrun.dryrun_cell(ARCH, shape, mode=mode)
-    rc = dryrun.main(["--arch", ARCH, "--shape", shape, "--mode", mode,
+        dryrun.dryrun_cell(UNTHREADED, shape, mode=mode)
+    rc = dryrun.main(["--arch", UNTHREADED, "--shape", shape, "--mode", mode,
                       "--out", str(tmp_path)])
     assert rc == 1
-    with open(dryrun.artifact_path(ARCH, shape, "pod", mode,
+    with open(dryrun.artifact_path(UNTHREADED, shape, "pod", mode,
                                    str(tmp_path))) as f:
         art = json.load(f)
     assert art["status"] == "fail"
     assert art["error"].startswith("NotImplementedError") and named in \
-        art["error"]
+        art["error"] and "Queue 1 item 8c" in art["error"]

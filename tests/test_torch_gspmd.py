@@ -27,7 +27,8 @@ the activation constraints):
   step bit for bit on the CPU (losses and every param, one and two
   microbatches); a family whose ``shard_fn`` sites are not threaded
   raises the named error on a mesh of more than one peer and trains on
-  one.
+  one; the vlm family (threaded since the serve steps) takes the
+  DTensor path, one step on a ``(1, 1)`` mesh bitwise the plain one.
 * THE CLI — ``launch.train --mode gspmd --mesh 1x2`` on two gloo ranks
   trains and writes a checkpoint in the global layout.
 """
@@ -52,7 +53,8 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_abstract_mesh, make_mesh
+from repro_torch.launch.mesh import (make_abstract_mesh, make_device_mesh,
+                                     make_mesh)
 from repro_torch.launch.train import Trainer
 from repro_torch.models.common import tree_paths
 
@@ -433,14 +435,41 @@ def test_one_by_one_mesh_equals_one_peer_step(group, micro):
                                   "llava-next-mistral-7b-reduced"])
 def test_unthreaded_families_raise_on_a_mesh(group, arch):
     """A family whose sites are not threaded raises the named error over
-    a mesh of more than one peer, and trains plain on one."""
+    a mesh of more than one peer, and trains plain on one. The vlm
+    family is threaded: it takes the DTensor path on a (2, 2) mesh, and
+    one step of it on a (1, 1) mesh (the patch prefix placed with the
+    batch) equals the plain one-peer step bit for bit."""
     run = RunConfig(model=get_config(arch),
                     shape=ShapeConfig("t", "train", S, B),
                     comm=CommConfig(mode="gspmd"))
+    two = make_abstract_mesh((2, 2), ("data", "model"))
+    if run.model.family in steps.GSPMD_FAMILIES:
+        assert steps.uses_dtensor(run, two)
+        _one_vlm_step(run)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        steps.uses_dtensor(run, make_abstract_mesh((2, 2),
-                                                   ("data", "model")))
+        steps.uses_dtensor(run, two)
     assert not steps.uses_dtensor(run, make_abstract_mesh(
         (1, 1), ("data", "model")))
     assert steps.uses_dtensor(dataclasses.replace(run, model=get_config(
-        ARCH)), make_abstract_mesh((2, 2), ("data", "model")))
+        ARCH)), two)
+
+
+def _one_vlm_step(run):
+    cfg = run.model
+    gen = torch.Generator().manual_seed(0)
+    state = steps.init_train_state(gen, run, "cpu")
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+             for k in ("tokens", "labels")}
+    batch["patches"] = torch.randn((B, cfg.num_patches, cfg.d_model),
+                                   generator=gen)
+    mesh = make_device_mesh((1, 1), ("data", "model"), "cpu")
+    placed = steps.distribute_state(state, steps.train_state_shardings(
+        mesh, run))
+    want, wm = steps.make_train_step_gspmd(run)(state, batch)
+    got, gm = steps.make_train_step_gspmd(run, mesh)(placed, batch)
+    assert torch.equal(gm["loss"], wm["loss"]) and np.isfinite(
+        float(wm["loss"]))
+    for (path, x), (_, y) in zip(tree_paths(want.params),
+                                 tree_paths(got.params)):
+        assert torch.equal(x, y.full_tensor()), path
