@@ -186,7 +186,7 @@ non-zero (no phase's failure is caught):
    busy share and peak memory;
 9. train the families (``api.loss`` of every family in its train mode,
    which launches no kernel): mixtral-8x7b at 1 of 32 layers (B=4,
-   S=1024), rwkv6-7b at 4 of 32 and recurrentgemma-9b at 3 of 38 (one
+   S=1024), rwkv6-7b at 1 of 32 and recurrentgemma-9b at 3 of 38 (one
    whole group, with its whole untied 256,000-row vocabulary) at B=2,
    S=512, full width, bf16, 3 steps each through a donating ``Trainer``
    (its steps update the state in place, as the CLI's and the
@@ -277,12 +277,13 @@ non-zero (no phase's failure is caught):
    stream, 24 flash launches in the prefill, ``gspmd``'s local decode
    with no collective; (d) two ``hadronio_rs`` steps on
    ``Ring(channels=4, pods=1, pod_axis="pod")`` and on a flat ring,
-   losses bitwise equal; (c) meanwhile, as subprocesses started after
-   (a)'s timing, the dry run of qwen2-0.5b x train_4k: ``hadronio`` on
+   losses bitwise equal; (c) the dry run, run as subprocesses started
+   before phase 6, of qwen2-0.5b x train_4k: ``hadronio`` on
    256 fake peers, on 2 pods of 256 (global batch 512, ``channel``) with
    the leader emission and flat, all ``ok``, the leader emission issuing
    fewer cross-pod collectives than the flat one; each run's seconds and
-   memory estimate printed (phase 15's two GSPMD cells start with them);
+   memory estimate printed (phases 15 and 16's GSPMD cells start with
+   them and are joined after phase 16);
 14. the GSPMD step family on DTensor (``gspmd_mesh_phase``): qwen2-0.5b
    at full width, bf16, B=4, S=1024, 3 steps of ``gspmd`` through the
    ``Trainer`` on a one-rank NCCL ``DeviceMesh`` of shape (1, 1)
@@ -308,16 +309,40 @@ non-zero (no phase's failure is caught):
    given at its placements, the flash kernel launched 24 times per mesh
    prefill on local blocks (its wrapper refuses a DTensor), the median
    prefill and decode ms of each (the difference is DTensor's host
-   cost) and the peak memory; meanwhile, started with phase 13's dry
-   runs, qwen2-0.5b x train_4k and x decode_32k with the default
+   cost) and the peak memory; meanwhile, started before phase 6 with
+   phase 13's dry runs, qwen2-0.5b x train_4k and x decode_32k with the
+   default
    ``--mode gspmd`` over the (16, 16) ``DeviceMesh`` on 256 fake peers,
    both ``ok``;
-16. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+16. the recurrent families' GSPMD steps on DTensor
+   (``gspmd_recurrent_serve``, ``gspmd_recurrent_train``), on the same
+   (1, 1) NCCL ``DeviceMesh``: (a) rwkv6-7b whole (32 layers), a prefill
+   at B=2, S=1024 and 16 decode steps, and recurrentgemma-9b whole (38
+   layers), a prefill at B=2, S=2040 and 16 decode steps that cross its
+   2048-token window (the rolling slot wraps on a mesh cache), each
+   through ``make_prefill_step`` / ``make_decode_step`` in turns with
+   ``api.prefill``/``api.decode_step`` on plain tensors (plain, mesh,
+   mesh, plain): logits and every state leaf bitwise, the state at
+   ``cache_shardings`` after every step, 32 WKV6 launches per mesh
+   prefill call and per decode step, 26 RG-LRU and 12 flash launches per
+   mesh prefill call (the scans on local blocks,
+   ``rwkv6.scan_blocks``, ``hybrid.scan_blocks``), median ms and peak
+   memory; (b) rwkv6-7b at 1 of 32 layers and recurrentgemma-9b at 3 of
+   38 with its whole vocabulary, B=2, S=512, 2 donated ``gspmd`` steps
+   through the ``Trainer``, plain first (its result kept on the host, the
+   card's memory released), then on the mesh (the state wrapped as
+   DTensors without a copy, ``one_peer_dtensors``): losses and every
+   param bitwise, no kernel launch, median step wall, one profiled
+   step's device time, peak memory; (c) meanwhile, started before phase
+   6, rwkv6-7b x long_500k and recurrentgemma-9b x decode_32k with
+   ``--mode gspmd`` on 256 fake peers, both ``ok``;
+17. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -326,6 +351,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -387,29 +413,45 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False,
     return start.elapsed_time(end) / iters
 
 
-def profile_device(fn, top: int = 6):
+def device_events(prof):
+    """(name, ms) of every event on the card in a finished ``prof``, read
+    off the profiler's raw results: listing them through
+    ``prof.events()`` builds a Python object per event first, seconds for
+    a train step's tens of thousands of kernels
+    (``tools/profiler_cost.py``)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is None:
+        return [(e.name, e.time_range.elapsed_us() / 1e3)
+                for e in prof.events() if e.device_type == cuda]
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
+            for e in results.events() if e.device_type() == cuda
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def profile_device(fn, top: int = 6, warm: bool = True):
     """Kernel time of one ``fn`` call from the profiler's device trace:
     (summed kernel ms, kernel count, [(name, ms)] of the ``top`` kernel
-    names by time, {name: ms} of all). An empty trace returns
-    (None, 0, [], {})."""
+    names by time, {name: ms} of all), after one unprofiled call unless
+    ``warm`` is False (``fn`` already ran). An empty trace returns
+    (None, 0, [], {}). Only the card is traced: the host's op events
+    add nothing here and cost 3-8x the post-processing
+    (``tools/profiler_cost.py``)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
-    n = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-    if not n:
+    events = device_events(prof)
+    for name, ms in events:
+        by_name[name] = by_name.get(name, 0.0) + ms
+    if not events:
         return None, 0, [], {}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return sum(by_name.values()), n, ranked, by_name
+    return sum(by_name.values()), len(events), ranked, by_name
 
 
 def attn_bound_ms(b, s, h, dh, causal, window, elem_bytes, peak_flops,
@@ -1735,7 +1777,6 @@ def train_fault_tolerant(smi, cfg, train_run, dev) -> dict:
     kernels' launches and (c)'s checkpoint directory, which phase 9
     serves; the temporary directory is removed when the script exits,
     whatever happened."""
-    import atexit
     import shutil
     import tempfile
     import torch.distributed as dist
@@ -2001,7 +2042,7 @@ def train_fault_tolerant(smi, cfg, train_run, dev) -> dict:
 # depth; the recurrent families run a smaller B x S, since their plain
 # scans keep a state per step for the backward
 TRAIN_FAMILIES = (("mixtral-8x7b", 1, 4, 1024),
-                  ("rwkv6-7b", 4, 2, 512),
+                  ("rwkv6-7b", 1, 2, 512),
                   ("recurrentgemma-9b", 3, 2, 512))
 PARITY_ARCHS = ("mixtral-8x7b", "rwkv6-7b", "recurrentgemma-9b",
                 "whisper-tiny", "llava-next-mistral-7b")
@@ -2896,49 +2937,76 @@ def serve_pods(smi, params, base, flat_wall, dev) -> int:
 
 
 DRYRUN_ARCH = "qwen2-0.5b"
-# (label, shape, extra arguments): phase 13's TAC cells, then phase 15's
-# GSPMD cells (the default ``--mode gspmd``: a train step and a decode
-# step over the (16, 16) DeviceMesh)
-DRYRUNS = (("pod", "train_4k", ["--mode", "hadronio"]),
-           ("multipod", "train_4k", ["--mode", "hadronio", "--mesh",
-                                     "multipod", "--global-batch", "512",
-                                     "--aggregate", "channel"]),
-           ("multipod flat", "train_4k", ["--mode", "hadronio", "--mesh",
-                                          "multipod", "--global-batch",
-                                          "512", "--aggregate", "channel",
-                                          "--flat-collectives"]))
-GSPMD_DRYRUNS = (("gspmd train_4k", "train_4k", ["--mode", "gspmd"]),
-                 ("gspmd decode_32k", "decode_32k", ["--mode", "gspmd"]))
-GSPMD_DRYRUN_WAIT_S = 420.0      # after phase 15 ends
+# (label, arch (None: DRYRUN_ARCH), shape, extra arguments): phase 13's
+# TAC cells, then phase 15's and phase 16's GSPMD cells, all started
+# together before phase 6, the GSPMD ones with the default ``--mode
+# gspmd`` over the (16, 16) DeviceMesh: qwen2-0.5b's train and decode
+# steps, a recurrent family's long_500k and decode_32k steps
+DRYRUNS = (("pod", None, "train_4k", ["--mode", "hadronio"]),
+           ("multipod", None, "train_4k", [
+               "--mode", "hadronio", "--mesh", "multipod",
+               "--global-batch", "512", "--aggregate", "channel"]),
+           ("multipod flat", None, "train_4k", [
+               "--mode", "hadronio", "--mesh", "multipod",
+               "--global-batch", "512", "--aggregate", "channel",
+               "--flat-collectives"]))
+GSPMD_DRYRUNS = (("gspmd train_4k", None, "train_4k", ["--mode", "gspmd"]),
+                 ("gspmd decode_32k", None, "decode_32k",
+                  ["--mode", "gspmd"]))
+RECURRENT_DRYRUNS = (("gspmd rwkv6-7b long_500k", "rwkv6-7b", "long_500k",
+                      ["--mode", "gspmd"]),
+                     ("gspmd recurrentgemma-9b decode_32k",
+                      "recurrentgemma-9b", "decode_32k",
+                      ["--mode", "gspmd"]))
+GSPMD_DRYRUN_WAIT_S = 420.0      # after phase 16 ends (started long before)
 
 
 def start_dryruns(out_dir: str, runs=DRYRUNS) -> dict:
-    """Dry runs of ``DRYRUN_ARCH`` (``runs``: label, shape, arguments),
-    one subprocess each, started together, each with its own ``--out``
-    under ``out_dir``, the card hidden (a fake process group and fake
-    tensors compute nothing) and one CPU thread. Returns {label:
-    (process, out dir, start time, shape, mode)}."""
+    """Dry runs (``runs``: label, arch or None for ``DRYRUN_ARCH``,
+    shape, arguments), one subprocess each, started together, each with
+    its own ``--out`` under ``out_dir``, the card hidden (a fake process
+    group and fake tensors compute nothing) and one CPU thread. Returns
+    {label: (process, out dir, start time, arch, shape, mode, reaper)}:
+    the ``_Reaper`` thread reads the run's output and notes when it
+    ended, so a run that ends long before it is joined keeps its own
+    wall."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONWARNINGS="ignore")
     procs = {}
-    for label, shape, extra in runs:
+    for label, arch, shape, extra in runs:
+        arch = arch or DRYRUN_ARCH
         out = os.path.join(out_dir, label.replace(" ", "_"))
         mode = extra[extra.index("--mode") + 1]
-        procs[label] = (subprocess.Popen(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             DRYRUN_ARCH, "--shape", shape, "--out", out] + extra,
+             arch, "--shape", shape, "--out", out] + extra,
             cwd=HERE, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), out, time.perf_counter(),
-            shape, mode)
+            stderr=subprocess.STDOUT, text=True)
+        procs[label] = (proc, out, time.perf_counter(), arch, shape, mode,
+                        _Reaper(proc))
     return procs
 
 
+class _Reaper(threading.Thread):
+    """Reads a dry run's output to its end (``log``) and notes the time
+    the process ended (``end``, ``time.perf_counter``)."""
+
+    def __init__(self, proc):
+        super().__init__(daemon=True)
+        self.proc, self.log, self.end = proc, "", None
+        self.start()
+
+    def run(self):
+        self.log = self.proc.communicate()[0]
+        self.end = time.perf_counter()
+
+
 def stop_dryruns(procs: dict) -> None:
-    for proc, *_ in procs.values():
+    for proc, *_, reaper in procs.values():
         if proc.poll() is None:
             proc.kill()
-        proc.wait()
+        reaper.join()
 
 
 def wait_dryruns(smi, procs: dict, timeout_s: float) -> dict:
@@ -2947,36 +3015,33 @@ def wait_dryruns(smi, procs: dict, timeout_s: float) -> dict:
     each ``ok`` with rc 0, print its wall and traced seconds, collectives,
     counted FLOPs and memory estimate. Returns {label: artifact}."""
     from repro_torch.launch import dryrun
-    ends, deadline = {}, time.perf_counter() + timeout_s
+    deadline = time.perf_counter() + timeout_s
     try:
-        while len(ends) < len(procs):
-            for label, (proc, *_) in procs.items():
-                if label not in ends and proc.poll() is not None:
-                    ends[label] = time.perf_counter()
-            assert time.perf_counter() < deadline, \
+        for *_, reaper in procs.values():
+            reaper.join(max(0.0, deadline - time.perf_counter()))
+            assert not reaper.is_alive(), \
                 f"dry runs still running after {timeout_s} s"
-            time.sleep(0.2)
     finally:
         stop_dryruns(procs)
     arts, failed = {}, {}
-    for label, (proc, out, t0, shape, mode) in procs.items():
-        log = proc.stdout.read()
+    for label, (proc, out, t0, arch, shape, mode, reaper) in procs.items():
+        log, wall = reaper.log, reaper.end - t0
         mesh = "multipod" if label.startswith("multipod") else "pod"
-        with open(dryrun.artifact_path(DRYRUN_ARCH, shape, mesh, mode,
-                                       out)) as f:
+        with open(dryrun.artifact_path(arch, shape, mesh, mode, out)) as f:
             art = arts[label] = json.load(f)
         if proc.returncode or art["status"] != "ok":
             print(f"[dryrun] {label}: rc {proc.returncode}, status "
-                  f"{art['status']}, {ends[label] - t0:.1f} s wall | {smi}")
+                  f"{art['status']}, {wall:.1f} s wall | {smi}")
             failed[label] = log[-3000:]
             continue
         mem, coll, cp = (art["memory_analysis"], art["collectives"],
                          art["cross_pod"])
-        print(f"[dryrun] {label} ({art['n_chips']} fake peers, {shape}, "
+        print(f"[dryrun] {label} ({arch}, {art['n_chips']} fake peers, "
+              f"{shape}, "
               f"global batch {art['global_batch']}, mode {mode}, aggregate "
               f"{art['comm']['aggregate']}, hierarchical "
               f"{art['comm']['hierarchical']}): status ok, "
-              f"{ends[label] - t0:.1f} s wall, traced step "
+              f"{wall:.1f} s wall, traced step "
               f"{art['compile_seconds']} s; collectives {coll['counts']} "
               f"{coll['total_bytes']} B, cross-pod {cp['cross_pod']} "
               f"in-pod {cp['in_pod']}; counted FLOPs "
@@ -3005,7 +3070,7 @@ def finish_dryruns(smi, procs: dict, timeout_s: float = 600.0) -> None:
     assert 0 < hier < flat, (hier, flat)
 
 
-def analysis_phase(smi, params, ring, dev) -> dict:
+def analysis_phase(smi, params, ring, dev, dry: dict) -> dict:
     """Phase 13: the analysis layer (``launch/hlo_analysis``) on the card,
     and the dry run. (a) qwen2-0.5b at full width, phase 5's step
     (S=1024, B=4, ``hadronio``, ``bf16``, ``pallas``, one peer) through a
@@ -3014,9 +3079,8 @@ def analysis_phase(smi, params, ring, dev) -> dict:
     bf16 wire, and the loss's), pack and unpack launched once each; its
     counted FLOPs against ``model_flops``, its memory, the median of
     steps 2-5 of an unrecorded run, ``roofline_terms`` and the compute
-    share ``model_flops / (t * PEAK_FLOPS)``. Then the dry runs start
-    (``start_dryruns``: phase 13's ``DRYRUNS`` and phase 15's
-    ``GSPMD_DRYRUNS``). (b) on phase 4b's ``ring`` with ``params``
+    share ``model_flops / (t * PEAK_FLOPS)``. (b) on phase 4b's ``ring``
+    with ``params``
     (qwen2-0.5b, bf16): one recorded ``hadronio`` prefill (B=2, S=1024)
     and decode step, each with a collective position ``0 < first <
     total``, 24 flash launches in the prefill (the recorder hides no
@@ -3024,9 +3088,9 @@ def analysis_phase(smi, params, ring, dev) -> dict:
     ``hadronio_rs`` steps (``bf16``, ``pallas``) on the degenerate pod
     ring ``Ring(channels=4, pods=1, pod_axis="pod")`` (two-level
     collectives, the in-pod ZeRO-1 group) and on a flat ring from one
-    state: losses bitwise equal. (c) ``finish_dryruns``. Returns the
-    kernel launches of the phase and phase 15's dry-run processes, still
-    running (``finish_gspmd_dryruns``)."""
+    state: losses bitwise equal. (c) ``finish_dryruns`` of ``dry``,
+    ``start_dryruns``' processes of ``DRYRUNS``, started before phase 6.
+    Returns the kernel launches of the phase."""
     from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.core import aggregation as agg
@@ -3108,75 +3172,67 @@ def analysis_phase(smi, params, ring, dev) -> dict:
           f"{mf / (t_s * hlo.PEAK_FLOPS):.4f} | {smi}")
     assert flops > mf > 0
 
-    dry = start_dryruns(os.path.join(HERE, "build", "dryrun"))
-    gspmd_dry = start_dryruns(os.path.join(HERE, "build", "dryrun"),
-                              GSPMD_DRYRUNS)
-    try:
-        # -- b. the served path's emission position -------------------------
-        toks = torch.randint(cfg.vocab_size, (2, 1024), device=dev,
-                             generator=torch.Generator(device=dev).manual_seed(13))
-        big = {"tokens": toks,
-               "last_pos": torch.full((2,), 1023, device=dev)}
-        wired = dispatch.make_serve_step(cfg, CommConfig(
-            mode="hadronio", channels=4), ring=ring)
-        local = dispatch.make_serve_step(cfg, CommConfig(mode="gspmd"))
-        with hlo.record() as plog:
-            (lp, cache), got = counted(lambda: wired.prefill(params, big))
-        assert got["flash_attention"] == cfg.num_layers, got
-        cache = api.grow_cache(cfg, cache, 1040)
-        dec = {"token": lp.argmax(-1),
-               "pos": torch.full((2,), 1024, device=dev)}
-        pos = {"hadronio prefill": hlo.first_collective_position(plog)}
-        for label, step in (("hadronio decode", wired),
-                            ("gspmd local decode", local)):
-            with hlo.record() as log:
-                step.decode(params, cache, dec)
-            torch.cuda.synchronize()
-            pos[label] = hlo.first_collective_position(log)
-        print(f"[analysis] served qwen2-0.5b (B=2, S=1024) on the one-peer "
-              f"ring: first collective position {pos}; flash launches in "
-              f"the recorded prefill {got['flash_attention']} | {smi}")
-        for label in ("hadronio prefill", "hadronio decode"):
-            first, total = pos[label]
-            assert 0 < first < total, (label, pos[label])
-        assert pos["gspmd local decode"] is None, pos
-        del lp, cache, dec, big
+    # -- b. the served path's emission position -------------------------
+    toks = torch.randint(cfg.vocab_size, (2, 1024), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(13))
+    big = {"tokens": toks,
+           "last_pos": torch.full((2,), 1023, device=dev)}
+    wired = dispatch.make_serve_step(cfg, CommConfig(
+        mode="hadronio", channels=4), ring=ring)
+    local = dispatch.make_serve_step(cfg, CommConfig(mode="gspmd"))
+    with hlo.record() as plog:
+        (lp, cache), got = counted(lambda: wired.prefill(params, big))
+    assert got["flash_attention"] == cfg.num_layers, got
+    cache = api.grow_cache(cfg, cache, 1040)
+    dec = {"token": lp.argmax(-1),
+           "pos": torch.full((2,), 1024, device=dev)}
+    pos = {"hadronio prefill": hlo.first_collective_position(plog)}
+    for label, step in (("hadronio decode", wired),
+                        ("gspmd local decode", local)):
+        with hlo.record() as log:
+            step.decode(params, cache, dec)
+        torch.cuda.synchronize()
+        pos[label] = hlo.first_collective_position(log)
+    print(f"[analysis] served qwen2-0.5b (B=2, S=1024) on the one-peer "
+          f"ring: first collective position {pos}; flash launches in "
+          f"the recorded prefill {got['flash_attention']} | {smi}")
+    for label in ("hadronio prefill", "hadronio decode"):
+        first, total = pos[label]
+        assert 0 < first < total, (label, pos[label])
+    assert pos["gspmd local decode"] is None, pos
+    del lp, cache, dec, big
 
-        # -- d. the degenerate pod ring: hadronio_rs bitwise the flat ring's
-        rs = train_run("hadronio_rs")
-        release_memory("before phase 13's pod ring")
-        losses = {}
-        for label in ("flat", "pod"):
-            r = Ring(channels=4) if label == "flat" else Ring(
-                channels=4, pods=1, pod_axis="pod")
-            try:
-                step = steps_mod.make_train_step(rs, r)
-                st = steps_mod.tac_state(state.params, rs,
-                                         pod_size=r.pods)
-                ls = []
-                for b in batches:
-                    (st, metrics), got = counted(lambda: step(st, b))
-                    assert got["pack_slices"] == 1 and \
-                        got["unpack_slices"] == 1, (label, got)
-                    ls.append(metrics["loss"])
-                losses[label] = ls
-                del st
-            finally:
-                r.close()
-        print(f"[analysis] hadronio_rs/bf16/pallas, 2 steps: losses "
-              f"{[float(x) for x in losses['pod']]} on Ring(pods=1, "
-              f"pod_axis='pod'), {[float(x) for x in losses['flat']]} flat "
-              f"| {smi}")
-        assert all(torch.equal(a, b) for a, b in zip(losses["pod"],
-                                                     losses["flat"]))
-        del state, batches
-        # -- c. the dry runs ------------------------------------------------
-        finish_dryruns(smi, dry)
-    except BaseException:
-        stop_dryruns(dry)           # stop them, then fail
-        stop_dryruns(gspmd_dry)
-        raise
-    return launches, gspmd_dry
+    # -- d. the degenerate pod ring: hadronio_rs bitwise the flat ring's
+    rs = train_run("hadronio_rs")
+    release_memory("before phase 13's pod ring")
+    losses = {}
+    for label in ("flat", "pod"):
+        r = Ring(channels=4) if label == "flat" else Ring(
+            channels=4, pods=1, pod_axis="pod")
+        try:
+            step = steps_mod.make_train_step(rs, r)
+            st = steps_mod.tac_state(state.params, rs,
+                                     pod_size=r.pods)
+            ls = []
+            for b in batches:
+                (st, metrics), got = counted(lambda: step(st, b))
+                assert got["pack_slices"] == 1 and \
+                    got["unpack_slices"] == 1, (label, got)
+                ls.append(metrics["loss"])
+            losses[label] = ls
+            del st
+        finally:
+            r.close()
+    print(f"[analysis] hadronio_rs/bf16/pallas, 2 steps: losses "
+          f"{[float(x) for x in losses['pod']]} on Ring(pods=1, "
+          f"pod_axis='pod'), {[float(x) for x in losses['flat']]} flat "
+          f"| {smi}")
+    assert all(torch.equal(a, b) for a, b in zip(losses["pod"],
+                                                 losses["flat"]))
+    del state, batches
+    # -- c. the dry runs ------------------------------------------------
+    finish_dryruns(smi, dry)
+    return launches
 
 
 def gspmd_mesh_phase(smi, dev, arch: str = "qwen2-0.5b",
@@ -3316,10 +3372,12 @@ def gspmd_mesh_phase(smi, dev, arch: str = "qwen2-0.5b",
 
 
 def finish_gspmd_dryruns(smi, procs: dict, timeout_s: float) -> None:
-    """Phase 15's dry runs (``GSPMD_DRYRUNS``, started with phase 13's):
-    qwen2-0.5b x train_4k and x decode_32k with the default ``--mode
-    gspmd`` over the (16, 16) ``DeviceMesh`` on 256 fake peers, each
-    ``ok`` with collectives in its schedule."""
+    """Phases 15-16's dry runs (``GSPMD_DRYRUNS`` and
+    ``RECURRENT_DRYRUNS``, started with phase 13's before phase 6):
+    qwen2-0.5b x train_4k and x decode_32k, rwkv6-7b x long_500k and
+    recurrentgemma-9b x decode_32k with the default ``--mode gspmd`` over
+    the (16, 16) ``DeviceMesh`` on 256 fake peers, each ``ok`` with
+    collectives in its schedule."""
     arts = wait_dryruns(smi, procs, timeout_s)
     for label, art in arts.items():
         assert art["collectives"]["total_ops"] > 0, (label, art)
@@ -3484,6 +3542,272 @@ def gspmd_serve_phase(smi, dev, arch: str = "qwen2-0.5b", b: int = 2,
     for f in ("scalar", "rows"):      # the decode tokens are the plain ones
         assert m[f].shape == (n_decode, b, cfg.vocab_size), m[f].shape
     return sum(flash)
+
+
+# phase 16: (arch, prompt length, {wrapper: (launches per mesh prefill
+# call, per mesh decode step)}); recurrentgemma's decode crosses its
+# 2048-token window, so the rolling slot wraps on a mesh cache
+GSPMD_RECURRENT_SERVE = (("rwkv6-7b", 1024, {"wkv6": (32, 32)}),
+                         ("recurrentgemma-9b", 2040,
+                          {"rglru": (26, 0), "flash_attention": (12, 0)}))
+# phase 16's train depths, B=2, S=512: phase 9's (TRAIN_FAMILIES); rwkv6-7b
+# at 1 of 32 layers, since its plain WKV loop issues ~22k kernels a layer
+# and step (at 4 layers phase 16's training took 150 s of the script's
+# 1200 s on an H100)
+GSPMD_RECURRENT_TRAIN = (("rwkv6-7b", 1), ("recurrentgemma-9b", 3))
+
+
+def gspmd_recurrent_serve(smi, dev, arch: str, seq_len: int, expect: dict,
+                          b: int = 2, n_decode: int = 16) -> dict:
+    """Phase 16a (module docstring): ``arch`` whole through
+    ``steps.make_prefill_step`` / ``make_decode_step`` on a (1, 1)
+    ``DeviceMesh`` against ``api.prefill`` / ``api.decode_step`` on plain
+    tensors, in turns (plain, mesh, mesh, plain), from one seed-0 init:
+    logits and every state leaf bitwise, the state at
+    ``cache_shardings`` after the prefill and every decode step, the
+    launches of ``expect``'s wrappers per mesh prefill call and per mesh
+    decode step. The current process group must have one rank. Returns
+    the mesh runs' launches by wrapper."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_paths
+    from torch.distributed.tensor import DTensor
+    cuda = dev.type == "cuda"
+    cfg = get_config(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("smoke", "decode",
+                                                 seq_len + n_decode, b),
+                    comm=CommConfig(mode="gspmd"))
+    if cuda:
+        release_memory(f"before phase 16 {arch}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = api.init(gen, cfg, device=dev)
+    toks = torch.randint(cfg.vocab_size, (b, seq_len), device=dev,
+                         generator=gen)
+    last = torch.tensor([seq_len - 1 - 7 * i for i in range(b)], device=dev)
+    batch = {"tokens": toks, "last_pos": last}
+    tok0 = torch.randint(cfg.vocab_size, (n_decode, b), device=dev,
+                         generator=gen)
+    decs = [{"token": tok0[i], "pos": torch.tensor(seq_len + i, device=dev)}
+            for i in range(n_decode)]
+    mesh = make_device_mesh((1, 1), ("data", "model"), dev)
+    place = lambda t: sharding.distribute_tree(
+        t, sharding.batch_sharding(mesh, t))
+    dparams = sharding.distribute_tree(params, sharding.param_shardings(
+        mesh, api.specs(cfg)))
+    prefill_mesh = steps_mod.make_prefill_step(run, mesh)
+    decode_mesh = steps_mod.make_decode_step(run, mesh)
+    prefill = {"plain": lambda: api.prefill(params, batch, cfg),
+               "mesh": lambda: prefill_mesh(dparams, place(batch))}
+    decode = {"plain": lambda c, d: api.decode_step(params, c, d, cfg),
+              "mesh": lambda c, d: decode_mesh(dparams, c, place(d))}
+    wrappers = {name: getattr(ops, name) for name in expect}
+    counts = lambda: {n: w.launches for n, w in wrappers.items()}
+    since = lambda before: {n: w.launches - before[n]
+                            for n, w in wrappers.items()}
+    full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def at_shardings(cache):
+        csh = sharding.cache_shardings(mesh, cache)
+        return all(isinstance(t, DTensor) and tuple(t.placements)
+                   == tuple(sh.placements) for (_, t), (_, sh) in zip(
+                       tree_paths(cache), tree_paths(csh)))
+
+    launched = {n: 0 for n in expect}
+    per_prefill, per_step = [], []
+    # one untimed call of each first: the kernels' load and DTensor's
+    # sharding propagation fill their caches
+    for label in ("plain", "mesh"):
+        before = counts()
+        _, cache = prefill[label]()
+        decode[label](cache, decs[0])
+        if label == "mesh":
+            for n, k in since(before).items():
+                launched[n] += k
+        del cache
+    sync()
+    times = {k: {"prefill": [], "decode": []} for k in prefill}
+    outs, peaks, kept = {}, {}, True
+    for label in ("plain", "mesh", "mesh", "plain"):
+        if cuda:
+            sync()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        sync()
+        ts = time.perf_counter()
+        logits, cache = prefill[label]()
+        sync()
+        times[label]["prefill"].append((time.perf_counter() - ts) * 1e3)
+        if label == "mesh":
+            per_prefill.append(since(before))
+            kept &= at_shardings(cache)
+        got = {"prefill": full(logits)}
+        ls = []
+        for d in decs:
+            before = counts()
+            sync()
+            ts = time.perf_counter()
+            lg, cache = decode[label](cache, d)
+            sync()
+            times[label]["decode"].append((time.perf_counter() - ts) * 1e3)
+            if label == "mesh":
+                per_step.append(since(before))
+                kept &= at_shardings(cache)
+            ls.append(full(lg))
+        got["decode"] = torch.stack(ls)
+        got["state"] = {p: full(t) for p, t in tree_paths(cache)}
+        del cache, logits
+        outs.setdefault(label, got)
+        if cuda:
+            sync()
+            peaks.setdefault(label, (torch.cuda.max_memory_allocated()
+                                     - live, live))
+    for counted in per_prefill + per_step:
+        for n, k in counted.items():
+            launched[n] += k
+    a, m = outs["plain"], outs["mesh"]
+    pairs = [(m["prefill"], a["prefill"]), (m["decode"], a["decode"])] + [
+        (m["state"][p], a["state"][p]) for p in a["state"]]
+    bitwise = m["state"].keys() == a["state"].keys() and all(
+        torch.equal(x, y) for x, y in pairs)
+    worst = max(rel_l2(x.float(), y.float()) for x, y in pairs)
+    med = {k: {w: statistics.median(v[w]) for w in v}
+           for k, v in times.items()}
+    want_prefill = {n: k[0] for n, k in expect.items()}
+    want_step = {n: k[1] for n, k in expect.items()}
+    print(f"[gspmd recurrent] {cfg.name} whole, B={b} S={seq_len}, a "
+          f"prefill and {n_decode} decode steps (pos {seq_len}.."
+          f"{seq_len + n_decode - 1}) on a (1, 1) DeviceMesh vs "
+          f"api.prefill/decode_step on plain tensors: logits and "
+          f"{len(a['state'])} state leaves bitwise {bitwise} (worst rel_l2 "
+          f"{worst:.3e}); state at cache_shardings after the prefill and "
+          f"every step: {kept}; launches per mesh prefill call "
+          f"{per_prefill} (want {want_prefill}), per mesh decode step "
+          f"{sorted({tuple(sorted(c.items())) for c in per_step})} (want "
+          f"{want_step}); median ms (two runs each) prefill mesh "
+          f"{med['mesh']['prefill']:.2f} vs plain "
+          f"{med['plain']['prefill']:.2f}, decode step mesh "
+          f"{med['mesh']['decode']:.2f} vs plain "
+          f"{med['plain']['decode']:.2f} (the mesh's extra "
+          f"{med['mesh']['prefill'] - med['plain']['prefill']:.2f} ms a "
+          f"prefill, {med['mesh']['decode'] - med['plain']['decode']:.2f} "
+          f"ms a step); peak memory "
+          + ", ".join(f"{k} {v[0] / 1e9:.2f} GB above {v[1] / 1e9:.2f} GB "
+                      f"live" for k, v in peaks.items())
+          + f"; {time.perf_counter() - t0:.1f} s | {smi}")
+    assert kept and bitwise, (kept, bitwise, worst)
+    assert per_prefill == [want_prefill] * 2, per_prefill
+    assert per_step == [want_step] * (2 * n_decode), per_step
+    assert all(bool(torch.isfinite(x).all()) for x, _ in pairs[:2])
+    assert m["decode"].shape == (n_decode, b, cfg.vocab_size)
+    return launched
+
+
+def one_peer_dtensors(state, shardings):
+    """A train state's tensors as DTensors at ``shardings`` on a
+    one-peer mesh, each local block the tensor itself: the copy that
+    ``steps.distribute_state`` makes of every block would put two states
+    on the card, and recurrentgemma-9b's does not fit twice."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.common import tree_map
+    wrap = lambda t, sh: DTensor.from_local(t, sh.mesh, sh.placements,
+                                            run_check=False)
+    return steps_mod.TrainState(
+        tree_map(wrap, state.params, shardings.params),
+        state.opt._replace(mu=tree_map(wrap, state.opt.mu, shardings.opt.mu),
+                           nu=tree_map(wrap, state.opt.nu,
+                                       shardings.opt.nu)),
+        state.step, state.ef)
+
+
+def gspmd_recurrent_train(smi, dev, arch: str, layers: int, b: int = 2,
+                          s: int = 512, n_steps: int = 2) -> None:
+    """Phase 16b (module docstring): ``arch`` at ``layers`` layers, bf16,
+    ``n_steps`` donated ``gspmd`` steps through the ``Trainer``, plain
+    and then on a (1, 1) ``DeviceMesh`` from the same seed-0 state and
+    batches: the plain run first, its losses and params kept on the
+    host and the card's memory released before the mesh run; losses and
+    every param bitwise; no kernel launch (train mode runs the plain
+    scans, on local blocks over the mesh). Prints each run's median
+    step wall, one profiled step's device time and the peak memory."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.common import tree_paths
+    from torch.distributed.tensor import DTensor
+    cuda = dev.type == "cuda"
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    run = RunConfig(model=cfg, shape=ShapeConfig("smoke", "train", s, b),
+                    comm=CommConfig(mode="gspmd", channels=1),
+                    total_steps=n_steps, warmup_steps=1, seed=0)
+    wrappers = (ops.flash_attention, ops.wkv6, ops.rglru)
+    before = [w.launches for w in wrappers]
+    t0 = time.perf_counter()
+    results = {}
+    for label, mesh in (("plain", None),
+                        ("mesh (1, 1)", make_mesh((1, 1), ("data",
+                                                          "model")))):
+        if cuda:
+            release_memory(f"before phase 16 {arch} {label}")
+        trainer = Trainer(run, mesh, device=dev, log_every=10, donate=True)
+        gen = torch.Generator(device=dev).manual_seed(run.seed)
+        state = steps_mod.init_train_state(gen, run, dev)
+        if trainer.mesh is not None:
+            state = one_peer_dtensors(state, steps_mod.train_state_shardings(
+                trainer.mesh, run))
+        states = [state]     # the run holds the only reference it consumes
+        del state
+        if cuda:
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        o = trainer.run_loop(states.pop())
+        peak = (torch.cuda.max_memory_allocated() - live, live) if cuda \
+            else (0, 0)
+        end = o.pop("state")
+        host = {p: (t.to_local() if isinstance(t, DTensor) else t).cpu()
+                for p, t in tree_paths(end.params)}
+        batch = trainer.batch(n_steps)
+        busy, n_k, _, _ = profile_device(
+            lambda: trainer.step_fn(end, batch), top=1, warm=False)
+        results[label] = (o["losses"], host)
+        step_ms = statistics.median(o["step_s"]) * 1e3
+        print(f"[gspmd recurrent train] {arch} ({layers} of "
+              f"{full.num_layers} layers, {cfg.vocab_size} vocabulary rows,"
+              f" B={b} S={s}) {label}: losses {o['losses']}, step ms "
+              f"{[round(x * 1e3, 1) for x in o['step_s']]} (median "
+              f"{step_ms:.1f}); one profiled step "
+              + (f"{busy:.3f} ms on the device, {n_k} kernels "
+                 f"({busy / step_ms:.1%} of the median wall)"
+                 if busy is not None else "not measured (no device events)")
+              + f"; peak memory {peak[0] / 1e9:.2f} GB above "
+              f"{peak[1] / 1e9:.2f} GB live | {smi}")
+        trainer.close()
+        del trainer, o, end, batch
+    (la, pa), (lb, pb) = results["plain"], results["mesh (1, 1)"]
+    bitwise = la == lb and pa.keys() == pb.keys() and all(
+        torch.equal(pa[p], pb[p]) for p in pa)
+    after = [w.launches for w in wrappers]
+    print(f"[gspmd recurrent train] {arch}: mesh vs plain losses and "
+          f"{len(pa)} params bitwise {bitwise}; kernel launches unchanged "
+          f"{after == before}; {time.perf_counter() - t0:.1f} s | {smi}")
+    assert bitwise and after == before, (bitwise, before, after)
+    assert all(np.isfinite(la)), la
 
 
 def main() -> int:
@@ -4299,6 +4623,15 @@ def main() -> int:
     # -- 5d. the fault-tolerant trainer ---------------------------------------
     ft_launches, ft_ckpt = train_fault_tolerant(smi, cfg, train_run, dev)
 
+    # the dry runs of phases 13, 15 and 16 run in the background from here
+    # on (seven processes of one CPU thread each), so that no phase waits
+    # for them; stopped at exit if a phase fails
+    dry_dir = os.path.join(HERE, "build", "dryrun")
+    dry = start_dryruns(dry_dir)
+    gspmd_dry = start_dryruns(dry_dir, GSPMD_DRYRUNS + RECURRENT_DRYRUNS)
+    atexit.register(stop_dryruns, dry)
+    atexit.register(stop_dryruns, gspmd_dry)
+
     # -- 6. serve rwkv6-7b and recurrentgemma-9b at full width ---------------
     rwkv_launches = serve_recurrent(
         gen, smi, "rwkv6-7b", (1024, 640, 384, 128), 2048,
@@ -4353,21 +4686,30 @@ def main() -> int:
     pod_flash = serve_pods(smi, chaos_params, chaos_base, chaos_wall, dev)
 
     # -- 13. the analysis layer and the dry run --------------------------------
-    an, gspmd_dry = analysis_phase(smi, chaos_params, ring, dev)
+    an = analysis_phase(smi, chaos_params, ring, dev, dry)
     del ring, chaos_params
-    try:
-        # -- 14. the GSPMD step family on DTensor ------------------------------
-        gspmd_mesh_phase(smi, dev)
 
-        # -- 15. the GSPMD serve steps on DTensor ------------------------------
-        serve_flash = gspmd_serve_phase(smi, dev)
-    except BaseException:
-        stop_dryruns(gspmd_dry)
-        raise
+    # -- 14. the GSPMD step family on DTensor ----------------------------------
+    gspmd_mesh_phase(smi, dev)
+
+    # -- 15. the GSPMD serve steps on DTensor ----------------------------------
+    serve_flash = gspmd_serve_phase(smi, dev)
+
+    # -- 16. the recurrent families' GSPMD steps on DTensor --------------------
+    t16 = time.perf_counter()
+    rec = {"wkv6": 0, "rglru": 0, "flash_attention": 0}
+    for arch, seq_len, expect in GSPMD_RECURRENT_SERVE:
+        for name, n in gspmd_recurrent_serve(smi, dev, arch, seq_len,
+                                             expect).items():
+            rec[name] += n
+    for arch, layers in GSPMD_RECURRENT_TRAIN:
+        gspmd_recurrent_train(smi, dev, arch, layers)
+    print(f"[gspmd recurrent] phase 16 took "
+          f"{time.perf_counter() - t16:.1f} s; mesh launches {rec} | {smi}")
     dist.destroy_process_group()
     finish_gspmd_dryruns(smi, gspmd_dry, GSPMD_DRYRUN_WAIT_S)
 
-    # -- 16. result lines -----------------------------------------------------
+    # -- 17. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -4376,7 +4718,8 @@ def main() -> int:
          "launches": launches + ring_flash + rg_launches["flash_attention"]
          + fam_flash + encvlm_flash + ckpt_flash
          + ten_launches["flash_attention"] + chaos_flash + sup_flash
-         + pod_flash + an["flash_attention"] + serve_flash,
+         + pod_flash + an["flash_attention"] + serve_flash
+         + rec["flash_attention"],
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],
@@ -4414,7 +4757,8 @@ def main() -> int:
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:89",
-         "launches": rwkv_launches["wkv6"] + ten_launches["wkv6"],
+         "launches": rwkv_launches["wkv6"] + ten_launches["wkv6"]
+         + rec["wkv6"],
          "max_abs_err": wkv_err,
          "ms": wkv["ms"], "plain_ms": wkv["plain_ms"], "bound_ms": wkv_bound,
          "bound_by": wkv_bound_by, "library_ms": None,
@@ -4423,7 +4767,8 @@ def main() -> int:
         {"name": "rglru", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru.cu",
          "replaces": "src/repro/kernels/rglru.py:62",
-         "launches": rg_launches["rglru"], "max_abs_err": lru_err,
+         "launches": rg_launches["rglru"] + rec["rglru"],
+         "max_abs_err": lru_err,
          "ms": lru["ms"], "plain_ms": lru["plain_ms"], "bound_ms": lru_bound,
          "bound_by": lru_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {

@@ -213,6 +213,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     f32 — ``models.rwkv6._wkv_scan``'s function. Unlike the reference
     wrapper nothing is transposed or padded: the kernel reads
     (B, T, H, hs) in place."""
+    if any(isinstance(x, DTensor) for x in (r, k, v, w, u, s0)):
+        raise TypeError("wkv6 takes plain tensors: run it on each peer's "
+                        "local blocks of a DTensor "
+                        "(models/rwkv6.scan_blocks)")
     if r.dim() != 4 or any(x.shape != r.shape for x in (k, v, w)):
         raise ValueError(f"wkv6 wants r/k/v/w of one (B,T,H,hs) shape, got "
                          f"{[tuple(x.shape) for x in (r, k, v, w)]}")
@@ -255,6 +259,10 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     ``csrc/rglru.cu``. a/b: (B, T, W) f32; h0: (B, W) f32. Returns
     (h_seq (B, T, W), h_final (B, W)) — the scan core of
     ``models.hybrid._rglru``. Any T and W: nothing is padded."""
+    if any(isinstance(x, DTensor) for x in (a, b, h0)):
+        raise TypeError("rglru takes plain tensors: run it on each peer's "
+                        "local blocks of a DTensor "
+                        "(models/hybrid.scan_blocks)")
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"rglru wants a/b of one (B,T,W) shape, got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")

@@ -4,6 +4,16 @@
 Counterpart of ``repro/kernels/ref.py``. ``ops`` hands a CPU tensor to
 these; ``chip_smoke.py`` and the card tests hold each CUDA kernel
 against them on the same inputs.
+
+The two scans also have a log-depth form (:func:`wkv6_log_depth`,
+:func:`rglru_log_depth`): the same linear recurrence as an inclusive
+prefix scan (Hillis-Steele, the form of the reference's
+``lax.associative_scan``) in O(log T) ops of O(T) size, where the step
+loops issue O(T) small ops. Only the dry run uses them
+(``launch/dryrun``): under ``FakeTensorMode`` each op costs about a
+millisecond of host time whatever its size, and a 32k-step loop would
+take most of an hour. Their values differ from the loops' in rounding
+only (the sums run in another order).
 """
 from __future__ import annotations
 
@@ -73,3 +83,42 @@ def rglru(a, b, h0):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
     return torch.stack(hs, 1), h
+
+
+# -- log-depth forms of the two scans ----------------------------------------
+
+
+def _prefix_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The inclusive scan of ``h_t = a_t * h_{t-1} + b_t`` from h = 0
+    along dim 1 (``a`` broadcasts against ``b``): log2(T) doubling
+    steps, each folding in the partial result ``d`` steps back."""
+    t, d = b.shape[1], 1
+    while d < t:
+        pad = lambda x, fill: torch.cat([torch.full_like(x[:, :d], fill),
+                                         x[:, :-d]], dim=1)
+        b = a * pad(b, 0.0) + b
+        a = a * pad(a, 1.0)
+        d *= 2
+    return b
+
+
+def wkv6_log_depth(r, k, v, w, u, s0):
+    """:func:`wkv6` as a prefix scan over the states (every step's state
+    materialized, (B, T, H, hs, hs))."""
+    r, k, v, w, u, s0 = (x.float() for x in (r, k, v, w, u, s0))
+    kv = k[..., :, None] * v[..., None, :]                # (B,T,H,hs,hs)
+    a = w[..., :, None]
+    first = kv[:, :1] + a[:, :1] * s0[:, None]
+    s = _prefix_scan(a, torch.cat([first, kv[:, 1:]], dim=1))
+    prev = torch.cat([s0[:, None], s[:, :-1]], dim=1)      # S_{t-1}
+    y = torch.einsum("bthi,bthij->bthj", r, prev + u[:, :, None] * kv)
+    return y, s[:, -1]
+
+
+def rglru_log_depth(a, b, h0):
+    """:func:`rglru` as a prefix scan (h0 folded into b_1, as the
+    reference folds it)."""
+    a, b, h0 = a.float(), b.float(), h0.float()
+    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    hs = _prefix_scan(a, b)
+    return hs, hs[:, -1]

@@ -51,10 +51,21 @@ flash kernel launches outside the dispatcher and is not in the log
 its plain version in ``kernels/ref``, whose ops and full (S, S) scores
 the log, the FLOPs and the memory estimate count.
 
+The recurrent families (rwkv6, recurrentgemma) trace their gspmd,
+prefill and decode cells too, ``long_500k`` included: their scans run
+on each peer's fake local blocks. A fake op costs about a millisecond
+of host time whatever its size, so the plain step loops of
+``kernels/ref`` (one small op per step: a 32k-token prefill of the
+reduced rwkv6 traced in 27 minutes) give way, for the whole trace, to
+their log-depth forms (``ref.wkv6_log_depth``, ``ref.rglru_log_depth``:
+the same recurrence as a prefix scan in O(log T) ops,
+:func:`_log_depth_scans`). The log then counts those ops, and the
+memory estimate their per-step states (B, T, H, hs, hs), where the
+card's kernel keeps one state.
+
 Cells it cannot run raise a named ``NotImplementedError``: the gspmd,
 prefill and decode cells of a family whose ``shard_fn`` sites are not
-threaded (the moe, ssm, hybrid and encdec families;
-``steps.GSPMD_FAMILIES``). ``main`` records them as ``"status":
+threaded (the moe and encdec families; ``steps.GSPMD_FAMILIES``). ``main`` records them as ``"status":
 "fail"`` with the error, as the reference records any failure;
 ``"skip"`` keeps the reference's meaning (``cell_skip_reason``). The dry
 run is an analysis tool: nothing in the serve or train paths computes
@@ -89,6 +100,7 @@ from repro_torch.configs.base import CommConfig, RunConfig
 from repro_torch.configs.registry import (ARCH_IDS, SHAPES, cell_skip_reason,
                                           get_config, get_shape)
 from repro_torch.core.backends import available_modes, get_backend
+from repro_torch.kernels import ref
 from repro_torch.launch import hlo_analysis as hlo
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import (axis_size, make_device_mesh,
@@ -113,13 +125,26 @@ def check_cell(cfg, shape, mode: str) -> None:
             f"a {shape.kind} cell ({shape.name}) of the {cfg.family} family "
             "lowers through the GSPMD serve steps over a DeviceMesh, whose "
             "shard_fn sites for that family are not threaded yet "
-            "(ROADMAP.md Queue 1 item 8c)")
+            "(ROADMAP.md Queue 1 item 8d)")
     if not get_backend(mode).manual:
         raise NotImplementedError(
             f"the dry run of mode {mode!r} traces the GSPMD step family "
             f"over a DeviceMesh, whose shard_fn sites for the {cfg.family} "
-            "family are not threaded yet (ROADMAP.md Queue 1 item 8c); use "
+            "family are not threaded yet (ROADMAP.md Queue 1 item 8d); use "
             "a TAC mode such as hadronio")
+
+
+@contextlib.contextmanager
+def _log_depth_scans():
+    """``kernels.ref.wkv6`` and ``ref.rglru`` as their log-depth forms
+    for the duration (module docstring): the kernels' wrappers hand CPU
+    tensors to those module attributes, and train mode calls them."""
+    saved = ref.wkv6, ref.rglru
+    ref.wkv6, ref.rglru = ref.wkv6_log_depth, ref.rglru_log_depth
+    try:
+        yield
+    finally:
+        ref.wkv6, ref.rglru = saved
 
 
 @contextlib.contextmanager
@@ -266,7 +291,8 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                     comm=CommConfig(mode=mode, **comm))
     t0 = time.perf_counter()
     tac = shape.kind == "train" and get_backend(mode).manual
-    prof = (trace_cell if tac else trace_gspmd_cell)(run, mesh)
+    with _log_depth_scans():
+        prof = (trace_cell if tac else trace_gspmd_cell)(run, mesh)
     seconds = time.perf_counter() - t0
 
     n_chips = mesh.size

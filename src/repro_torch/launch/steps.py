@@ -34,8 +34,11 @@ picked by the backend's ``manual`` flag, never by a mode name:
   updates each DTensor's local block with the global norm taken over the
   whole tree. Without a mesh the step is one peer's local step on plain
   tensors, as before. The families whose ``shard_fn`` sites are threaded
-  (``GSPMD_FAMILIES``) train over a mesh; the others raise a named error
-  on a mesh of more than one peer and train on one peer as before.
+  (``GSPMD_FAMILIES``: dense, vlm, ssm, hybrid) train over a mesh; the
+  others (moe, encdec) raise a named error on a mesh of more than one
+  peer and train on one peer as before. The recurrent families' train
+  mode runs its plain scans on each peer's local blocks
+  (``rwkv6.scan_blocks``, ``hybrid.scan_blocks``).
 
 The GSPMD serve steps run ``api.prefill`` and ``api.decode_step`` over
 a mesh the same way, whatever the comm mode (the reference's dry run
@@ -44,10 +47,15 @@ lowers every prefill and decode cell through them): params at
 cache at ``cache_shardings`` (``serve_specs`` gives the six layouts;
 ``launch/sharding.distribute_tree`` places full trees at them), and
 ``make_shard_fn(mesh)``'s constraints. Prefill attention runs the flash
-kernel on each peer's local blocks (``transformer.attend_blocks``); a
+kernel on each peer's local blocks (``transformer.attend_blocks``), and
+so do the recurrent scans (WKV6, RG-LRU) in prefill and decode; a
 decode step writes the new K/V into the given cache in place, at its
 own placement, and returns that cache object, as the reference's
-``out_shardings=(None, cache_shardings)`` returns it at its layout.
+``out_shardings=(None, cache_shardings)`` returns it at its layout. A
+recurrent family's state is new each step (``RECURRENT_FAMILIES``): the
+prefill and every decode step return it redistributed to
+``cache_shardings``, since the scans leave it at their own (batch,
+heads) or (batch, lru) blocks.
 
 Both families accumulate gradients over ``run.microbatches`` sequential
 microbatches (``_accumulate_grads``), as the reference does: one
@@ -96,7 +104,11 @@ from repro_torch.models.layers import ShardFn, no_shard
 from repro_torch.optim import adamw
 
 # families whose shard_fn sites are threaded: they train gspmd over a mesh
-GSPMD_FAMILIES = ("dense", "vlm")
+GSPMD_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+# families whose decode state is returned new each step (a recurrent
+# state), not written in place: the serve steps place it at
+# cache_shardings
+RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 Tree = Any
 
@@ -233,8 +245,9 @@ def _threaded(cfg, mesh: Optional[DeviceMesh], what: str) -> bool:
         raise NotImplementedError(
             f"gspmd {what} of the {cfg.family} family over a mesh of "
             f"{size} peers needs its shard_fn sites threaded, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 8c); run it on one peer "
-            "or use a TAC mode such as hadronio")
+            "ported yet for the moe and encdec families (ROADMAP.md Queue 1 "
+            "item 8d); run it on one peer or use a TAC mode such as "
+            "hadronio")
     return False
 
 
@@ -388,16 +401,32 @@ def _serve_shard_fn(run: RunConfig, mesh: Optional[DeviceMesh]) -> ShardFn:
                          else None)
 
 
+def _state_placer(run: RunConfig, mesh: Optional[DeviceMesh]):
+    """The serve steps' last move: a recurrent family's new state (and
+    the hybrid's attention pages) over a mesh redistributed to
+    ``cache_shardings``, the reference's ``out_shardings``; the identity
+    for the other families (their decode cache is written in place at
+    its placement and comes back as the given object) and off a mesh."""
+    if mesh is None or run.model.family not in RECURRENT_FAMILIES:
+        return lambda cache: cache
+    return lambda cache: tree_map(
+        lambda t, sh: t.redistribute(mesh, sh.placements), cache,
+        cache_shardings(mesh, cache))
+
+
 def make_prefill_step(run: RunConfig, mesh: Optional[DeviceMesh] = None):
     """``prefill_fn(params, batch) -> (last-token logits, cache)`` over
     ``mesh`` (params, batch as DTensors at ``serve_specs``'
-    layouts), or one peer's plain prefill when ``mesh`` is None."""
+    layouts), or one peer's plain prefill when ``mesh`` is None. A
+    recurrent family's cache comes back at ``cache_shardings``."""
     cfg = run.model
     shard_fn = _serve_shard_fn(run, mesh)
+    place = _state_placer(run, mesh)
 
     def prefill_fn(params, batch):
         with implicit_replication():
-            return api.prefill(params, batch, cfg, shard_fn)
+            logits, cache = api.prefill(params, batch, cfg, shard_fn)
+            return logits, place(cache)
 
     return prefill_fn
 
@@ -405,13 +434,18 @@ def make_prefill_step(run: RunConfig, mesh: Optional[DeviceMesh] = None):
 def make_decode_step(run: RunConfig, mesh: Optional[DeviceMesh] = None):
     """``decode_fn(params, cache, batch) -> (logits, cache)``: one new
     token against a KV cache (the ``serve_step``), written in place at
-    the cache's placement; the given cache object comes back."""
+    the cache's placement; the given cache object comes back. A
+    recurrent family's state is new each step, as on the plain path
+    (``api.decode_step``), and comes back at ``cache_shardings``."""
     cfg = run.model
     shard_fn = _serve_shard_fn(run, mesh)
+    place = _state_placer(run, mesh)
 
     def decode_fn(params, cache, batch):
         with implicit_replication():
-            return api.decode_step(params, cache, batch, cfg, shard_fn)
+            logits, cache = api.decode_step(params, cache, batch, cfg,
+                                            shard_fn)
+            return logits, place(cache)
 
     return decode_fn
 

@@ -36,20 +36,21 @@ engine's) lands in the patch prefix (ROADMAP.md, Queue 3).
 ``loss``, ``prefill`` and ``decode_step`` take the reference's
 ``shard_fn`` (``layers.ShardFn``, the identity by default; the fourth
 argument, as in the reference): the embedded input's ``("batch", "seq",
-None)`` constraint, the LM head's, and the dense and vlm stacks' sites
-(``models/transformer``). Over a ``DeviceMesh`` (the GSPMD steps of
-``launch/steps``) the params and inputs are DTensors; the prefill's
-per-row gather at ``last_pos`` is an explicit ``local_map``
+None)`` constraint, the LM head's, and the sites of the dense and vlm
+stacks (``models/transformer``), the ssm stack (``models/rwkv6``) and
+the hybrid stack (``models/hybrid``). Over a ``DeviceMesh`` (the GSPMD
+steps of ``launch/steps``) the params and inputs are DTensors; the
+prefill's per-row gather at ``last_pos`` is an explicit ``local_map``
 (:func:`_rows_at`), and the vlm prefix's concat and its ``pos`` offset
-run on DTensors as they are. The moe, ssm, hybrid and encdec stacks' own
-sites are not threaded yet (ROADMAP.md Queue 1 item 8c).
+run on DTensors as they are. The moe and encdec stacks' own sites are
+not threaded yet (ROADMAP.md Queue 1 item 8d).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
@@ -62,8 +63,8 @@ from repro_torch.models import whisper as whi
 from repro_torch.models.common import init_params, tree_map
 from repro_torch.models.layers import (ShardFn, apply_norm, as_dtensor,
                                        cross_entropy, embedding_specs,
-                                       embed_tokens, lm_logits, no_shard,
-                                       norm_specs)
+                                       embed_tokens, kept_shards, lm_logits,
+                                       no_shard, norm_specs)
 
 Tree = Any
 
@@ -140,18 +141,20 @@ def _trunk(params: Tree, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     """The family stack. Returns (x, cache, aux): ``aux`` is the moe
     blocks' summed balance loss, zero for the other families.
     ``expert_fn`` replaces the moe expert stage; the other families
-    have none. ``shard_fn`` reaches the transformer stack's sites in
-    every mode; the recurrent stacks' are not threaded yet."""
+    have none. ``shard_fn`` reaches the transformer, rwkv6 and hybrid
+    stacks' sites in every mode."""
     zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = apply_norm(params["ln_in"], x, "layernorm")
         x, state = rwkv.apply_rwkv_stack(params["layers"], x, cfg,
-                                         mode=mode, state=cache, scan=scan)
+                                         mode=mode, state=cache, scan=scan,
+                                         shard_fn=shard_fn)
         return x, state, zero()
     if cfg.family == "hybrid":
         x, cache = hyb.apply_hybrid_stack(params["layers"], x, cfg,
                                           mode=mode, cache=cache, pos=pos,
-                                          attend=attend, scan=scan)
+                                          attend=attend, scan=scan,
+                                          shard_fn=shard_fn)
         return x, cache, zero()
     return tfm.apply_stack(params["layers"], x, cfg, mode=mode,
                            kind=cfg.family, cache=cache, pos=pos,
@@ -260,10 +263,9 @@ def _rows_at(x: torch.Tensor, last_pos: torch.Tensor) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return take(x, last_pos)
     mesh = x.device_mesh
-    x_pl = [p if p == Shard(0) else Replicate() for p in x.placements]
-    return local_map(take, out_placements=x_pl, in_placements=(
-        x_pl, [Shard(0) if p == Shard(0) else Replicate() for p in x_pl]),
-        device_mesh=mesh, redistribute_inputs=True)(
+    x_pl = kept_shards(x, (0,))
+    return local_map(take, out_placements=x_pl, in_placements=(x_pl, x_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
         x, as_dtensor(last_pos, mesh))
 
 

@@ -40,7 +40,8 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.compat import torch_dtype
 from repro_torch.models.common import ParamSpec
 from repro_torch.models.layers import (ShardFn, as_dtensor, even_reshape,
-                                       matmul, mesh_block, no_shard, rope)
+                                       kept_shards, matmul, mesh_block,
+                                       no_shard, rope)
 
 NEG_INF = -1e30
 
@@ -242,7 +243,15 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def to_rolling(k: torch.Tensor, window: int) -> torch.Tensor:
     """Chronological prefill cache (B,S,KV,Dh) -> the rolling layout
     windowed decode expects: length ``window``, position p at slot
-    p % window. Pads when S < window."""
+    p % window. Pads when S < window. A DTensor ``k`` is rolled on each
+    peer's local blocks (its batch and KV-head split kept, the length
+    whole) through an explicit ``local_map``: torch 2.11's DTensor pads
+    into a malformed DTensor (one placement on a 2-D mesh)."""
+    if isinstance(k, DTensor):
+        pl = kept_shards(k, (0, 2))
+        return local_map(lambda t: to_rolling(t, window), out_placements=pl,
+                         in_placements=(pl,), device_mesh=k.device_mesh,
+                         redistribute_inputs=True)(k)
     s = k.shape[1]
     if s >= window:
         return torch.roll(k[:, s - window:s], s % window, dims=1)

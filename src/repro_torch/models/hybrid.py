@@ -24,6 +24,19 @@ group is recomputed in the backward (``common.remat``, the reference's
 the same signatures (the plain versions hold the kernels against the
 plain path).
 
+``shard_fn`` (``layers.ShardFn``) pins the reference's sites: the
+recurrent branch ``y`` at ``("batch", None, "lru")`` before the causal
+conv, the residual at ``("batch", "seq", None)`` after the recurrence
+and after the MLP, and the MLP's own site; the local-attention blocks
+take it through ``transformer.apply_block``. Over a ``DeviceMesh``
+(DTensor activations) a multi-step RG-LRU scan runs on each peer's
+local (batch, lru) blocks (:func:`scan_blocks`, an explicit
+``local_map``), the kernel's in prefill and train mode's plain loop
+alike, and the local-attention prefill runs flash on local blocks
+(``transformer.attend_blocks``: recurrentgemma's one KV head read by
+every local query head); the one-step decode update stays elementwise
+on DTensors.
+
 Parameters and caches: the pattern's blocks are stacked over the
 ``n_groups`` whole groups under ``groups`` (leading dim n_groups, then
 batch), and the remaining layers are unstacked ``tail<i>_<kind>``
@@ -36,6 +49,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.compat import torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -43,7 +58,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as att
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import ParamSpec, remat, stacked, tree_map
-from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
+from repro_torch.models.layers import (ShardFn, apply_mlp, apply_norm,
+                                       as_dtensor, even_reshape, kept_shards,
+                                       matmul, mlp_specs, no_shard,
                                        norm_specs)
 
 RGLRU_C = 8.0
@@ -91,14 +108,37 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, xp[:, -(cw - 1):, :]
 
 
+def scan_blocks(scan: Callable, a, b, h0, like=None):
+    """``scan(a, b, h0)`` (``ops.rglru``'s signature) on plain,
+    contiguous tensors. Over a mesh (``like``, the DTensor whose batch
+    and lru split the scan keeps: the pinned ``y``) it runs on each
+    peer's local blocks through an explicit ``local_map``: a/b (B, T,
+    lru) and h0 (B, lru) split over the batch and lru as ``like`` is
+    (every other dim gathered, pending sums reduced; a prefill's plain
+    zero h0 placed there), and the new h_seq and h_last come back at
+    those blocks."""
+    if like is None:
+        return scan(a.contiguous(), b.contiguous(), h0.contiguous())
+    mesh = like.device_mesh
+    x_pl = kept_shards(like, (0, 2))
+    h_pl = [Shard(1) if p == Shard(2) else p for p in x_pl]
+
+    def local(*ts):
+        return scan(*(t.contiguous() for t in ts))
+
+    return local_map(local, out_placements=(x_pl, h_pl),
+                     in_placements=(x_pl, x_pl, h_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(a, b, as_dtensor(h0, mesh))
+
+
 def _rglru(y: torch.Tensor, p: dict, h0: torch.Tensor, nb: int, bs: int,
            scan: Callable):
     """y: (B,T,lru) f32; h0: (B,lru) f32. Returns (h_seq (B,T,lru),
     h_last)."""
     b, t, lw = y.shape
-    yb = y.reshape(b, t, nb, bs)
-    gate = lambda wk, bk: torch.sigmoid(
-        torch.einsum("btni,nij->btnj", yb, p[wk].float()).reshape(b, t, lw)
+    yb = even_reshape(y, (b, t, nb, bs))
+    gate = lambda wk, bk: torch.sigmoid(even_reshape(
+        torch.einsum("btni,nij->btnj", yb, p[wk].float()), (b, t, lw))
         + p[bk].float())
     r, i = gate("wa", "ba"), gate("wx", "bx")
     a = torch.exp(-RGLRU_C * F.softplus(p["lam"].float()) * r)
@@ -109,26 +149,30 @@ def _rglru(y: torch.Tensor, p: dict, h0: torch.Tensor, nb: int, bs: int,
         return h[:, None], h
     # the reference folds h0 into b_1 before its associative scan; the
     # kernel takes h0 itself: h_1 = a_1 h0 + b_1 either way
-    return scan(a.contiguous(), gated.contiguous(), h0.contiguous())
+    return scan_blocks(scan, a, gated, h0,
+                       y if isinstance(y, DTensor) else None)
 
 
 def apply_recurrent_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                          state: dict, scan: Callable):
+                          state: dict, scan: Callable,
+                          shard_fn: ShardFn = no_shard):
     """state: {"h": (B,lru) f32, "conv": (B,cw-1,lru)}. Returns
     (x, new_state)."""
     nb, bs = _lru_blocks(cfg)
     dt = x.dtype
     xin = apply_norm(p["ln1"], x, cfg.norm_kind)
-    y = torch.matmul(xin, p["w_in"].to(dt))
-    gate = torch.matmul(xin, p["w_gate"].to(dt))
+    y = matmul(xin, p["w_in"].to(dt))
+    gate = matmul(xin, p["w_gate"].to(dt))
+    y = shard_fn(y, ("batch", None, "lru"))
     y, new_conv = _causal_conv1d(y, p["conv_w"], p["conv_b"], state["conv"])
     hs, h_last = _rglru(y.float(), p, state["h"].float(), nb, bs, scan)
     # jax.nn.gelu's default is the tanh approximation
     out = hs.to(dt) * F.gelu(gate, approximate="tanh")
-    x = x + torch.matmul(out, p["w_out"].to(dt))
+    x = shard_fn(x + matmul(out, p["w_out"].to(dt)), ("batch", "seq", None))
     x = x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_kind),
-                      cfg.mlp_kind)
-    return x, {"h": h_last, "conv": new_conv}
+                      cfg.mlp_kind, shard_fn)
+    return shard_fn(x, ("batch", "seq", None)), {"h": h_last,
+                                                 "conv": new_conv}
 
 
 # ---------------------------------------------------------------------------
@@ -193,15 +237,17 @@ def hybrid_cache_specs(cfg: ModelConfig, batch: int, dtype) -> dict:
 
 
 def _apply_kind(p: dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                mode: str, cache: Optional[dict], pos, attend, scan):
+                mode: str, cache: Optional[dict], pos, attend, scan,
+                shard_fn: ShardFn = no_shard):
     if kind == "rglru":
         if cache is None:
             cache = _cache_entry(cfg, kind, (x.shape[0],), x.dtype, x.device)
-        return apply_recurrent_block(p, x, cfg, state=cache, scan=scan)
+        return apply_recurrent_block(p, x, cfg, state=cache, scan=scan,
+                                     shard_fn=shard_fn)
     x, nk, nv, _ = tfm.apply_block(
         p, x, cfg, mode=mode, window=cfg.local_window, attend=attend,
         cache_k=cache["k"] if cache else None,
-        cache_v=cache["v"] if cache else None, pos=pos)
+        cache_v=cache["v"] if cache else None, pos=pos, shard_fn=shard_fn)
     # prefill pages arrive in the rolling layout (apply_block)
     return x, {"k": nk, "v": nv}
 
@@ -228,17 +274,19 @@ def apply_hybrid_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                        mode: str, cache: Optional[dict] = None,
                        pos: Optional[torch.Tensor] = None,
                        attend: Optional[Callable] = None,
-                       scan: Optional[Callable] = None):
+                       scan: Optional[Callable] = None,
+                       shard_fn: ShardFn = no_shard):
     """Train (no cache; each group recomputed in the backward), prefill
     (``cache`` None: zero recurrent states) or decode (one token against
-    ``cache``). Returns (x, new_cache) in the layout of
+    ``cache``). ``shard_fn`` pins every block's sites (module
+    docstring). Returns (x, new_cache) in the layout of
     :func:`init_hybrid_cache`; the cache is None in train mode."""
     attend = ops.train_or_kernel(mode, attend, att.attend_chunked,
                                  ops.flash_attention)
     scan = ops.train_or_kernel(mode, scan, ref.rglru, ops.rglru)
     n_groups, tail = _group_layout(cfg)
     if mode == "train":
-        kw = dict(attend=attend, scan=scan)
+        kw = dict(attend=attend, scan=scan, shard_fn=shard_fn)
         for g in range(n_groups):
             x = remat(_train_group, tree_map(lambda a: a[g],
                                              params["groups"]), x, cfg, **kw)
@@ -246,7 +294,8 @@ def apply_hybrid_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             x, _ = _apply_kind(params[f"tail{i}_{kind}"], x, cfg, kind,
                                mode=mode, cache=None, pos=None, **kw)
         return x, None
-    kw = dict(mode=mode, pos=pos, attend=attend, scan=scan)
+    kw = dict(mode=mode, pos=pos, attend=attend, scan=scan,
+              shard_fn=shard_fn)
     keys = [f"b{i}_{k}" for i, k in enumerate(cfg.block_pattern)]
     per_group = []
     for g in range(n_groups):

@@ -130,6 +130,27 @@ def as_dtensor(x: torch.Tensor, mesh) -> DTensor:
                               run_check=False)
 
 
+def kept_shards(t: DTensor, dims: tuple) -> list:
+    """``t``'s placements with its split of each dim in ``dims`` kept and
+    every other placement (a split of another dim, a pending sum) made
+    ``Replicate``: the blocks of a local computation that needs the
+    other dims whole on each peer."""
+    return [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in t.placements]
+
+
+def whole(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with ``dim`` whole on every peer: a DTensor split along it
+    is gathered there (its other placements kept), anything else comes
+    back as it is. For ops DTensor runs on an unsplit dim only
+    (``unbind``), where its propagation may have split a short dim
+    unevenly (rwkv6's five token-shift branches over ``model``)."""
+    if not isinstance(t, DTensor) or Shard(dim) not in t.placements:
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p == Shard(dim) else p for p in t.placements])
+
+
 def mesh_block(mesh, dims: list) -> tuple:
     """(this peer's block index, the number of blocks) of a tensor dim
     split over the mesh dims ``dims``: they nest in mesh order, as

@@ -35,7 +35,7 @@ passed on to the attention and MLP sites, in every mode. Over a
 on each peer's local blocks (:func:`attend_blocks`), and the new K/V
 become the cache as stored values (pending ``Partial`` sums reduced).
 The moe block's own sites are not threaded yet (ROADMAP.md Queue 1 item
-8c).
+8d).
 """
 from __future__ import annotations
 
@@ -50,8 +50,8 @@ from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import stacked, tree_map
 from repro_torch.models.layers import (ShardFn, apply_mlp, apply_norm,
-                                       mesh_block, mlp_specs, no_shard,
-                                       norm_specs)
+                                       kept_shards, mesh_block, mlp_specs,
+                                       no_shard, norm_specs)
 from repro_torch.kernels import ops
 
 
@@ -154,8 +154,7 @@ def attend_blocks(attend: Callable, q: DTensor, k: DTensor, v: DTensor, *,
     them read, or one KV head per query head."""
     mesh = q.device_mesh
     h, kv = q.shape[2], k.shape[2]
-    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
-            for p in q.placements]
+    q_pl = kept_shards(q, (0, 2))
     heads = [i for i, p in enumerate(q_pl) if p == Shard(2)]
     kv_split = bool(heads) and all(k.placements[i] == Shard(2)
                                    for i in heads)

@@ -21,7 +21,14 @@
   are not held to the reference's. The fake group does not change that
   schedule: a prefill and a decode cell traced on a fake group of 4 over
   ``(2, 2)`` issue, kind for kind and byte for byte, the collectives the
-  same steps issue on a real gloo world of 4.
+  same steps issue on a real gloo world of 4, and so does a decode cell
+  of each recurrent family.
+* THE RECURRENT CELLS — ``rwkv6-7b-reduced`` and
+  ``recurrentgemma-9b-reduced`` x ``train_4k``, ``prefill_32k``,
+  ``decode_32k`` and ``long_500k`` (batch 1: the state's longest dim
+  over ``data``) with ``--mode gspmd`` on the fake group: each ``ok``,
+  with the reference's artifact keys and arithmetic (their scans traced
+  in log-depth form, ``dryrun._log_depth_scans``).
 * CELLS IT CANNOT RUN — a dense model's ``long_500k`` is a ``skip`` with
   the reference's reason; a family whose ``shard_fn`` sites are not
   threaded (mixtral-8x7b-reduced) records its ``gspmd``, ``prefill_32k``
@@ -55,6 +62,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "qwen2-0.5b-reduced"
 MODES = ("hadronio", "hadronio_rs", "hadronio_overlap_rs")
 SERVE = ("train_4k", "prefill_32k", "decode_32k")      # --mode gspmd
+RECURRENT = ("rwkv6-7b-reduced", "recurrentgemma-9b-reduced")
+RECURRENT_CELLS = [(a, s) for a in RECURRENT for s in SERVE + ("long_500k",)]
 UNTHREADED = "mixtral-8x7b-reduced"
 
 _JAX = textwrap.dedent('''
@@ -199,13 +208,61 @@ def test_gspmd_cells_trace_with_the_reference_keys(cells, shape):
     artifact keys plus the port's own, its model FLOPs, analytic bytes
     and param count, and a traced schedule with collectives in it."""
     _, out, logs, _ = cells
-    art = out[shape]
+    _check_gspmd_cell(ARCH, shape, out[shape], logs[shape])
+
+
+_CELLS = textwrap.dedent('''
+    import sys
+    from repro_torch.launch import dryrun
+    arch, out = sys.argv[1:3]
+    sys.exit(max(dryrun.main(["--arch", arch, "--shape", shape, "--out",
+                              out]) for shape in sys.argv[3:]))
+''')
+
+
+@pytest.fixture(scope="module")
+def recurrent_cells(jx, tmp_path_factory):
+    """The recurrent families' gspmd cells through the port's CLI entry
+    (``dryrun.main``), one subprocess per arch running its four cells in
+    turn, both started together: {(arch, shape): (artifact, that arch's
+    stdout)}."""
+    tmp = tmp_path_factory.mktemp("dryrun_recurrent")
+    shapes = [s for a, s in RECURRENT_CELLS if a == RECURRENT[0]]
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-c", _CELLS, a, str(tmp), *shapes], env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a in RECURRENT}
+    logs = {a: p.communicate(timeout=300)[0] for a, p in procs.items()}
+    out = {}
+    for a, p in procs.items():
+        assert p.returncode == 0, logs[a][-3000:]
+        for s in shapes:
+            with open(dryrun.artifact_path(a, s, "pod", "gspmd",
+                                           str(tmp))) as f:
+                out[a, s] = (json.load(f), logs[a])
+    return out
+
+
+@pytest.mark.parametrize("arch,shape", RECURRENT_CELLS,
+                         ids=[f"{a}-{s}" for a, s in RECURRENT_CELLS])
+def test_recurrent_gspmd_cells_trace(recurrent_cells, arch, shape):
+    """rwkv6 and recurrentgemma (reduced): the gspmd train step and every
+    serve cell, ``long_500k`` included, are ``ok`` on the fake group of
+    256, with the reference's keys and arithmetic, and parameter
+    all-gathers (FSDP) in the schedule (a reduced rwkv6 prefill issues
+    no all-reduce: its 4 heads do not split over 16)."""
+    art, log = recurrent_cells[arch, shape]
+    _check_gspmd_cell(arch, shape, art, log, kinds=("all-gather",))
+
+
+def _check_gspmd_cell(arch, shape, art, log,
+                      kinds=("all-gather", "all-reduce")):
     assert art["status"] == "ok", art
-    assert f"[ok]   {ARCH} x {shape} (pod,gspmd)" in logs[shape]
+    assert f"[ok]   {arch} x {shape} (pod,gspmd)" in log
     ref_keys = _reference_artifact_keys()
     assert ref_keys <= art.keys()
     assert art.keys() - ref_keys == {"cross_pod", "global_batch", "comm"}
-    jcfg, jshape = jax_config(ARCH), jax_shape(shape)
+    jcfg, jshape = jax_config(arch), jax_shape(shape)
     assert art["n_chips"] == 256
     assert art["global_batch"] == jshape.global_batch
     assert art["model_flops_global"] == jhlo.model_flops(jcfg, jshape)
@@ -219,7 +276,7 @@ def test_gspmd_cells_trace_with_the_reference_keys(cells, shape):
     assert art["useful_flops_ratio"] > 0
     coll = art["collectives"]
     assert coll["total_ops"] > 0 and coll["total_bytes"] > 0
-    assert {"all-gather", "all-reduce"} <= set(coll["counts"])
+    assert set(kinds) <= set(coll["counts"])
     assert art["cross_pod"]["cross_pod_total"] == 0
 
 
@@ -230,6 +287,7 @@ _REAL = textwrap.dedent('''
     from repro_torch.launch import sharding, steps
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models import api
+    from repro_torch.models.common import tree_map
     sys.path.insert(0, sys.argv[5])
     from test_torch_dryrun import schedule_runs
 
@@ -240,8 +298,8 @@ _REAL = textwrap.dedent('''
     try:
         mesh = make_device_mesh((2, 2), ("data", "model"), "cpu")
         gen = torch.Generator().manual_seed(0)
-        real = lambda t: {k: torch.zeros(v.shape, dtype=v.dtype)
-                          for k, v in t.items()}
+        real = lambda t: tree_map(lambda v: torch.zeros(
+            v.shape, dtype=v.dtype), t)
         for run in schedule_runs():
             if run.shape.kind == "train":
                 state = steps.distribute_state(
@@ -262,8 +320,8 @@ _REAL = textwrap.dedent('''
                                                             csh))
                     step = steps.make_decode_step(run, mesh)
             log = hlo.profile(step, *args).log
-            res[run.shape.kind] = [(op.kind, op.nbytes, op.ranks)
-                                   for op in log.collectives]
+            res[run.model.name, run.shape.kind] = [
+                (op.kind, op.nbytes, op.ranks) for op in log.collectives]
         with open(out, "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -281,8 +339,8 @@ _FAKE = textwrap.dedent('''
     for run in schedule_runs():
         prof = dryrun.trace_gspmd_cell(run, make_mesh((2, 2),
                                                      ("data", "model")))
-        res[run.shape.kind] = [(op.kind, op.nbytes, op.ranks)
-                               for op in prof.log.collectives]
+        res[run.model.name, run.shape.kind] = [
+            (op.kind, op.nbytes, op.ranks) for op in prof.log.collectives]
     with open(sys.argv[1], "wb") as f:
         pickle.dump(res, f)
 ''')
@@ -290,12 +348,15 @@ _FAKE = textwrap.dedent('''
 
 def schedule_runs():
     """A gspmd train, prefill and decode step of ``ARCH`` at a small
-    shape (its 4 heads split over the (2, 2) mesh's ``model`` axis)."""
+    shape (its 4 heads split over the (2, 2) mesh's ``model`` axis), and
+    a decode step of each recurrent family."""
     from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
     from repro_torch.configs.registry import get_config
-    return [RunConfig(model=get_config(ARCH), shape=ShapeConfig(
+    return [RunConfig(model=get_config(arch), shape=ShapeConfig(
         "s", kind, 32, 8), comm=CommConfig(mode="gspmd"))
-        for kind in ("train", "prefill", "decode")]
+        for arch, kind in [(ARCH, "train"), (ARCH, "prefill"),
+                           (ARCH, "decode")]
+        + [(a, "decode") for a in RECURRENT]]
 
 
 def test_fake_group_keeps_the_gspmd_schedule(tmp_path):
@@ -303,7 +364,8 @@ def test_fake_group_keeps_the_gspmd_schedule(tmp_path):
     (2, 2) mesh issue the collectives, in order, kind for kind, byte for
     byte and group for group, that the same steps issue on rank 0 of a
     real gloo world of 4 (values do not steer DTensor's schedule,
-    placements do). The train step traces too, though its attention
+    placements do); so does a decode cell of each recurrent family (its
+    state redistributed to the scan's blocks and back). The train step traces too, though its attention
     folds the batch and the heads, both split over this mesh, into a
     strided shard (the planner's arithmetic, ``_real_strided_offsets``):
     its collectives are of the real run's kinds and groups, but under a
@@ -328,11 +390,13 @@ def test_fake_group_keeps_the_gspmd_schedule(tmp_path):
         real = pickle.load(f)
     with open(tmp_path / "fake.pkl", "rb") as f:
         fake = pickle.load(f)
-    for kind in ("prefill", "decode"):
-        assert real[kind], kind
-        assert fake[kind] == real[kind], kind
+    for key in [(ARCH, "prefill"), (ARCH, "decode")] + [
+            (a, "decode") for a in RECURRENT]:
+        assert real[key], key
+        assert fake[key] == real[key], key
     groups = lambda log: {(k, ranks) for k, _, ranks in log}
-    assert fake["train"] and groups(fake["train"]) == groups(real["train"])
+    train = (ARCH, "train")
+    assert fake[train] and groups(fake[train]) == groups(real[train])
 
 
 @pytest.mark.parametrize("shape,mode,named", [
@@ -354,4 +418,4 @@ def test_cells_it_cannot_run_fail_with_the_named_error(tmp_path, shape, mode,
         art = json.load(f)
     assert art["status"] == "fail"
     assert art["error"].startswith("NotImplementedError") and named in \
-        art["error"] and "Queue 1 item 8c" in art["error"]
+        art["error"] and "Queue 1 item 8d" in art["error"]

@@ -26,9 +26,11 @@ the activation constraints):
 * ONE PEER — a ``(1, 1)`` mesh's DTensor step equals the plain one-peer
   step bit for bit on the CPU (losses and every param, one and two
   microbatches); a family whose ``shard_fn`` sites are not threaded
-  raises the named error on a mesh of more than one peer and trains on
-  one; the vlm family (threaded since the serve steps) takes the
-  DTensor path, one step on a ``(1, 1)`` mesh bitwise the plain one.
+  (moe, encdec) raises the named error on a mesh of more than one peer
+  and trains on one; the vlm family (threaded since the serve steps)
+  and the recurrent families (``test_torch_gspmd_recurrent.py``) take
+  the DTensor path, one step on a ``(1, 1)`` mesh bitwise the plain
+  one.
 * THE CLI — ``launch.train --mode gspmd --mesh 1x2`` on two gloo ranks
   trains and writes a checkpoint in the global layout.
 """
@@ -434,20 +436,22 @@ def test_one_by_one_mesh_equals_one_peer_step(group, micro):
                                   "whisper-tiny-reduced",
                                   "llava-next-mistral-7b-reduced"])
 def test_unthreaded_families_raise_on_a_mesh(group, arch):
-    """A family whose sites are not threaded raises the named error over
-    a mesh of more than one peer, and trains plain on one. The vlm
-    family is threaded: it takes the DTensor path on a (2, 2) mesh, and
-    one step of it on a (1, 1) mesh (the patch prefix placed with the
-    batch) equals the plain one-peer step bit for bit."""
+    """A family whose sites are not threaded (moe, encdec) raises the
+    named error over a mesh of more than one peer, and trains plain on
+    one. The vlm, ssm and hybrid families are threaded: each takes the
+    DTensor path on a (2, 2) mesh, and one step of it on a (1, 1) mesh
+    (a vlm batch's patch prefix placed with the batch) equals the plain
+    one-peer step bit for bit."""
     run = RunConfig(model=get_config(arch),
                     shape=ShapeConfig("t", "train", S, B),
                     comm=CommConfig(mode="gspmd"))
     two = make_abstract_mesh((2, 2), ("data", "model"))
     if run.model.family in steps.GSPMD_FAMILIES:
+        assert run.model.family in ("vlm", "ssm", "hybrid")
         assert steps.uses_dtensor(run, two)
-        _one_vlm_step(run)
+        _one_mesh_step(run)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
         steps.uses_dtensor(run, two)
     assert not steps.uses_dtensor(run, make_abstract_mesh(
         (1, 1), ("data", "model")))
@@ -455,14 +459,15 @@ def test_unthreaded_families_raise_on_a_mesh(group, arch):
         ARCH)), two)
 
 
-def _one_vlm_step(run):
+def _one_mesh_step(run):
     cfg = run.model
     gen = torch.Generator().manual_seed(0)
     state = steps.init_train_state(gen, run, "cpu")
     batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
              for k in ("tokens", "labels")}
-    batch["patches"] = torch.randn((B, cfg.num_patches, cfg.d_model),
-                                   generator=gen)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((B, cfg.num_patches, cfg.d_model),
+                                       generator=gen)
     mesh = make_device_mesh((1, 1), ("data", "model"), "cpu")
     placed = steps.distribute_state(state, steps.train_state_shardings(
         mesh, run))
