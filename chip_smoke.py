@@ -336,7 +336,31 @@ non-zero (no phase's failure is caught):
    step's device time, peak memory; (c) meanwhile, started before phase
    6, rwkv6-7b x long_500k and recurrentgemma-9b x decode_32k with
    ``--mode gspmd`` on 256 fake peers, both ``ok``;
-17. the ``kernels`` JSON line, then the final ``ok`` JSON line.
+17. the moe and encdec families' GSPMD steps on DTensor
+   (``gspmd_moe_encdec_serve``, ``gspmd_step_train``), on the same (1, 1)
+   NCCL ``DeviceMesh``: (a) mixtral-8x7b at full width and 2 of 32
+   layers, bf16, a prefill at B=2, S=1024 (per-row prompt ends) and 16
+   decode steps at a 0-d ``pos``, and whisper-tiny whole, a prefill of
+   phase 8's 1500 zero frames and B=2 prompts of 1024 tokens and 16
+   decode steps, each through ``make_prefill_step`` /
+   ``make_decode_step`` in turns with ``api.prefill``/``api.decode_step``
+   on plain tensors (plain, mesh, mesh, plain): logits and every cache
+   leaf bitwise (or within ``ROW_BOUND``, the reason printed), every
+   leaf the object the step was given at ``cache_shardings`` (whisper's
+   cross K/V unchanged through decode), flash launched per mesh
+   prefill call on local blocks, mixtral 2 causal, whisper 4 non-causal
+   at S=1500 and 4 causal, none in decode (the moe routing and combine
+   on each peer's rows, ``models/moe``), median ms and peak memory; (b)
+   mixtral-8x7b at 1 layer, B=4, S=1024 (phase 9's shape) and
+   whisper-tiny whole, B=2, S=1024 with frames, 2 donated ``gspmd``
+   steps each through ``make_train_step_gspmd``, plain first (its result
+   kept on the host, the card's memory released), then on the mesh:
+   losses and every param bitwise, every param and moment at
+   ``param_shardings`` after each step, no kernel launch, median step
+   wall, peak memory; (c) meanwhile, started before phase 6,
+   mixtral-8x7b x train_4k and whisper-tiny x decode_32k with ``--mode
+   gspmd`` on 256 fake peers, both ``ok``;
+18. the ``kernels`` JSON line, then the final ``ok`` JSON line.
 
 Exits non-zero without a result when CUDA is not available.
 """
@@ -2958,7 +2982,11 @@ RECURRENT_DRYRUNS = (("gspmd rwkv6-7b long_500k", "rwkv6-7b", "long_500k",
                      ("gspmd recurrentgemma-9b decode_32k",
                       "recurrentgemma-9b", "decode_32k",
                       ["--mode", "gspmd"]))
-GSPMD_DRYRUN_WAIT_S = 420.0      # after phase 16 ends (started long before)
+MOE_ENCDEC_DRYRUNS = (("gspmd mixtral-8x7b train_4k", "mixtral-8x7b",
+                       "train_4k", ["--mode", "gspmd"]),
+                      ("gspmd whisper-tiny decode_32k", "whisper-tiny",
+                       "decode_32k", ["--mode", "gspmd"]))
+GSPMD_DRYRUN_WAIT_S = 420.0      # after phase 17 ends (started long before)
 
 
 def start_dryruns(out_dir: str, runs=DRYRUNS) -> dict:
@@ -3372,11 +3400,12 @@ def gspmd_mesh_phase(smi, dev, arch: str = "qwen2-0.5b",
 
 
 def finish_gspmd_dryruns(smi, procs: dict, timeout_s: float) -> None:
-    """Phases 15-16's dry runs (``GSPMD_DRYRUNS`` and
-    ``RECURRENT_DRYRUNS``, started with phase 13's before phase 6):
-    qwen2-0.5b x train_4k and x decode_32k, rwkv6-7b x long_500k and
-    recurrentgemma-9b x decode_32k with the default ``--mode gspmd`` over
-    the (16, 16) ``DeviceMesh`` on 256 fake peers, each ``ok`` with
+    """Phases 15-17's dry runs (``GSPMD_DRYRUNS``, ``RECURRENT_DRYRUNS``
+    and ``MOE_ENCDEC_DRYRUNS``, started with phase 13's before phase 6):
+    qwen2-0.5b x train_4k and x decode_32k, rwkv6-7b x long_500k,
+    recurrentgemma-9b x decode_32k, mixtral-8x7b x train_4k and
+    whisper-tiny x decode_32k with the default ``--mode gspmd`` over the
+    (16, 16) ``DeviceMesh`` on 256 fake peers, each ``ok`` with
     collectives in its schedule."""
     arts = wait_dryruns(smi, procs, timeout_s)
     for label, art in arts.items():
@@ -3807,6 +3836,285 @@ def gspmd_recurrent_train(smi, dev, arch: str, layers: int, b: int = 2,
           f"{len(pa)} params bitwise {bitwise}; kernel launches unchanged "
           f"{after == before}; {time.perf_counter() - t0:.1f} s | {smi}")
     assert bitwise and after == before, (bitwise, before, after)
+    assert all(np.isfinite(la)), la
+
+
+# phase 17: (arch, prompt length, depth (None: whole), flash launches per
+# mesh prefill call as (non-causal, causal))
+GSPMD_MOE_ENCDEC_SERVE = (("mixtral-8x7b", 1024, 2, (0, 2)),
+                          ("whisper-tiny", 1024, None, (4, 4)))
+# phase 17's train runs: (arch, depth (None: whole), B, S); mixtral at
+# phase 9's shape
+GSPMD_MOE_ENCDEC_TRAIN = (("mixtral-8x7b", 1, 4, 1024),
+                          ("whisper-tiny", None, 2, 1024))
+
+
+def gspmd_moe_encdec_serve(smi, dev, arch: str, seq_len: int, flash: tuple,
+                           *, layers=None, b: int = 2,
+                           n_decode: int = 16) -> int:
+    """Phase 17a (module docstring): ``arch`` (at ``layers`` layers, or
+    whole) through ``steps.make_prefill_step`` / ``make_decode_step`` on a
+    (1, 1) ``DeviceMesh`` against ``api.prefill`` / ``api.decode_step`` on
+    plain tensors, in turns (plain, mesh, mesh, plain), from one seed-0
+    init: logits and every cache leaf bitwise (or within ``ROW_BOUND``),
+    every leaf the object the decode step was given at
+    ``cache_shardings``, the flash launches of each mesh prefill call
+    ``flash`` = (non-causal, causal), none in decode. The current
+    process group must have one rank. Returns the mesh runs' flash
+    launches."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import tree_map, tree_paths
+    from torch.distributed.tensor import DTensor
+    cuda = dev.type == "cuda"
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    max_len = seq_len + n_decode
+    run = RunConfig(model=cfg, shape=ShapeConfig("smoke", "decode", max_len,
+                                                 b),
+                    comm=CommConfig(mode="gspmd"))
+    if cuda:
+        release_memory(f"before phase 17 {arch}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = api.init(gen, cfg, device=dev)
+    toks = torch.randint(cfg.vocab_size, (b, seq_len), device=dev,
+                         generator=gen)
+    last = torch.tensor([seq_len - 1 - 7 * i for i in range(b)], device=dev)
+    batch = dict({"tokens": toks, "last_pos": last},
+                 **api.stub_inputs(cfg, b, dev))
+    tok0 = torch.randint(cfg.vocab_size, (n_decode, b), device=dev,
+                         generator=gen)
+    decs = [{"token": tok0[i], "pos": torch.tensor(seq_len + i, device=dev)}
+            for i in range(n_decode)]
+    mesh = make_device_mesh((1, 1), ("data", "model"), dev)
+    place = lambda t: sharding.distribute_tree(
+        t, sharding.batch_sharding(mesh, t))
+    dparams = sharding.distribute_tree(params, sharding.param_shardings(
+        mesh, api.specs(cfg)))
+    prefill_mesh = steps_mod.make_prefill_step(run, mesh)
+    decode_mesh = steps_mod.make_decode_step(run, mesh)
+    full_of = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    leaves = lambda c: {p: full_of(t) for p, t in tree_paths(c)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def serve(label):
+        """One prefill and the decode steps: (logits, cache leaves,
+        prefill ms, decode ms, kept, (non-causal, causal) flash per
+        prefill, flash in decode)."""
+        calls = FlashCalls()
+        try:
+            sync()
+            ts = time.perf_counter()
+            if label == "mesh":
+                logits, cache = prefill_mesh(dparams, place(batch))
+            else:
+                logits, cache = api.prefill(params, batch, cfg)
+            sync()
+            pre_ms = (time.perf_counter() - ts) * 1e3
+            got = {"prefill": full_of(logits)}
+            launched = [sum(1 for _, c in calls.calls if not c),
+                        sum(1 for _, c in calls.calls if c)]
+            if cuda:        # every call a launch (CPU tensors launch none)
+                assert calls.wrapper.launches == len(calls.calls)
+            grown = api.grow_cache(cfg, tree_map(full_of, cache), max_len)
+            del cache, logits
+            kept = True
+            if label == "mesh":
+                csh = sharding.cache_shardings(mesh, grown)
+                c = sharding.distribute_tree(grown, csh)
+            else:
+                c = grown
+            cross = {k: c[k] for k in ("cross_k", "cross_v") if k in c}
+            first = {k: full_of(v).clone() for k, v in cross.items()}
+            calls.reset()
+            ls, dec_ms = [], []
+            for d in decs:
+                sync()
+                ts = time.perf_counter()
+                if label == "mesh":
+                    lg, c2 = decode_mesh(dparams, c, place(d))
+                    sync()
+                    kept &= all(
+                        a is x and isinstance(a, DTensor)
+                        and tuple(a.placements) == tuple(s.placements)
+                        for (_, a), (_, x), (_, s) in zip(
+                            tree_paths(c2), tree_paths(c), tree_paths(csh)))
+                    c = c2
+                else:
+                    lg, c = api.decode_step(params, c, d, cfg)
+                    sync()
+                dec_ms.append((time.perf_counter() - ts) * 1e3)
+                ls.append(full_of(lg))
+            kept &= all(c[k] is v and torch.equal(full_of(v), first[k])
+                        for k, v in cross.items())
+            got["decode"] = torch.stack(ls)
+            got["cache"] = leaves(c)
+            return got, pre_ms, dec_ms, kept, launched, \
+                calls.wrapper.launches
+        finally:
+            calls.restore()
+
+    # one untimed call of each first: the kernel's load and DTensor's
+    # sharding propagation fill their caches
+    launches = 0
+    for label in ("plain", "mesh"):
+        got = serve(label)
+        if label == "mesh":
+            launches += sum(got[4])
+        del got
+    sync()
+    times = {k: {"prefill": [], "decode": []} for k in ("plain", "mesh")}
+    outs, peaks, per_prefill, in_decode, kept = {}, {}, [], [], True
+    for label in ("plain", "mesh", "mesh", "plain"):
+        if cuda:
+            sync()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        got, pre_ms, dec_ms, k, launched, dec_launched = serve(label)
+        times[label]["prefill"].append(pre_ms)
+        times[label]["decode"] += dec_ms
+        if label == "mesh":
+            per_prefill.append(tuple(launched))
+            in_decode.append(dec_launched)
+            kept &= k
+            launches += sum(launched)
+        outs.setdefault(label, got)
+        del got
+        if cuda:
+            sync()
+            peaks.setdefault(label, (torch.cuda.max_memory_allocated()
+                                     - live, live))
+    a, m = outs["plain"], outs["mesh"]
+    pairs = [(m["prefill"], a["prefill"]), (m["decode"], a["decode"])] + [
+        (m["cache"][p], a["cache"][p]) for p in a["cache"]]
+    bitwise = m["cache"].keys() == a["cache"].keys() and all(
+        torch.equal(x, y) for x, y in pairs)
+    worst = max(rel_l2(x.float(), y.float()) for x, y in pairs)
+    med = {k: {w: statistics.median(v[w]) for w in v}
+           for k, v in times.items()}
+    reason = "" if bitwise else (
+        " (not bitwise: the mesh path's DTensor ops are held to ROW_BOUND, "
+        "the tests' bound for bf16 rounding)")
+    print(f"[gspmd moe/encdec] {cfg.name} ({cfg.num_layers} of "
+          f"{full.num_layers} layers), B={b} S={seq_len}, a prefill and "
+          f"{n_decode} decode steps (pos {seq_len}..{max_len - 1}) on a "
+          f"(1, 1) DeviceMesh vs api.prefill/decode_step on plain tensors: "
+          f"logits and {len(a['cache'])} cache leaves bitwise {bitwise} "
+          f"(worst rel_l2 {worst:.3e}){reason}; every leaf the given object "
+          f"at cache_shardings after every step, the cross K/V unchanged: "
+          f"{kept}; flash launches per mesh prefill call (non-causal, "
+          f"causal) {per_prefill} (want {tuple(flash)}), in mesh decode "
+          f"{in_decode}; median ms (two runs each) prefill mesh "
+          f"{med['mesh']['prefill']:.2f} vs plain "
+          f"{med['plain']['prefill']:.2f}, decode step mesh "
+          f"{med['mesh']['decode']:.2f} vs plain "
+          f"{med['plain']['decode']:.2f} (DTensor's host cost "
+          f"{med['mesh']['decode'] - med['plain']['decode']:.2f} ms a "
+          f"step); peak memory "
+          + ", ".join(f"{k} {v[0] / 1e9:.2f} GB above {v[1] / 1e9:.2f} GB "
+                      f"live" for k, v in peaks.items())
+          + f"; {time.perf_counter() - t0:.1f} s | {smi}")
+    assert kept, kept
+    assert per_prefill == [tuple(flash)] * 2 and in_decode == [0, 0], (
+        per_prefill, in_decode)
+    assert bitwise or worst <= ROW_BOUND, worst
+    assert all(bool(torch.isfinite(x).all()) for x, _ in pairs[:2])
+    assert m["decode"].shape == (n_decode, b, cfg.vocab_size)
+    return launches
+
+
+def gspmd_step_train(smi, dev, arch: str, layers, b: int, s: int,
+                     n_steps: int = 2) -> None:
+    """Phase 17b (module docstring): ``arch`` (at ``layers`` layers, or
+    whole), bf16, ``n_steps`` donated ``gspmd`` steps through
+    ``steps.make_train_step_gspmd`` on ``family_batch``'s batches (an
+    encdec batch carries its frames, which the ``Trainer``'s data source
+    does not, as in the reference), plain and then on a (1, 1)
+    ``DeviceMesh`` from the same seed-0 state: the plain run first, its
+    losses and params kept on the host and the card's memory released
+    before the mesh run; losses and every param bitwise, every param
+    and moment at ``param_shardings`` after each mesh step, no kernel
+    launch. Prints each run's median step wall and peak memory."""
+    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.common import tree_paths
+    from torch.distributed.tensor import DTensor
+    cuda = dev.type == "cuda"
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    run = RunConfig(model=cfg, shape=ShapeConfig("smoke", "train", s, b),
+                    comm=CommConfig(mode="gspmd"), total_steps=n_steps,
+                    warmup_steps=1, seed=0)
+    batches = [family_batch(cfg, b, s, 1 + i, dev) for i in range(n_steps)]
+    wrappers = (ops.flash_attention, ops.wkv6, ops.rglru)
+    before = [w.launches for w in wrappers]
+    at = lambda tree, shs: all(
+        isinstance(t, DTensor) and tuple(t.placements) == tuple(
+            sh.placements) for (_, t), (_, sh) in zip(tree_paths(tree),
+                                                      tree_paths(shs)))
+    t0 = time.perf_counter()
+    results, placed = {}, []
+    for label in ("plain", "mesh (1, 1)"):
+        if cuda:
+            release_memory(f"before phase 17 {arch} {label}")
+        mesh = None if label == "plain" else make_device_mesh(
+            (1, 1), ("data", "model"), dev)
+        state = steps_mod.init_train_state(
+            torch.Generator(device=dev).manual_seed(run.seed), run, dev)
+        if mesh is not None:
+            shs = steps_mod.train_state_shardings(mesh, run)
+            state = one_peer_dtensors(state, shs)
+        step = steps_mod.make_train_step_gspmd(run, mesh, donate=True)
+        if cuda:
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for bt in batches:
+            ts = time.perf_counter()
+            state, met = step(state, bt)
+            losses.append(float(met["loss"]))
+            walls.append((time.perf_counter() - ts) * 1e3)
+            if mesh is not None:
+                placed.append(at(state.params, shs.params)
+                              and at(state.opt.mu, shs.opt.mu)
+                              and at(state.opt.nu, shs.opt.nu))
+        peak = (torch.cuda.max_memory_allocated() - live, live) if cuda \
+            else (0, 0)
+        host = {p: (t.to_local() if isinstance(t, DTensor) else t).cpu()
+                for p, t in tree_paths(state.params)}
+        results[label] = (losses, host)
+        print(f"[gspmd moe/encdec train] {arch} ({cfg.num_layers} of "
+              f"{full.num_layers} layers, B={b} S={s}) {label}: losses "
+              f"{losses}, step ms {[round(x, 1) for x in walls]} (median "
+              f"{statistics.median(walls):.1f}); peak memory "
+              f"{peak[0] / 1e9:.2f} GB above {peak[1] / 1e9:.2f} GB live | "
+              f"{smi}")
+        del state, step, met
+    (la, pa), (lb, pb) = results["plain"], results["mesh (1, 1)"]
+    bitwise = la == lb and pa.keys() == pb.keys() and all(
+        torch.equal(pa[p], pb[p]) for p in pa)
+    after = [w.launches for w in wrappers]
+    print(f"[gspmd moe/encdec train] {arch}: mesh vs plain losses and "
+          f"{len(pa)} params bitwise {bitwise}; params and moments at "
+          f"param_shardings after each mesh step {placed}; kernel launches "
+          f"unchanged {after == before}; {time.perf_counter() - t0:.1f} s | "
+          f"{smi}")
+    assert bitwise and after == before, (bitwise, before, after)
+    assert placed == [True] * n_steps, placed
     assert all(np.isfinite(la)), la
 
 
@@ -4628,7 +4936,8 @@ def main() -> int:
     # for them; stopped at exit if a phase fails
     dry_dir = os.path.join(HERE, "build", "dryrun")
     dry = start_dryruns(dry_dir)
-    gspmd_dry = start_dryruns(dry_dir, GSPMD_DRYRUNS + RECURRENT_DRYRUNS)
+    gspmd_dry = start_dryruns(dry_dir, GSPMD_DRYRUNS + RECURRENT_DRYRUNS
+                              + MOE_ENCDEC_DRYRUNS)
     atexit.register(stop_dryruns, dry)
     atexit.register(stop_dryruns, gspmd_dry)
 
@@ -4706,10 +5015,22 @@ def main() -> int:
         gspmd_recurrent_train(smi, dev, arch, layers)
     print(f"[gspmd recurrent] phase 16 took "
           f"{time.perf_counter() - t16:.1f} s; mesh launches {rec} | {smi}")
+
+    # -- 17. the moe and encdec families' GSPMD steps on DTensor --------------
+    t17 = time.perf_counter()
+    me_flash = 0
+    for arch, seq_len, layers, flash in GSPMD_MOE_ENCDEC_SERVE:
+        me_flash += gspmd_moe_encdec_serve(smi, dev, arch, seq_len, flash,
+                                           layers=layers)
+    for arch, layers, b, s in GSPMD_MOE_ENCDEC_TRAIN:
+        gspmd_step_train(smi, dev, arch, layers, b, s)
+    print(f"[gspmd moe/encdec] phase 17 took "
+          f"{time.perf_counter() - t17:.1f} s; mesh flash launches "
+          f"{me_flash} | {smi}")
     dist.destroy_process_group()
     finish_gspmd_dryruns(smi, gspmd_dry, GSPMD_DRYRUN_WAIT_S)
 
-    # -- 17. result lines -----------------------------------------------------
+    # -- 18. result lines -----------------------------------------------------
     ring_src = "src/repro_torch/kernels/csrc/ring_pack.cu"
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -4719,7 +5040,7 @@ def main() -> int:
          + fam_flash + encvlm_flash + ckpt_flash
          + ten_launches["flash_attention"] + chaos_flash + sup_flash
          + pod_flash + an["flash_attention"] + serve_flash
-         + rec["flash_attention"],
+         + rec["flash_attention"] + me_flash,
          "max_abs_err": fa64["err"],
          "ms": fa64["ms"], "plain_ms": fa64["plain_ms"],
          "bound_ms": fa64["bound_ms"], "bound_by": fa64["bound_by"],

@@ -4,7 +4,12 @@ Counterpart of ``repro/compat.py``, which shims JAX version drift. The
 port's one environment question is where tensors live: on the card
 unless the caller asks for the CPU. A missing card is an error, never a
 quiet switch to the CPU, so a run that was meant to measure the card
-cannot silently measure the host instead.
+cannot silently measure the host instead. The reference's mesh shims
+(``make_mesh``, ``abstract_mesh``, ``shard_map``, ``set_mesh``,
+``AxisType``) and its Pallas ones (``tpu_compiler_params``,
+``pallas_available``) paper over JAX releases and have no counterpart:
+the port's meshes are ``launch/mesh``'s ``DeviceMesh``es and its kernels
+are CUDA built by ``kernels/build``.
 """
 from __future__ import annotations
 

@@ -447,3 +447,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         num_patches=min(cfg.num_patches, 8),
         param_dtype="float32", compute_dtype="float32")
 
+
+def describe(cfg: ModelConfig) -> str:
+    """One line: family, depth, widths, vocabulary and parameter counts
+    (the reference's text)."""
+    n = cfg.param_count()
+    a = cfg.active_param_count()
+    extra = f" (active {a/1e9:.2f}B)" if a != n else ""
+    return f"{cfg.name}: {cfg.family}, {cfg.num_layers}L d={cfg.d_model} " \
+           f"ff={cfg.d_ff} vocab={cfg.vocab_size} -> {n/1e9:.2f}B params{extra}"

@@ -11,19 +11,20 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
-                                      cell_skip_reason, cells_for, reduced)
+                                      cell_skip_reason, cells_for, describe,
+                                      reduced)
 
-_ARCH_MODULES = {
+_ARCH_MODULES = {    # the reference's order (``ARCH_IDS``, ``all_cells``)
     "qwen1.5-4b": "qwen1_5_4b",
     "starcoder2-3b": "starcoder2_3b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen1.5-110b": "qwen1_5_110b",
+    "whisper-tiny": "whisper_tiny",
     "dbrx-132b": "dbrx_132b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "rwkv6-7b": "rwkv6_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
-    "whisper-tiny": "whisper_tiny",
-    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
@@ -44,5 +45,15 @@ def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
 
 
-__all__ = ["ARCH_IDS", "SHAPES", "cell_skip_reason", "cells_for",
-           "get_config", "get_shape", "reduced"]
+def all_cells() -> list[tuple[ModelConfig, ShapeConfig, str | None]]:
+    """Every (arch x shape) cell with its skip reason (None: it runs)."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            out.append((cfg, shape, cell_skip_reason(cfg, shape)))
+    return out
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "all_cells", "cell_skip_reason",
+           "cells_for", "describe", "get_config", "get_shape", "reduced"]

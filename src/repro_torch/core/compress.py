@@ -1,11 +1,11 @@
 """Gradient compression for the ring slices.
 
-Counterpart of ``repro/core/compress.py``: int8_ef — per-slice max-abs
-int8 quantization with an f32 error-feedback residual, summed through an
-all-gather and a local dequantize-and-sum. The bf16 codec (cast to bf16
-on the wire, residual re-injected the next step) is the pack stage's
-``kernels/ref.pack_slices`` and its CUDA kernel, so it has no second
-plain version here.
+Counterpart of ``repro/core/compress.py``: bf16 — cast the slices to
+bf16 on the wire, the f32 truncation residual re-injected the next step
+(``bf16_compress``; the training path runs the same codec fused into the
+pack stage, ``kernels/ref.pack_slices`` and its CUDA kernel); int8_ef —
+per-slice max-abs int8 quantization with an f32 error-feedback residual,
+summed through an all-gather and a local dequantize-and-sum.
 """
 from __future__ import annotations
 
@@ -13,6 +13,14 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+
+def bf16_compress(slices: torch.Tensor, ef: Optional[torch.Tensor]):
+    """slices: (n, S) f32. Returns (wire bf16, new error feedback f32)."""
+    if ef is not None:
+        slices = slices + ef
+    wire = slices.to(torch.bfloat16)
+    return wire, slices - wire.float()
 
 
 def int8_quantize(slices: torch.Tensor, ef: Optional[torch.Tensor]):

@@ -29,13 +29,15 @@ from __future__ import annotations
 from typing import Any
 
 from repro_torch.configs.base import CommConfig
+from repro_torch.core import aggregation as agg
 from repro_torch.core.backends import SyncContext, SyncResult, get_backend
 from repro_torch.core.backends.base import EF
+from repro_torch.core.backends.hadronio_rs import gather_updated  # noqa: F401
 from repro_torch.core.channels import Ring
 
 Tree = Any
 
-__all__ = ["SyncResult", "sync_grads"]
+__all__ = ["SyncResult", "sync_grads", "gather_updated", "shard_slice_len"]
 
 
 def sync_grads(grads: Tree, comm: CommConfig, *, ring: Ring,
@@ -51,3 +53,10 @@ def sync_grads(grads: Tree, comm: CommConfig, *, ring: Ring,
     ctx = SyncContext(comm, world_size=ring.world_size, rank=ring.rank,
                       ring=ring, ef=ef)
     return get_backend(comm.mode).sync(grads, ctx)
+
+
+def shard_slice_len(plan: agg.PackPlan, n_data: int) -> int:
+    """Elements of one ring slice that each of ``n_data`` peers holds
+    after a reduce-scatter (the slice must split evenly)."""
+    assert plan.slice_elems % n_data == 0, (plan.slice_elems, n_data)
+    return plan.slice_elems // n_data

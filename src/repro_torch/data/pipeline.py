@@ -12,14 +12,15 @@ port imports nothing of ``repro``). It is numpy only, so the tokens for
   (seed, step, index).
 
 ``batch_at`` gives the host-local {"tokens", "labels"} slice of the
-global batch for one step, labels shifted by one token.
+global batch for one step, labels shifted by one token; ``make_batches``
+yields them step after step.
 """
 from __future__ import annotations
 
 import hashlib
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -127,3 +128,13 @@ def batch_at(source, dc: DataConfig, step: int) -> dict:
                      for i in range(dc.host_batch)])
     return {"tokens": seqs[:, :-1].astype(np.int32),
             "labels": seqs[:, 1:].astype(np.int32)}
+
+
+def make_batches(source, dc: DataConfig, start_step: int = 0
+                 ) -> Iterator[dict]:
+    """``batch_at`` for ``start_step``, ``start_step + 1``, ... without
+    end."""
+    step = start_step
+    while True:
+        yield batch_at(source, dc, step)
+        step += 1

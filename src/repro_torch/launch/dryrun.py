@@ -63,13 +63,13 @@ the same recurrence as a prefix scan in O(log T) ops,
 memory estimate their per-step states (B, T, H, hs, hs), where the
 card's kernel keeps one state.
 
-Cells it cannot run raise a named ``NotImplementedError``: the gspmd,
-prefill and decode cells of a family whose ``shard_fn`` sites are not
-threaded (the moe and encdec families; ``steps.GSPMD_FAMILIES``). ``main`` records them as ``"status":
-"fail"`` with the error, as the reference records any failure;
-``"skip"`` keeps the reference's meaning (``cell_skip_reason``). The dry
-run is an analysis tool: nothing in the serve or train paths computes
-through it.
+Every family traces its gspmd, prefill and decode cells (every
+family's ``shard_fn`` sites are threaded: ``steps.GSPMD_FAMILIES``);
+``long_500k`` is a ``"skip"`` with the reference's reason for the
+full-attention families (``cell_skip_reason``). ``main`` records a cell
+that raises as ``"status": "fail"`` with the error, as the reference
+records any failure. The dry run is an analysis tool: nothing in the
+serve or train paths computes through it.
 
 Usage (one process; the fake group cannot share it with a real one)::
 
@@ -111,27 +111,6 @@ from repro_torch.models.common import tree_map
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "torch")
-
-
-def check_cell(cfg, shape, mode: str) -> None:
-    """Raise the named error of a cell the port cannot trace yet: a
-    ``gspmd`` train cell, or a prefill or decode cell (the GSPMD serve
-    steps, whatever the mode), of a family whose ``shard_fn`` sites are
-    not threaded (``steps.GSPMD_FAMILIES``)."""
-    if cfg.family in steps.GSPMD_FAMILIES:
-        return
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"a {shape.kind} cell ({shape.name}) of the {cfg.family} family "
-            "lowers through the GSPMD serve steps over a DeviceMesh, whose "
-            "shard_fn sites for that family are not threaded yet "
-            "(ROADMAP.md Queue 1 item 8d)")
-    if not get_backend(mode).manual:
-        raise NotImplementedError(
-            f"the dry run of mode {mode!r} traces the GSPMD step family "
-            f"over a DeviceMesh, whose shard_fn sites for the {cfg.family} "
-            "family are not threaded yet (ROADMAP.md Queue 1 item 8d); use "
-            "a TAC mode such as hadronio")
 
 
 @contextlib.contextmanager
@@ -209,9 +188,8 @@ def _real_strided_offsets():
     with ``tolist()`` (torch 2.13): under an active ``FakeTensorMode``
     that ``arange`` is fake and the read raises
     ``DataDependentOutputException``. A strided shard arises wherever
-    DTensor flattens two sharded dims (a train step's attention folds
-    the batch over ``data`` and the heads over ``model`` into one batch
-    of products). Inside this
+    DTensor flattens two sharded dims into one (a reduced rwkv6's train
+    step does, in a batched product). Inside this
     context that index arithmetic runs on real tensors (the fake mode
     unset for its duration): sizes of the mesh's blocks, not data.
     Skipped where the attribute is absent."""
@@ -285,7 +263,6 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if skip:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "mode": mode, "status": "skip", "reason": skip}
-    check_cell(cfg, shape, mode)
     mesh = make_production_mesh(multi_pod=multi_pod)
     run = RunConfig(model=cfg, shape=shape, microbatches=microbatches,
                     comm=CommConfig(mode=mode, **comm))

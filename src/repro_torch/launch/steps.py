@@ -33,12 +33,13 @@ picked by the backend's ``manual`` flag, never by a mode name:
   redistributed to their param's placements before the tree AdamW, which
   updates each DTensor's local block with the global norm taken over the
   whole tree. Without a mesh the step is one peer's local step on plain
-  tensors, as before. The families whose ``shard_fn`` sites are threaded
-  (``GSPMD_FAMILIES``: dense, vlm, ssm, hybrid) train over a mesh; the
-  others (moe, encdec) raise a named error on a mesh of more than one
-  peer and train on one peer as before. The recurrent families' train
-  mode runs its plain scans on each peer's local blocks
-  (``rwkv6.scan_blocks``, ``hybrid.scan_blocks``).
+  tensors, as before. Every family's ``shard_fn`` sites are threaded
+  (``GSPMD_FAMILIES``), so every family trains over a mesh. The
+  recurrent families' train mode runs its plain scans on each peer's
+  local blocks (``rwkv6.scan_blocks``, ``hybrid.scan_blocks``); the moe
+  family's routing and combine run on each peer's rows
+  (``models/moe``), its experts split over ``model``; an encdec batch
+  carries its ``"frames"`` at ``batch_sharding``.
 
 The GSPMD serve steps run ``api.prefill`` and ``api.decode_step`` over
 a mesh the same way, whatever the comm mode (the reference's dry run
@@ -47,8 +48,9 @@ lowers every prefill and decode cell through them): params at
 cache at ``cache_shardings`` (``serve_specs`` gives the six layouts;
 ``launch/sharding.distribute_tree`` places full trees at them), and
 ``make_shard_fn(mesh)``'s constraints. Prefill attention runs the flash
-kernel on each peer's local blocks (``transformer.attend_blocks``), and
-so do the recurrent scans (WKV6, RG-LRU) in prefill and decode; a
+kernel on each peer's local blocks (``transformer.attend_blocks``;
+whisper's encoder non-causal), and so do the recurrent scans (WKV6,
+RG-LRU) in prefill and decode; a
 decode step writes the new K/V into the given cache in place, at its
 own placement, and returns that cache object, as the reference's
 ``out_shardings=(None, cache_shardings)`` returns it at its layout. A
@@ -78,7 +80,6 @@ of.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -88,13 +89,12 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import tac
 from repro_torch.core.backends import (UpdateContext, get_backend,
                                        scatter_group_size)
 from repro_torch.core.backends.base import EF
 from repro_torch.core.channels import Ring
-from repro_torch.launch.mesh import mesh_shape
 from repro_torch.launch.sharding import (Sharding, batch_sharding,
                                          cache_shardings, distribute_tree,
                                          make_shard_fn, param_shardings)
@@ -103,8 +103,9 @@ from repro_torch.models.common import tree_map, tree_paths
 from repro_torch.models.layers import ShardFn, no_shard
 from repro_torch.optim import adamw
 
-# families whose shard_fn sites are threaded: they train gspmd over a mesh
-GSPMD_FAMILIES = ("dense", "vlm", "ssm", "hybrid")
+# families whose shard_fn sites are threaded: they train and serve gspmd
+# over a mesh (every registered family)
+GSPMD_FAMILIES = ModelConfig.FAMILIES
 # families whose decode state is returned new each step (a recurrent
 # state), not written in place: the serve steps place it at
 # cache_shardings
@@ -232,32 +233,10 @@ def distribute_state(state: TrainState, shardings: TrainState) -> TrainState:
         step=state.step, ef=state.ef)
 
 
-def _threaded(cfg, mesh: Optional[DeviceMesh], what: str) -> bool:
-    """Whether ``cfg``'s family runs on DTensors over ``mesh``: a
-    threaded family with a mesh. Raises the named error for a family
-    whose sites are not threaded on a mesh of more than one peer."""
-    if mesh is None:
-        return False
-    if cfg.family in GSPMD_FAMILIES:
-        return True
-    size = math.prod(mesh_shape(mesh).values())
-    if size > 1:
-        raise NotImplementedError(
-            f"gspmd {what} of the {cfg.family} family over a mesh of "
-            f"{size} peers needs its shard_fn sites threaded, which is not "
-            "ported yet for the moe and encdec families (ROADMAP.md Queue 1 "
-            "item 8d); run it on one peer or use a TAC mode such as "
-            "hadronio")
-    return False
-
-
 def uses_dtensor(run: RunConfig, mesh: Optional[DeviceMesh]) -> bool:
-    """Whether ``run`` trains on DTensors over ``mesh``: a gspmd run of a
-    threaded family with a mesh. Raises the named error for a family
-    whose sites are not threaded on a mesh of more than one peer."""
-    if mesh is None or get_backend(run.comm.mode).manual:
-        return False
-    return _threaded(run.model, mesh, "training")
+    """Whether ``run`` trains on DTensors over ``mesh``: a gspmd run with
+    a mesh (every family's sites are threaded: ``GSPMD_FAMILIES``)."""
+    return mesh is not None and not get_backend(run.comm.mode).manual
 
 
 def init_tac_state(gen: torch.Generator, run: RunConfig,
@@ -350,9 +329,8 @@ def make_train_step_gspmd(run: RunConfig,
                           donate: bool = False):
     """The gspmd step over ``mesh`` (a ``DeviceMesh``; its state from
     :func:`distribute_state` at :func:`train_state_shardings`), or one
-    peer's local step on plain tensors when ``mesh`` is None or the
-    family is not threaded (``uses_dtensor``, which raises for such a
-    family on a mesh of more than one peer)."""
+    peer's local step on plain tensors when ``mesh`` is None (or the
+    run's mode is a TAC one: ``uses_dtensor``)."""
     if not uses_dtensor(run, mesh):
         mesh = None
     shard_fn = make_shard_fn(mesh)
@@ -392,15 +370,6 @@ def make_train_step(run: RunConfig, ring: Optional[Ring] = None, *,
 # ---------------------------------------------------------------------------
 
 
-def _serve_shard_fn(run: RunConfig, mesh: Optional[DeviceMesh]) -> ShardFn:
-    """The serve steps' constraints: ``make_shard_fn(mesh)`` for a
-    threaded family over a mesh, the identity otherwise (one peer's
-    plain step); the named error for an unthreaded family past one
-    peer."""
-    return make_shard_fn(mesh if _threaded(run.model, mesh, "serving")
-                         else None)
-
-
 def _state_placer(run: RunConfig, mesh: Optional[DeviceMesh]):
     """The serve steps' last move: a recurrent family's new state (and
     the hybrid's attention pages) over a mesh redistributed to
@@ -420,7 +389,7 @@ def make_prefill_step(run: RunConfig, mesh: Optional[DeviceMesh] = None):
     layouts), or one peer's plain prefill when ``mesh`` is None. A
     recurrent family's cache comes back at ``cache_shardings``."""
     cfg = run.model
-    shard_fn = _serve_shard_fn(run, mesh)
+    shard_fn = make_shard_fn(mesh)
     place = _state_placer(run, mesh)
 
     def prefill_fn(params, batch):
@@ -438,7 +407,7 @@ def make_decode_step(run: RunConfig, mesh: Optional[DeviceMesh] = None):
     recurrent family's state is new each step, as on the plain path
     (``api.decode_step``), and comes back at ``cache_shardings``."""
     cfg = run.model
-    shard_fn = _serve_shard_fn(run, mesh)
+    shard_fn = make_shard_fn(mesh)
     place = _state_placer(run, mesh)
 
     def decode_fn(params, cache, batch):

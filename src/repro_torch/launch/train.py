@@ -94,6 +94,13 @@ from repro_torch.launch.mesh import (Mesh, make_device_mesh, make_ring,
                                      parse_mesh)
 
 
+class WatchdogTimeout(RuntimeError):
+    """The reference's name for a watchdog's expiry. Neither package
+    raises it: the watchdog ends the process (exit code 42) instead,
+    since a step stuck in a collective cannot be interrupted by an
+    exception."""
+
+
 class Watchdog:
     """Calls ``on_timeout`` when armed longer than ``timeout_secs``:
     ``arm()`` before blocking work, ``disarm()`` after (one timer
@@ -136,8 +143,7 @@ class Trainer:
     a TAC mode its axes flattened pod-major into one ring, with the pod
     axis as the ring's (``mesh.make_ring``); for ``gspmd`` a
     ``DeviceMesh`` of its shape (``self.mesh``; None on one peer without
-    a mesh, or for a family whose sites are not threaded on one
-    peer)."""
+    a mesh)."""
 
     def __init__(self, run: RunConfig, mesh: Optional[Mesh] = None, *,
                  device: DeviceLike = None,

@@ -36,21 +36,23 @@ engine's) lands in the patch prefix (ROADMAP.md, Queue 3).
 ``loss``, ``prefill`` and ``decode_step`` take the reference's
 ``shard_fn`` (``layers.ShardFn``, the identity by default; the fourth
 argument, as in the reference): the embedded input's ``("batch", "seq",
-None)`` constraint, the LM head's, and the sites of the dense and vlm
-stacks (``models/transformer``), the ssm stack (``models/rwkv6``) and
-the hybrid stack (``models/hybrid``). Over a ``DeviceMesh`` (the GSPMD
-steps of ``launch/steps``) the params and inputs are DTensors; the
-prefill's per-row gather at ``last_pos`` is an explicit ``local_map``
-(:func:`_rows_at`), and the vlm prefix's concat and its ``pos`` offset
-run on DTensors as they are. The moe and encdec stacks' own sites are
-not threaded yet (ROADMAP.md Queue 1 item 8d).
+None)`` constraint (not on encdec's decoder input, which the reference
+leaves unpinned), the LM head's, and the sites of every family's stack:
+dense, moe and vlm (``models/transformer``, ``models/moe``), ssm
+(``models/rwkv6``), hybrid (``models/hybrid``) and encdec
+(``models/whisper``). Over a ``DeviceMesh`` (the GSPMD steps of
+``launch/steps``) the params and inputs are DTensors; the prefill's
+per-row gather at ``last_pos`` and the decoder's learned-position
+lookup at ``pos`` are explicit ``local_map``s (:func:`_rows_at`,
+:func:`_positions_at`), and the vlm prefix's concat and its ``pos``
+offset run on DTensors as they are.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.compat import DeviceLike, resolve_device, torch_dtype
@@ -117,11 +119,13 @@ def loss(params: Tree, batch: dict, cfg: ModelConfig,
     xent = lambda logits: cross_entropy(logits, batch["labels"],
                                         batch.get("loss_mask"))
     if cfg.family == "encdec":
-        enc = whi.encode(params, batch["frames"].to(dt), cfg, mode="train")
+        enc = whi.encode(params, batch["frames"].to(dt), cfg, shard_fn,
+                         mode="train")
         cross_k, cross_v = whi.cross_kv(params, enc, cfg)
         x = x + params["pos_dec"].to(dt)[None, :x.shape[1]]
         x, _ = whi.decode_stack(params, x, cfg, mode="train",
-                                cross_k=cross_k, cross_v=cross_v)
+                                cross_k=cross_k, cross_v=cross_v,
+                                shard_fn=shard_fn)
         l = xent(head(x))
         return l, {"xent": l}
     prefix = 0
@@ -227,12 +231,13 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig,
     dt = torch_dtype(cfg.compute_dtype)
     x = embed_tokens(params["embed"], batch["tokens"], dt)
     if cfg.family == "encdec":
-        enc = whi.encode(params, batch["frames"].to(dt), cfg, attend=attend)
+        enc = whi.encode(params, batch["frames"].to(dt), cfg, shard_fn,
+                         attend=attend)
         cross_k, cross_v = whi.cross_kv(params, enc, cfg)
         x = x + params["pos_dec"].to(dt)[None, :x.shape[1]]
         x, cache = whi.decode_stack(params, x, cfg, mode="prefill",
                                     cross_k=cross_k, cross_v=cross_v,
-                                    attend=attend)
+                                    shard_fn=shard_fn, attend=attend)
         # the reference's quirk: the last position, not ``last_pos``
         return head(params["embed"], x[:, -1:], shard_fn)[:, 0], {
             "self": cache, "cross_k": cross_k, "cross_v": cross_v}
@@ -269,6 +274,22 @@ def _rows_at(x: torch.Tensor, last_pos: torch.Tensor) -> torch.Tensor:
         x, as_dtensor(last_pos, mesh))
 
 
+def _positions_at(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Rows ``pos`` (0-d or (B,)) of a learned position table, as (N, D).
+    A DTensor table (its ``embed`` dim split over ``data``) is read on
+    each peer's own block of that dim through an explicit ``local_map``,
+    ``pos`` whole: DTensor's index has no strategy that keeps the
+    table's split."""
+    take = lambda t, p: t[p.reshape(-1)]
+    if not isinstance(table, DTensor):
+        return take(table, pos)
+    mesh = table.device_mesh
+    t_pl = kept_shards(table, (1,))
+    return local_map(take, out_placements=t_pl, in_placements=(
+        t_pl, [Replicate()] * mesh.ndim), device_mesh=mesh,
+        redistribute_inputs=True)(table, as_dtensor(pos, mesh))
+
+
 def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
                 shard_fn: ShardFn = no_shard,
                 logits_fn: Optional[Callable] = None,
@@ -276,7 +297,10 @@ def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
     """One token for the whole batch against ``cache``. batch: {"token":
     (B,), "pos": () or (B,)}. Attention pages are written in place, at
     the cache's own placement over a mesh, and the given cache object is
-    returned; recurrent states come back as new tensors (rwkv6's decode
+    returned (encdec: ``dict(cache, self=...)``, the reference's form,
+    holding the given self-attention pages and the same cross K/V
+    objects, which no step recomputes); recurrent states come back as
+    new tensors (rwkv6's decode
     runs the WKV6 kernel at T=1; the hybrid's is the one-line RG-LRU
     update). ``shard_fn``, ``logits_fn`` and ``expert_fn`` as in
     :func:`prefill`."""
@@ -286,12 +310,14 @@ def decode_step(params: Tree, cache: Tree, batch: dict, cfg: ModelConfig,
     x = embed_tokens(params["embed"], batch["token"][:, None], dt)
     if cfg.family == "encdec":
         # (B, 1, D) per row for a (B,) pos; (1, 1, D) for a 0-d one
-        x = x + params["pos_dec"][pos.reshape(-1)].to(dt)[:, None]
-        x, _ = whi.decode_stack(params, x, cfg, mode="decode",
-                                cross_k=cache["cross_k"],
-                                cross_v=cache["cross_v"],
-                                cache=cache["self"], pos=pos)
-        return head(params["embed"], x, shard_fn)[:, 0], cache
+        x = x + _positions_at(params["pos_dec"], pos).to(dt)[:, None]
+        x, new_self = whi.decode_stack(params, x, cfg, mode="decode",
+                                       cross_k=cache["cross_k"],
+                                       cross_v=cache["cross_v"],
+                                       shard_fn=shard_fn,
+                                       cache=cache["self"], pos=pos)
+        return head(params["embed"], x, shard_fn)[:, 0], dict(
+            cache, self=new_self)
     if cfg.family == "vlm":
         pos = pos + cfg.num_patches   # cache slots 0..P-1 hold the prefix
     x, cache, _ = _trunk(params, x, cfg, mode="decode", cache=cache,

@@ -31,18 +31,19 @@ constraints: ``seq_gather`` on each normed input (one all-gather of the
 sequence per block under ``REPRO_SP_EXPLICIT=1``, else unconstrained),
 ``seq`` on the residual after attention and after the MLP, and it is
 passed on to the attention and MLP sites, in every mode. Over a
-``DeviceMesh`` (DTensor activations) prefill attention runs the kernel
-on each peer's local blocks (:func:`attend_blocks`), and the new K/V
-become the cache as stored values (pending ``Partial`` sums reduced).
-The moe block's own sites are not threaded yet (ROADMAP.md Queue 1 item
-8d).
+``DeviceMesh`` (DTensor activations) attention runs on each peer's
+local blocks in every mode (:func:`attend_blocks`: prefill's kernel,
+train mode's plain version), and prefill's new K/V become the cache as
+stored values (pending ``Partial`` sums reduced).
+The moe block passes ``shard_fn`` on to ``moe.apply_moe``'s own four
+sites, whose routing and combine run on each peer's rows.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
@@ -108,11 +109,7 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     else:
         # k/v at their KV heads: the kernel reads GQA/MQA in place, the
         # plain versions expand them themselves
-        if mode == "prefill" and isinstance(q, DTensor):
-            k, v = _stored(k), _stored(v)     # the cache holds values
-            out = attend_blocks(attend, q, k, v, window=window)
-        else:
-            out = attend(q, k, v, causal=True, window=window)
+        out, k, v = self_attend(attend, q, k, v, mode=mode, window=window)
         if mode == "prefill":
             if window > 0:     # rolling layout for windowed decode caches
                 new_k, new_v = att.to_rolling(k, window), att.to_rolling(
@@ -124,10 +121,25 @@ def apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     h = apply_norm(p["ln2"], x, cfg.norm_kind)
     h = shard_fn(h, ("batch", "seq_gather", None))   # SP: one AG per block
     if kind == "moe":
-        y, aux = moe_mod.apply_moe(p["moe"], h, cfg, expert_fn=expert_fn)
+        y, aux = moe_mod.apply_moe(p["moe"], h, cfg, shard_fn,
+                                   expert_fn=expert_fn)
     else:
         y, aux = apply_mlp(p["mlp"], h, cfg.mlp_kind, shard_fn), None
     return shard_fn(x + y, ("batch", "seq", None)), new_k, new_v, aux
+
+
+def self_attend(attend: Callable, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, *, mode: str, window: int,
+                causal: bool = True):
+    """(``attend(q, k, v)``, k, v): over a mesh on each peer's local
+    blocks (:func:`attend_blocks`), and in prefill with k/v as the
+    stored values the cache keeps."""
+    if not isinstance(q, DTensor):
+        return attend(q, k, v, causal=causal, window=window), k, v
+    if mode == "prefill":
+        k, v = _stored(k), _stored(v)
+    return attend_blocks(attend, q, k, v, window=window,
+                         causal=causal), k, v
 
 
 def _stored(t: DTensor) -> DTensor:
@@ -139,11 +151,15 @@ def _stored(t: DTensor) -> DTensor:
 
 
 def attend_blocks(attend: Callable, q: DTensor, k: DTensor, v: DTensor, *,
-                  window: int) -> DTensor:
-    """``attend`` (causal) on each peer's local blocks of DTensor q/k/v,
-    through an explicit ``local_map``: the kernel's wrapper reads
-    ``data_ptr()`` and takes plain, contiguous tensors, so no DTensor
-    reaches it. q keeps the batch and heads sharding that
+                  window: int, causal: bool = True) -> DTensor:
+    """``attend`` (causal, or not: whisper's encoder) on each peer's local
+    blocks of DTensor q/k/v, through an explicit ``local_map``, in every
+    mode: the kernel's wrapper reads ``data_ptr()`` and takes plain,
+    contiguous tensors, so no DTensor reaches it; train mode's plain
+    ``attend_chunked`` runs there under autograd, so DTensor never folds
+    the split batch and heads into one batch of products (torch 2.11
+    refuses that flatten; 2.13 makes a strided shard whose
+    redistributions its graph planner searches at seconds a call). q keeps the batch and heads sharding that
     ``project_qkv`` pinned (every other dim gathered: each peer needs
     its rows' whole sequence); k/v keep the batch's, and the KV heads'
     where they split over the same mesh dims as the query heads.
@@ -180,11 +196,16 @@ def attend_blocks(attend: Callable, q: DTensor, k: DTensor, v: DTensor, *,
             else:
                 kl, vl = kl[:, :, take], vl[:, :, take]
         return attend(ql.contiguous(), kl.contiguous(), vl.contiguous(),
-                      causal=True, window=window)
+                      causal=causal, window=window)
 
+    # train mode: where k/v arrive whole over the query heads' mesh dims,
+    # each peer's gradient covers the KV heads its queries read: a sum
+    kv_grad = [Partial() if take is not None and i in heads else p
+               for i, p in enumerate(kv_pl)]
     return local_map(local, out_placements=q_pl,
-                     in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v)
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def apply_stack(params: dict, x: torch.Tensor, cfg: ModelConfig, *,

@@ -69,6 +69,19 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.stack(leaves).sum().sqrt()
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float):
+    """(every gradient in f32 scaled so the tree's global norm is at most
+    ``max_norm``, the norm before clipping). ``update`` applies the same
+    scale a chunk at a time instead of making the clipped tree."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda g: g.float() * scale, grads), norm
+
+
 def _local(ts: tuple) -> tuple:
     """The local blocks of a leaf's gradient, moments and param: DTensors
     at one placement, or plain tensors."""
@@ -104,8 +117,7 @@ def update(grads: Tree, state: AdamState, params: Tree,
     for bit. Either way each leaf is updated ``CHUNK`` elements at a
     time, its clipped f32 gradient included."""
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
-                        max=1.0)
+    scale = _clip_scale(gnorm, cfg.grad_clip)
     count = state.count + 1
     lr = schedule(cfg, count)
     # bias corrections as f32 values (exact as Python floats)

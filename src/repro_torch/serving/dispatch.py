@@ -40,7 +40,11 @@ local path and ``raw_emit`` accept and the sliced path refuses. With no
 channel affinity on ``gspmd`` at ring size 1 the step is the pure local
 path (nothing to wire), as in the reference. Serving payloads are
 activations, so wire compression is rejected. There is no jit and no
-step cache: PyTorch runs eagerly.
+step cache: PyTorch runs eagerly. So the reference's
+``clear_serve_step_cache`` (which drops its cached jitted steps) and
+``lowered_decode_text`` (the StableHLO text of a lowered decode step)
+have no counterpart: there is nothing cached and no lowered text; the
+issued op stream is read through ``launch/hlo_analysis.record``.
 
 The two-level fabric: a ring with a pod axis (``Ring(pods=...,
 pod_axis=...)``, the reference's ``(pod, "data")`` serve mesh) is
@@ -149,7 +153,8 @@ def _make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
               and cfg.moe.num_experts % n_shards == 0)
     ep = cfg.moe.num_experts // n_shards if use_ep else 0
 
-    def ep_experts(mp: dict, buf: torch.Tensor, _cfg) -> torch.Tensor:
+    def ep_experts(mp: dict, buf: torch.Tensor, _cfg,
+                   _shard_fn=None) -> torch.Tensor:
         """The expert stage over the ring: exchange the dispatched buffer
         peer-major (peer p gets every peer's rows of experts
         ``p*ep .. p*ep+ep-1``), run this peer's expert slice in f32,

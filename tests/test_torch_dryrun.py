@@ -29,12 +29,17 @@
   over ``data``) with ``--mode gspmd`` on the fake group: each ``ok``,
   with the reference's artifact keys and arithmetic (their scans traced
   in log-depth form, ``dryrun._log_depth_scans``).
-* CELLS IT CANNOT RUN — a dense model's ``long_500k`` is a ``skip`` with
-  the reference's reason; a family whose ``shard_fn`` sites are not
-  threaded (mixtral-8x7b-reduced) records its ``gspmd``, ``prefill_32k``
-  and ``decode_32k`` cells as ``fail`` with the named
-  ``NotImplementedError``; ``main`` writes every artifact under
-  ``--out`` and returns 1 only when a cell failed.
+* THE MOE AND ENCDEC CELLS — ``mixtral-8x7b-reduced`` x ``train_4k``,
+  ``prefill_32k``, ``decode_32k`` and ``long_500k`` (its window makes it
+  sub-quadratic) with ``--mode gspmd``, its serve cells in ``hadronio``
+  and ``hadronio_rs`` too, and ``whisper-tiny-reduced``'s three gspmd
+  cells: each ``ok`` with the reference's keys and arithmetic, traced
+  in the recurrent cells' subprocesses (one per arch).
+* CELLS IT CANNOT RUN — a dense model's ``long_500k`` and whisper's are
+  ``skip``s with the reference's reason; no family's gspmd, prefill or
+  decode cell fails any more (every family's ``shard_fn`` sites are
+  threaded); ``main`` writes every artifact under ``--out`` and
+  returns 1 only when a cell failed.
 """
 import ast
 import importlib.util
@@ -64,7 +69,19 @@ MODES = ("hadronio", "hadronio_rs", "hadronio_overlap_rs")
 SERVE = ("train_4k", "prefill_32k", "decode_32k")      # --mode gspmd
 RECURRENT = ("rwkv6-7b-reduced", "recurrentgemma-9b-reduced")
 RECURRENT_CELLS = [(a, s) for a in RECURRENT for s in SERVE + ("long_500k",)]
-UNTHREADED = "mixtral-8x7b-reduced"
+MOE = "mixtral-8x7b-reduced"
+ENCDEC = "whisper-tiny-reduced"
+# (arch, shape, mode): mixtral's prefill and decode cells in a TAC mode
+# too (a serve cell lowers through the GSPMD serve steps whatever the
+# mode); whisper's long_500k is the reference's skip
+MOE_ENCDEC_CELLS = [(MOE, "train_4k", "gspmd"), (MOE, "prefill_32k", "gspmd"),
+                    (MOE, "decode_32k", "gspmd"), (MOE, "long_500k", "gspmd"),
+                    (MOE, "prefill_32k", "hadronio"),
+                    (MOE, "decode_32k", "hadronio_rs"),
+                    (ENCDEC, "train_4k", "gspmd"),
+                    (ENCDEC, "prefill_32k", "gspmd"),
+                    (ENCDEC, "decode_32k", "gspmd"),
+                    (ENCDEC, "long_500k", "gspmd")]
 
 _JAX = textwrap.dedent('''
     import json, sys
@@ -215,31 +232,33 @@ _CELLS = textwrap.dedent('''
     import sys
     from repro_torch.launch import dryrun
     arch, out = sys.argv[1:3]
-    sys.exit(max(dryrun.main(["--arch", arch, "--shape", shape, "--out",
-                              out]) for shape in sys.argv[3:]))
+    sys.exit(max(dryrun.main(["--arch", arch, "--shape", cell.split(":")[0],
+                              "--mode", cell.split(":")[1], "--out", out])
+                 for cell in sys.argv[3:]))
 ''')
 
 
 @pytest.fixture(scope="module")
 def recurrent_cells(jx, tmp_path_factory):
-    """The recurrent families' gspmd cells through the port's CLI entry
-    (``dryrun.main``), one subprocess per arch running its four cells in
-    turn, both started together: {(arch, shape): (artifact, that arch's
-    stdout)}."""
+    """The recurrent, moe and encdec families' gspmd cells through the
+    port's CLI entry (``dryrun.main``), one subprocess per arch running
+    its cells in turn, all started together: {(arch, shape, mode):
+    (artifact, that arch's stdout)}."""
     tmp = tmp_path_factory.mktemp("dryrun_recurrent")
-    shapes = [s for a, s in RECURRENT_CELLS if a == RECURRENT[0]]
+    cells = [(a, s, "gspmd") for a, s in RECURRENT_CELLS] + MOE_ENCDEC_CELLS
+    archs = dict.fromkeys(a for a, _, _ in cells)
     procs = {a: subprocess.Popen(
-        [sys.executable, "-c", _CELLS, a, str(tmp), *shapes], env=_env(),
+        [sys.executable, "-c", _CELLS, a, str(tmp)]
+        + [f"{s}:{m}" for b, s, m in cells if b == a], env=_env(),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for a in RECURRENT}
+        for a in archs}
     logs = {a: p.communicate(timeout=300)[0] for a, p in procs.items()}
     out = {}
     for a, p in procs.items():
         assert p.returncode == 0, logs[a][-3000:]
-        for s in shapes:
-            with open(dryrun.artifact_path(a, s, "pod", "gspmd",
-                                           str(tmp))) as f:
-                out[a, s] = (json.load(f), logs[a])
+    for a, s, m in cells:
+        with open(dryrun.artifact_path(a, s, "pod", m, str(tmp))) as f:
+            out[a, s, m] = (json.load(f), logs[a])
     return out
 
 
@@ -251,14 +270,41 @@ def test_recurrent_gspmd_cells_trace(recurrent_cells, arch, shape):
     256, with the reference's keys and arithmetic, and parameter
     all-gathers (FSDP) in the schedule (a reduced rwkv6 prefill issues
     no all-reduce: its 4 heads do not split over 16)."""
-    art, log = recurrent_cells[arch, shape]
+    art, log = recurrent_cells[arch, shape, "gspmd"]
     _check_gspmd_cell(arch, shape, art, log, kinds=("all-gather",))
 
 
+RUNS = [c for c in MOE_ENCDEC_CELLS if c != (ENCDEC, "long_500k", "gspmd")]
+
+
+@pytest.mark.parametrize("arch,shape,mode", RUNS,
+                         ids=[f"{a}-{s}-{m}" for a, s, m in RUNS])
+def test_moe_encdec_gspmd_cells_trace(recurrent_cells, arch, shape, mode):
+    """mixtral and whisper (reduced): the gspmd train step and every
+    serve cell (mixtral's ``long_500k`` too: its window makes the cell
+    sub-quadratic; its serve cells in TAC modes too) are ``ok`` on the
+    fake group of 256, with the reference's keys and arithmetic and
+    parameter all-gathers (FSDP) in the schedule."""
+    art, log = recurrent_cells[arch, shape, mode]
+    _check_gspmd_cell(arch, shape, art, log, kinds=("all-gather",),
+                      mode=mode)
+
+
+def test_encdec_long_500k_is_a_skip_with_the_reference_reason(
+        recurrent_cells):
+    """whisper's full attention: ``long_500k`` is the reference's skip,
+    recorded as such by ``main`` (rc 0)."""
+    art, log = recurrent_cells[ENCDEC, "long_500k", "gspmd"]
+    assert art["status"] == "skip"
+    assert art["reason"] == jreason(jax_config(ENCDEC),
+                                    jax_shape("long_500k"))
+    assert f"[skip] {ENCDEC} x long_500k" in log
+
+
 def _check_gspmd_cell(arch, shape, art, log,
-                      kinds=("all-gather", "all-reduce")):
+                      kinds=("all-gather", "all-reduce"), mode="gspmd"):
     assert art["status"] == "ok", art
-    assert f"[ok]   {arch} x {shape} (pod,gspmd)" in log
+    assert f"[ok]   {arch} x {shape} (pod,{mode})" in log
     ref_keys = _reference_artifact_keys()
     assert ref_keys <= art.keys()
     assert art.keys() - ref_keys == {"cross_pod", "global_batch", "comm"}
@@ -365,14 +411,11 @@ def test_fake_group_keeps_the_gspmd_schedule(tmp_path):
     byte and group for group, that the same steps issue on rank 0 of a
     real gloo world of 4 (values do not steer DTensor's schedule,
     placements do); so does a decode cell of each recurrent family (its
-    state redistributed to the scan's blocks and back). The train step traces too, though its attention
-    folds the batch and the heads, both split over this mesh, into a
-    strided shard (the planner's arithmetic, ``_real_strided_offsets``):
-    its collectives are of the real run's kinds and groups, but under a
-    fake mode DTensor plans each strided-shard redistribution with a
-    fresh planner where a real run reuses one whose search has widened,
-    so one gradient's gather comes out in one step instead of two
-    (``PERF.md``, PR 27) and the sequences are not held equal."""
+    state redistributed to the scan's blocks and back). The train step traces too:
+    its collectives are of the real run's kinds and groups, but the
+    sequences are not held equal: under a fake mode DTensor plans some
+    of a step's redistributions apart from a real run's (``PERF.md``),
+    its attention on local blocks or not."""
     here = os.path.dirname(os.path.abspath(__file__))
     procs = [subprocess.Popen(
         [sys.executable, "-c", _REAL, str(r), "4", str(tmp_path / "store"),
@@ -404,18 +447,17 @@ def test_fake_group_keeps_the_gspmd_schedule(tmp_path):
     ("prefill_32k", "hadronio", "GSPMD serve steps"),
     ("decode_32k", "hadronio_rs", "GSPMD serve steps"),
 ])
-def test_cells_it_cannot_run_fail_with_the_named_error(tmp_path, shape, mode,
-                                                       named):
-    """A family whose sites are not threaded: its gspmd train cell and
-    its serve cells (whatever the mode) fail with the named error."""
-    with pytest.raises(NotImplementedError, match=named):
-        dryrun.dryrun_cell(UNTHREADED, shape, mode=mode)
-    rc = dryrun.main(["--arch", UNTHREADED, "--shape", shape, "--mode", mode,
-                      "--out", str(tmp_path)])
-    assert rc == 1
-    with open(dryrun.artifact_path(UNTHREADED, shape, "pod", mode,
-                                   str(tmp_path))) as f:
-        art = json.load(f)
-    assert art["status"] == "fail"
-    assert art["error"].startswith("NotImplementedError") and named in \
-        art["error"] and "Queue 1 item 8d" in art["error"]
+def test_cells_it_cannot_run_fail_with_the_named_error(recurrent_cells, shape,
+                                                       mode, named):
+    """No cell is left that the port cannot run: the moe family's gspmd
+    train cell and its serve cells in any mode (``named``: the step
+    family that traces them), whose ``shard_fn`` sites are threaded now,
+    are ``ok`` through ``main`` (rc 0) with a traced schedule, as the
+    encdec family's are."""
+    art, log = recurrent_cells[MOE, shape, mode]
+    assert art["status"] == "ok", (named, art)
+    assert art["mode"] == mode and art["collectives"]["total_ops"] > 0
+    assert f"[ok]   {MOE} x {shape} (pod,{mode})" in log
+    for s in SERVE:
+        art, _ = recurrent_cells[ENCDEC, s, "gspmd"]
+        assert art["status"] == "ok", art

@@ -25,12 +25,10 @@ the activation constraints):
   mesh and trains on.
 * ONE PEER — a ``(1, 1)`` mesh's DTensor step equals the plain one-peer
   step bit for bit on the CPU (losses and every param, one and two
-  microbatches); a family whose ``shard_fn`` sites are not threaded
-  (moe, encdec) raises the named error on a mesh of more than one peer
-  and trains on one; the vlm family (threaded since the serve steps)
-  and the recurrent families (``test_torch_gspmd_recurrent.py``) take
-  the DTensor path, one step on a ``(1, 1)`` mesh bitwise the plain
-  one.
+  microbatches); every other family (moe, ssm, hybrid, encdec, vlm;
+  their meshes of several peers in ``test_torch_gspmd_recurrent.py``
+  and ``test_torch_gspmd_moe_encdec.py``) takes the DTensor path, one
+  step on a ``(1, 1)`` mesh bitwise the plain one.
 * THE CLI — ``launch.train --mode gspmd --mesh 1x2`` on two gloo ranks
   trains and writes a checkpoint in the global layout.
 """
@@ -52,7 +50,8 @@ import torch.distributed as dist
 from repro.configs.registry import get_config as jax_config
 from repro.models import api as japi
 from repro_torch.checkpoint import CheckpointStore
-from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+from repro_torch.configs.base import (CommConfig, ModelConfig, RunConfig,
+                                      ShapeConfig)
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import (make_abstract_mesh, make_device_mesh,
@@ -71,7 +70,8 @@ _WORKER = textwrap.dedent('''
     import numpy as np, torch, torch.distributed as dist
     from torch.distributed.tensor import DTensor
     from repro_torch.checkpoint import CheckpointStore
-    from repro_torch.configs.base import CommConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.base import (CommConfig, ModelConfig, RunConfig,
+                                      ShapeConfig)
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import hlo_analysis as hlo
     from repro_torch.launch import sharding, steps
@@ -436,27 +436,20 @@ def test_one_by_one_mesh_equals_one_peer_step(group, micro):
                                   "whisper-tiny-reduced",
                                   "llava-next-mistral-7b-reduced"])
 def test_unthreaded_families_raise_on_a_mesh(group, arch):
-    """A family whose sites are not threaded (moe, encdec) raises the
-    named error over a mesh of more than one peer, and trains plain on
-    one. The vlm, ssm and hybrid families are threaded: each takes the
-    DTensor path on a (2, 2) mesh, and one step of it on a (1, 1) mesh
-    (a vlm batch's patch prefix placed with the batch) equals the plain
-    one-peer step bit for bit."""
+    """No family is left unthreaded: every registered family (moe, ssm,
+    hybrid, encdec, vlm here; dense above) takes the DTensor path on a
+    (2, 2) mesh, and one step of it on a (1, 1) mesh (a vlm batch's
+    patch prefix and an encdec batch's frames placed with the batch)
+    equals the plain one-peer step bit for bit, moe's balance loss
+    included."""
     run = RunConfig(model=get_config(arch),
                     shape=ShapeConfig("t", "train", S, B),
                     comm=CommConfig(mode="gspmd"))
     two = make_abstract_mesh((2, 2), ("data", "model"))
-    if run.model.family in steps.GSPMD_FAMILIES:
-        assert run.model.family in ("vlm", "ssm", "hybrid")
-        assert steps.uses_dtensor(run, two)
-        _one_mesh_step(run)
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8d"):
-        steps.uses_dtensor(run, two)
-    assert not steps.uses_dtensor(run, make_abstract_mesh(
-        (1, 1), ("data", "model")))
-    assert steps.uses_dtensor(dataclasses.replace(run, model=get_config(
-        ARCH)), two)
+    assert set(steps.GSPMD_FAMILIES) == set(ModelConfig.FAMILIES)
+    assert run.model.family in steps.GSPMD_FAMILIES
+    assert steps.uses_dtensor(run, two)
+    _one_mesh_step(run)
 
 
 def _one_mesh_step(run):
@@ -468,6 +461,9 @@ def _one_mesh_step(run):
     if cfg.family == "vlm":
         batch["patches"] = torch.randn((B, cfg.num_patches, cfg.d_model),
                                        generator=gen)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.num_frames, cfg.d_model),
+                                      generator=gen)
     mesh = make_device_mesh((1, 1), ("data", "model"), "cpu")
     placed = steps.distribute_state(state, steps.train_state_shardings(
         mesh, run))

@@ -23,10 +23,9 @@ the cache at ``cache_shardings`` in and out):
   plain, contiguous local blocks.
 * ONE PEER — a ``(1, 1)`` mesh's serve steps equal ``api.prefill`` and
   ``api.decode_step`` on plain tensors bit for bit; ``mesh=None`` is the
-  plain step; a family whose sites are not threaded (moe, encdec)
-  raises the named error past one peer, and the recurrent families
-  (threaded since; ``test_torch_gspmd_recurrent.py``) build their steps
-  over a mesh.
+  plain step; every other family (moe, ssm, hybrid, encdec) builds its
+  steps over a mesh (their gloo runs: ``test_torch_gspmd_recurrent.py``,
+  ``test_torch_gspmd_moe_encdec.py``).
 """
 import dataclasses
 import math
@@ -380,27 +379,19 @@ def test_one_by_one_mesh_equals_plain_serve(group, name):
                                   "recurrentgemma-9b-reduced",
                                   "whisper-tiny-reduced"])
 def test_unthreaded_families_raise_in_the_serve_steps(arch):
-    """A family whose sites are not threaded (moe, encdec) raises the
-    named error when a serve step is built over a mesh of more than one
-    peer, and builds the plain step on one. The recurrent families are
-    threaded: their serve steps run on DTensors over a (2, 2) mesh as
-    over a (1, 1) one."""
+    """No family is left unthreaded: every one (moe, ssm, hybrid and
+    encdec here) builds its prefill and decode steps over a (2, 2) mesh
+    as over a (1, 1) one, whatever the comm mode (their runs over gloo
+    meshes: ``test_torch_gspmd_recurrent.py``,
+    ``test_torch_gspmd_moe_encdec.py``)."""
     run = RunConfig(model=get_config(arch),
                     shape=ShapeConfig("s", "decode", MAX, 4),
                     comm=CommConfig(mode="hadronio"))
     two = make_abstract_mesh((2, 2), ("data", "model"))
     one = make_abstract_mesh((1, 1), ("data", "model"))
-    threaded = run.model.family in steps.GSPMD_FAMILIES
-    assert threaded == (run.model.family in ("ssm", "hybrid"))
+    assert run.model.family in steps.GSPMD_FAMILIES
     for make in (steps.make_prefill_step, steps.make_decode_step):
-        if threaded:
-            assert steps._threaded(run.model, two, "serving")
-            assert callable(make(run, two))
-        else:
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 8d"):
-                make(run, two)
-        assert callable(make(run, one))
+        assert callable(make(run, two)) and callable(make(run, one))
 
 
 def test_serve_specs_are_the_references_layouts():
