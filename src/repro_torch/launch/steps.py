@@ -64,6 +64,15 @@ microbatches (``_accumulate_grads``), as the reference does: one
 microbatch gives the gradients in the parameter dtype, more give their
 f32 mean. The exchange runs once per step, after the accumulation.
 
+Telemetry (``obs/trace.py``), when tracing is on: a ``step`` span
+around each step as the host issues it, ``forward`` around each
+microbatch's loss, ``backward`` around autograd's backward (the
+stacked-parameter gradient adds inside it included) and ``update``
+around the optimizer update (clipping and AdamW; the TAC backend's
+``apply_update``). The f32 accumulation, the exchange's own spans
+(``emission`` / ``stage`` / ``flush``) and the loss all-reduce sit
+directly inside ``step``. Off, each site costs one ``None`` check.
+
 A step is ``step_fn(state, batch) -> (state, metrics)`` with ``batch``
 {"tokens", "labels"} on the device (the gspmd step over a mesh takes the
 global batch, the same on every peer); metrics are 0-d
@@ -101,6 +110,7 @@ from repro_torch.launch.sharding import (Sharding, batch_sharding,
 from repro_torch.models import api
 from repro_torch.models.common import tree_map, tree_paths
 from repro_torch.models.layers import ShardFn, no_shard
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 
 # families whose shard_fn sites are threaded: they train and serve gspmd
@@ -133,19 +143,32 @@ def _at_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return g
 
 
+def _scaled_loss(leaves: Tree, batch: dict, run: RunConfig, n_shards: int,
+                 shard_fn: ShardFn) -> torch.Tensor:
+    loss, _aux = api.loss(leaves, batch, run.model, shard_fn)
+    if isinstance(loss, DTensor):
+        loss = loss.full_tensor()
+    return loss / n_shards
+
+
 def _loss_and_grads(params: Tree, batch: dict, run: RunConfig,
-                    n_shards: int, shard_fn: ShardFn = no_shard):
+                    n_shards: int, shard_fn: ShardFn = no_shard,
+                    index: int = 0):
     """(loss / n_shards, its grads) by autograd over fresh leaves that
     alias the params. ``backward`` frees the graph before this returns.
     DTensor params give a plain loss (the global value on every peer)
-    and gradients at the params' placements."""
+    and gradients at the params' placements. ``index`` is the
+    microbatch's, for the ``forward`` and ``backward`` spans."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss, _aux = api.loss(leaves, batch, run.model, shard_fn)
-        if isinstance(loss, DTensor):
-            loss = loss.full_tensor()
-        loss = loss / n_shards
-        loss.backward()
+        if obs_trace.enabled():
+            with obs_trace.span("forward", f"mb{index}", microbatch=index):
+                loss = _scaled_loss(leaves, batch, run, n_shards, shard_fn)
+            with obs_trace.span("backward", f"mb{index}", microbatch=index):
+                loss.backward()
+        else:
+            loss = _scaled_loss(leaves, batch, run, n_shards, shard_fn)
+            loss.backward()
     return loss.detach(), tree_map(lambda p: _at_param(p.grad, p), leaves)
 
 
@@ -182,7 +205,7 @@ def _accumulate_grads(params: Tree, batch: dict, run: RunConfig,
     for i in range(n):
         loss, grads = _loss_and_grads(
             params, place({k: v[i] for k, v in micro.items()}), run,
-            n_shards, shard_fn)
+            n_shards, shard_fn, i)
         for (_, a), (_, g) in zip(tree_paths(acc), tree_paths(grads)):
             a.add_(g)
         lsum = lsum + loss
@@ -309,19 +332,24 @@ def make_train_step_tac(run: RunConfig, ring: Ring, *,
     uctx = UpdateContext(ring=ring, eff_shards=scatter_group_size(
         n_shards, ring.pods, comm), donate=donate)
 
-    def step_fn(state: TrainState, batch: dict):
+    def body(state: TrainState, batch: dict):
         # local loss scaled so the ring sum of the grads is the global mean
         loss, grads = _accumulate_grads(state.params, batch, run, n_shards)
         res = tac.sync_grads(grads, comm, ring=ring, ef=state.ef)
         del grads       # the local gradients are dead once synced
         # the loss epilogue after the sync emission, as in the reference
         dist.all_reduce(loss, group=ring.group)
-        new_params, new_opt, metrics = backend.apply_update(
-            state.params, state.opt, res, run, uctx)
+        if obs_trace.enabled():
+            with obs_trace.span("update", "apply_update", mode=comm.mode):
+                new_params, new_opt, metrics = backend.apply_update(
+                    state.params, state.opt, res, run, uctx)
+        else:
+            new_params, new_opt, metrics = backend.apply_update(
+                state.params, state.opt, res, run, uctx)
         return TrainState(new_params, new_opt, state.step + 1,
                           res.ef), dict(metrics, loss=loss)
 
-    return step_fn
+    return _traced_step(body)
 
 
 def make_train_step_gspmd(run: RunConfig,
@@ -335,14 +363,30 @@ def make_train_step_gspmd(run: RunConfig,
         mesh = None
     shard_fn = make_shard_fn(mesh)
 
-    def step_fn(state: TrainState, batch: dict):
+    def body(state: TrainState, batch: dict):
         with implicit_replication():
             loss, grads = _accumulate_grads(state.params, batch, run, 1,
                                             shard_fn, mesh)
-            new_params, new_opt, metrics = adamw.update(
-                grads, state.opt, state.params, run, inplace=donate)
+            if obs_trace.enabled():
+                with obs_trace.span("update", "adamw", mode="gspmd"):
+                    new_params, new_opt, metrics = adamw.update(
+                        grads, state.opt, state.params, run, inplace=donate)
+            else:
+                new_params, new_opt, metrics = adamw.update(
+                    grads, state.opt, state.params, run, inplace=donate)
         return TrainState(new_params, new_opt, state.step + 1,
                           state.ef), dict(metrics, loss=loss)
+
+    return _traced_step(body)
+
+
+def _traced_step(body):
+    """``body`` as a step, under a ``step`` span when tracing is on."""
+    def step_fn(state: TrainState, batch: dict):
+        if not obs_trace.enabled():
+            return body(state, batch)
+        with obs_trace.span("step", f"step{state.step}", step=state.step):
+            return body(state, batch)
 
     return step_fn
 

@@ -35,6 +35,11 @@ the global batch, and checkpoints are written in the global layout and
 restored onto whatever mesh the new Trainer has. ``gspmd`` on one peer
 without ``--mesh`` trains plain tensors, as before.
 
+``--trace-out PATH`` records the run's spans (``obs/trace.py``: the
+step's ``step`` / ``forward`` / ``backward`` / ``update`` and the
+exchange's) and writes them as Chrome-trace JSON, with the clock anchor
+that lays them over a ``torch.profiler`` trace (rank 0's).
+
 CLI::
 
   python -m repro_torch.launch.train --arch qwen2-0.5b --steps 50 \\
@@ -92,6 +97,7 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.elastic import make_on_mismatch
 from repro_torch.launch.mesh import (Mesh, make_device_mesh, make_ring,
                                      parse_mesh)
+from repro_torch.obs import trace as obs_trace
 
 
 class WatchdogTimeout(RuntimeError):
@@ -411,6 +417,11 @@ def main(argv=None) -> int:
                         "every peer)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default) raises when no card is present")
+    p.add_argument("--trace-out", default="",
+                   help="write a Chrome-trace/Perfetto JSON of the run's "
+                        "spans here (step, forward, backward, update and "
+                        "the exchange's; enables tracing, which leaves "
+                        "losses and parameters bit-identical)")
     args = p.parse_args(argv)
     mesh = parse_mesh(args.mesh) if args.mesh else None
 
@@ -427,16 +438,25 @@ def main(argv=None) -> int:
         rank0 = not dist.is_initialized() or dist.get_rank() == 0
         log = print if rank0 else lambda line: None
         run = build_run(args)
-        out = train_with_restarts(
-            lambda: Trainer(run, mesh, device=args.device,
-                            watchdog_secs=args.watchdog_secs, log_fn=log,
-                            donate=True),
-            max_restarts=args.max_restarts, log_fn=log)
+        if args.trace_out:
+            obs_trace.enable()
+        try:
+            out = train_with_restarts(
+                lambda: Trainer(run, mesh, device=args.device,
+                                watchdog_secs=args.watchdog_secs, log_fn=log,
+                                donate=True),
+                max_restarts=args.max_restarts, log_fn=log)
+        finally:
+            rec = obs_trace.disable() if args.trace_out else None
     finally:
         if own_group:
             dist.destroy_process_group()
     if rank0:
         print(f"final loss: {out['final_loss']:.4f}")
+        if rec is not None:
+            doc = rec.write(args.trace_out)
+            print(f"[train] span trace -> {args.trace_out} "
+                  f"({len(doc['traceEvents'])} spans, kinds={rec.kinds()})")
     return 0
 
 

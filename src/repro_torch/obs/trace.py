@@ -34,11 +34,29 @@ Design rules:
   detect->heal windows use it.
 
 Span kinds in the shipped instrumentation: ``emission`` / ``stage`` /
-``flush`` (``core/backends/pipeline.py``), ``build``
-(``serving/dispatch.py``), ``prefill`` / ``decode`` / ``admission``
-(``serving/engine.py``), ``drain`` (``serving/event_loop.py``), ``heal``
-(``serving/supervisor.py``). ``leader_flush`` stays in :data:`KINDS`
-for the two-level leader emission, which the port does not have yet.
+``flush`` / ``leader_flush`` (``core/backends/pipeline.py``; the last
+around the cross-pod collective of the two-level leader emission),
+``build`` and ``experts`` (``serving/dispatch.py``: a serve step's
+build, and the expert stage over the ring, ``ep_experts``), ``prefill``
+/ ``decode`` / ``admission`` / ``boundary`` (``serving/engine.py``; the
+last from the wait at a decode-step boundary through the token
+read-back, the slot bookkeeping and the admission hook and gate),
+``drain`` (``serving/event_loop.py``), ``heal``
+(``serving/supervisor.py``), and the training step's ``step`` /
+``forward`` / ``backward`` / ``update`` (``launch/steps.py``: the whole
+step as the host issues it, each microbatch's loss, autograd's
+backward, the optimizer update). The first ten are the reference's
+kinds, in its order; the training kinds, ``boundary`` and ``experts``
+are the port's own.
+
+**One clock with the device trace.** Spans are stamped with
+``perf_counter``; ``torch.profiler`` stamps device events on the wall
+clock (Unix-epoch nanoseconds). Each recorder keeps a
+:class:`ClockAnchor` (the tightest of a few paired reads of both
+clocks) from its construction and another from :func:`disable`, and
+:meth:`TraceRecorder.unix_ns` maps a span time onto the wall clock; the
+Chrome export carries both under ``otherData["clock"]``, so an operator
+can lay a ``--trace-out`` file over a profiler trace.
 """
 from __future__ import annotations
 
@@ -53,7 +71,37 @@ from typing import Any, Dict, List, Optional
 # The instrumented span kinds (open set — the recorder accepts any string;
 # this tuple is the documented taxonomy the smoke assertions key on).
 KINDS = ("emission", "stage", "flush", "leader_flush", "build",
-         "prefill", "decode", "admission", "drain", "heal")
+         "prefill", "decode", "admission", "drain", "heal",
+         "step", "forward", "backward", "update", "boundary", "experts")
+
+
+@dataclass(frozen=True)
+class ClockAnchor:
+    """One paired read of ``perf_counter_ns`` and ``time_ns``: the wall
+    clock's ``unix_ns`` was read between two ``perf_counter_ns`` reads
+    ``width_ns`` apart whose midpoint is ``perf_ns``."""
+    perf_ns: int
+    unix_ns: int
+    width_ns: int
+
+    def to_unix_ns(self, perf_ns: float) -> int:
+        return int(round(perf_ns - self.perf_ns)) + self.unix_ns
+
+    def as_dict(self) -> dict:
+        return {"perf_counter_ns": self.perf_ns, "unix_ns": self.unix_ns,
+                "width_ns": self.width_ns}
+
+
+def clock_anchor(reads: int = 8) -> ClockAnchor:
+    """The tightest of ``reads`` paired reads of the two clocks."""
+    best = None
+    for _ in range(reads):
+        a = time.perf_counter_ns()
+        u = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best.width_ns:
+            best = ClockAnchor((a + b) // 2, u, b - a)
+    return best
 
 
 @dataclass
@@ -91,6 +139,8 @@ class TraceRecorder:
         self.dropped = 0
         self.forced_closes = 0
         self._epoch = time.perf_counter()
+        self.anchor = clock_anchor()
+        self.anchor_end: Optional[ClockAnchor] = None   # set by disable()
         self._local = threading.local()
         self._lock = threading.Lock()
         self._tids: Dict[int, int] = {}
@@ -100,6 +150,20 @@ class TraceRecorder:
 
     def _now(self) -> float:
         return time.perf_counter() - self._epoch
+
+    @property
+    def epoch(self) -> float:
+        """The ``perf_counter`` seconds that ``Span.t0`` counts from."""
+        return self._epoch
+
+    def unix_ns(self, t: float) -> int:
+        """Span time ``t`` (seconds from :attr:`epoch`) on the wall
+        clock, in Unix-epoch nanoseconds, through the start anchor."""
+        return self.anchor.to_unix_ns((self._epoch + t) * 1e9)
+
+    def close_clock(self) -> None:
+        """Take the end anchor (:func:`disable` does)."""
+        self.anchor_end = clock_anchor()
 
     def _tid(self) -> int:
         ident = threading.get_ident()
@@ -200,8 +264,10 @@ class TraceRecorder:
 
     def to_chrome(self) -> dict:
         """Chrome-trace JSON object (the ``traceEvents`` array of
-        complete ``"ph": "X"`` events, microsecond timestamps) —
-        loadable by chrome://tracing and Perfetto."""
+        complete ``"ph": "X"`` events, microsecond timestamps from
+        :attr:`epoch`) — loadable by chrome://tracing and Perfetto.
+        ``otherData["clock"]`` gives ``ts0_unix_ns``, the wall-clock time
+        of ``ts`` 0, and the anchors it comes from."""
         evs: List[dict] = []
         with self._lock:
             spans = list(self.spans)
@@ -210,10 +276,15 @@ class TraceRecorder:
                         "ph": "X", "ts": round(s.t0 * 1e6, 3),
                         "dur": round(s.dur * 1e6, 3), "pid": 0,
                         "tid": s.tid, "args": dict(s.args)})
+        end = self.anchor_end
+        clock = {"ts0_unix_ns": self.unix_ns(0.0),
+                 "anchor": self.anchor.as_dict(),
+                 "anchor_end": end.as_dict() if end else None}
         return {"traceEvents": evs, "displayTimeUnit": "ms",
                 "otherData": {"dropped": self.dropped,
                               "forced_closes": self.forced_closes,
-                              "open_spans": len(self.open_spans())}}
+                              "open_spans": len(self.open_spans()),
+                              "clock": clock}}
 
     def write(self, path: str) -> dict:
         doc = self.to_chrome()
@@ -291,6 +362,8 @@ def disable() -> Optional[TraceRecorder]:
     """Remove the active recorder and return it (for export)."""
     global _RECORDER
     rec, _RECORDER = _RECORDER, None
+    if rec is not None:
+        rec.close_clock()
     return rec
 
 
@@ -337,3 +410,4 @@ def capture(capacity: int = 65536):
         yield rec
     finally:
         _RECORDER = prev
+        rec.close_clock()

@@ -25,7 +25,10 @@ their collectives through ``CommBackend.serve_emit``:
   reference, the exchanged buffer and the expert weights are f32 on this
   path (``buf.astype(f32)``, ``wslice = mp[w].astype(f32)``), while the
   local stage computes in the compute dtype: the two are bit for bit
-  equal on f32 configs only (ROADMAP.md Queue 3).
+  equal on f32 configs only (ROADMAP.md Queue 3). With tracing on, an
+  ``experts`` span covers the whole stage: the f32 casts, both
+  exchanges (their ``emission`` / ``stage`` / ``flush`` spans inside)
+  and the expert GEMMs.
 
 The ring is a ``core/channels.Ring`` (the reference's mesh): one process
 per peer, its rank the peer's place. The hadronio family emits through
@@ -155,10 +158,18 @@ def _make_serve_step(cfg: ModelConfig, comm: CommConfig, *,
 
     def ep_experts(mp: dict, buf: torch.Tensor, _cfg,
                    _shard_fn=None) -> torch.Tensor:
-        """The expert stage over the ring: exchange the dispatched buffer
-        peer-major (peer p gets every peer's rows of experts
-        ``p*ep .. p*ep+ep-1``), run this peer's expert slice in f32,
-        exchange the outputs back."""
+        """The expert stage over the ring, under an ``experts`` span when
+        tracing is on (the exchanges' own spans nest inside it)."""
+        if not obs_trace.enabled():
+            return exchange_experts(mp, buf)
+        with obs_trace.span("experts", "ep_experts", rows=buf.shape[0],
+                            capacity=buf.shape[2]):
+            return exchange_experts(mp, buf)
+
+    def exchange_experts(mp: dict, buf: torch.Tensor) -> torch.Tensor:
+        """Exchange the dispatched buffer peer-major (peer p gets every
+        peer's rows of experts ``p*ep .. p*ep+ep-1``), run this peer's
+        expert slice in f32, exchange the outputs back."""
         b, e, cap, d = buf.shape
         snd = buf.float().reshape(b, n_shards, ep, cap, d).movedim(1, 0)
         got = backend.serve_emit(snd.reshape(-1), ctx, "all_to_all")

@@ -36,9 +36,14 @@ Counterpart of ``repro/serving/engine.py``.
   control seam ``admission_gate(engine, step, extra)`` (the supervisor's,
   ``serving/supervisor.py``) then sees that burst and returns the
   requests actually admitted, so backpressure composes with storms.
-* Telemetry (``obs/trace.py``): ``prefill`` spans around each wave's
-  prefill and its poller wait, ``decode`` around each decode call and
-  ``admission`` around each batched admission, when tracing is on.
+* Telemetry (``obs/trace.py``), when tracing is on: ``prefill`` spans
+  around each wave's prefill and its poller wait, ``decode`` around each
+  decode call (its issue: the span closes before the card finishes),
+  ``boundary`` around each flush boundary up to admission (the poller's
+  wait for the sampled tokens, their read-back, the slot bookkeeping,
+  the admission hook and gate) and ``admission`` around each batched
+  admission. A wave's loop opens one ``boundary`` per decode step, and
+  one more at the boundary that ends it.
 * :func:`make_engine_group` takes an explicit channel ``affinity`` (the
   elastic reshard's partition) and ``ServeConfig.tenants``: contiguous
   per-tenant loop ranges, ``cfg``/``params`` single or per tenant; with
@@ -246,39 +251,12 @@ class DecodeEngine:
         results: list = []
 
         while True:
-            # flush boundary: this step's work is complete once the
-            # sampled tokens are ready
-            self.poller.wait(tok)
-            tok_np = tok.cpu().numpy()
-            for i, s in enumerate(slots):
-                if s is None:
-                    continue
-                if s.req.max_new > 0:    # max_new=0: prefill-only, no token
-                    s.toks.append(int(tok_np[i]))
-                    if self.eos_id is not None and s.toks[-1] == self.eos_id:
-                        s.done = True
-                if len(s.toks) >= s.req.max_new:
-                    s.done = True
-                if s.done:
-                    results.append(Result(
-                        uid=s.req.uid, tokens=np.asarray(s.toks, np.int64),
-                        prompt_len=len(s.req.prompt),
-                        steps=steps + 1 - s.admitted_step))
-                    slots[i] = None
+            if obs_trace.enabled():
+                with obs_trace.span("boundary", f"step{steps}", step=steps):
+                    self._boundary(tok, slots, steps, results, pending)
+            else:
+                self._boundary(tok, slots, steps, results, pending)
             steps += 1
-            # the flush-boundary fault window: requests injected here
-            # enter the run queue like any client's and take the same
-            # admission path below (exactness is per row); the gate sees
-            # the burst AFTER the hook, so supervisor backpressure
-            # composes with chaos storms
-            if not self._recurrent and (self.admission_hook is not None
-                                        or self.admission_gate is not None):
-                extra = list(self.admission_hook(self, steps) or []) \
-                    if self.admission_hook is not None else []
-                if self.admission_gate is not None:
-                    extra = self.admission_gate(self, steps, extra)
-                if extra:
-                    pending.extend(extra)
             # continuous batching: refill freed slots from the run queue
             if pending:
                 tok, cache, pos = self._admit_ready(
@@ -298,6 +276,42 @@ class DecodeEngine:
             tok = self._sample(logits, temps)
             pos = torch.where(active, pos + 1, pos)
         return results
+
+    def _boundary(self, tok: torch.Tensor, slots: list, steps: int,
+                  results: list, pending: deque) -> None:
+        """The flush boundary before step ``steps + 1``: wait for the
+        sampled tokens (this step's work is complete once they are
+        ready), read them back, retire finished slots into ``results``,
+        then the fault window and the admission gate."""
+        self.poller.wait(tok)
+        tok_np = tok.cpu().numpy()
+        for i, s in enumerate(slots):
+            if s is None:
+                continue
+            if s.req.max_new > 0:    # max_new=0: prefill-only, no token
+                s.toks.append(int(tok_np[i]))
+                if self.eos_id is not None and s.toks[-1] == self.eos_id:
+                    s.done = True
+            if len(s.toks) >= s.req.max_new:
+                s.done = True
+            if s.done:
+                results.append(Result(
+                    uid=s.req.uid, tokens=np.asarray(s.toks, np.int64),
+                    prompt_len=len(s.req.prompt),
+                    steps=steps + 1 - s.admitted_step))
+                slots[i] = None
+        # the flush-boundary fault window: requests injected here enter
+        # the run queue like any client's and take the same admission
+        # path (exactness is per row); the gate sees the burst AFTER the
+        # hook, so supervisor backpressure composes with chaos storms
+        if not self._recurrent and (self.admission_hook is not None
+                                    or self.admission_gate is not None):
+            extra = list(self.admission_hook(self, steps + 1) or []) \
+                if self.admission_hook is not None else []
+            if self.admission_gate is not None:
+                extra = self.admission_gate(self, steps + 1, extra)
+            if extra:
+                pending.extend(extra)
 
     def _admit_ready(self, pending: deque, cache: dict, pos: torch.Tensor,
                      temps: np.ndarray, tok: torch.Tensor, steps: int,

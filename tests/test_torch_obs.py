@@ -46,6 +46,8 @@ from repro_torch.models.convert import from_numpy_params
 from repro_torch.obs import baseline as bl
 from repro_torch.serving import chaos
 
+import torch_spans
+
 HADRONIO_FAMILY = ("hadronio", "hadronio_rs", "hadronio_overlap",
                    "hadronio_overlap_rs")
 TINY = dict(name="obs-tiny", family="dense", num_layers=1, d_model=16,
@@ -197,8 +199,10 @@ def test_recorder_nesting_and_round_trip(tmp_path):
         assert f["ts"] + f["dur"] <= em["ts"] + em["dur"] + 0.01
     heal = [e for e in evs if e["cat"] == "heal"][0]
     assert abs(heal["dur"] - 0.25e6) < 1e3
+    clock = doc["otherData"].pop("clock")     # the port's clock anchor
     assert doc["otherData"] == {"dropped": 0, "forced_closes": 0,
                                 "open_spans": 0}
+    assert clock["ts0_unix_ns"] == rec.unix_ns(0.0)
     for f in rec.spans_of("flush"):
         assert obs.containing(rec, f, "emission") is not None
     # the same spans through the reference: the same document but clocks
@@ -244,7 +248,7 @@ def test_recorder_ring_eviction_counts():
         jobs.TraceRecorder().capacity
 
 
-def test_disabled_gate_is_inert():
+def test_disabled_gate_is_inert(ring, monkeypatch):
     assert not obs.enabled()
     assert obs.begin("emission") is None
     obs.end(None)                      # must not raise
@@ -252,8 +256,26 @@ def test_disabled_gate_is_inert():
         pass
     obs.complete("heal", "x", 0.0, 1.0)
     assert obs.recorder() is None
-    assert obs.KINDS == jobs.KINDS
+    # the reference's kinds in its order, then the port's own: the
+    # training step's, the engine's flush boundary, the expert stage
+    assert obs.KINDS[:len(jobs.KINDS)] == jobs.KINDS
+    assert obs.KINDS[len(jobs.KINDS):] == (
+        "step", "forward", "backward", "update", "boundary", "experts")
     assert obs.__all__ == jobs.__all__
+    # the port's sites check the gate before touching the recorder's
+    # API: with tracing off, a TAC and a gspmd step, an engine group and
+    # a moe step through the expert exchange never reach it
+    from repro_torch.obs import trace as obs_trace
+
+    def touched(*a, **k):
+        raise AssertionError("a disabled site reached the recorder's API")
+    for name in ("span", "begin", "end", "complete"):
+        monkeypatch.setattr(obs_trace, name, touched)
+    for mode in ("hadronio", "gspmd"):
+        torch_spans.train_steps(torch_spans.train_run(mode), ring, 1)
+    tokens, _ = torch_spans.serve_group(ring)
+    assert all(tokens.values())
+    torch_spans.moe_serve(ring)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +377,8 @@ def test_tracing_preserves_tokens_per_mode(tiny, reference, ring, mode, el):
         want = jchaos.run_baseline(jcfg, jp,
                                    jchaos.chaos_serve_config(mode, el), reqs)
     assert res.tokens == want.tokens
-    assert set(rec.kinds()) == set(jrec.kinds())
+    # the port's engine adds its flush-boundary span to the reference's
+    assert set(rec.kinds()) == set(jrec.kinds()) | {"boundary"}
 
 
 def test_supervised_heal_spans_complete_taxonomy(tiny, reference, ring):

@@ -514,8 +514,10 @@ def test_supervised_traced_cli(ring, tmp_path, capsys):
     cats = {e["cat"] for e in doc["traceEvents"]}
     assert {"build", "prefill", "decode", "drain", "emission", "stage",
             "flush", "heal"} <= cats, cats
+    clock = doc["otherData"].pop("clock")
     assert doc["otherData"] == {"dropped": 0, "forced_closes": 0,
                                 "open_spans": 0}
+    assert clock["anchor_end"]["unix_ns"] >= clock["ts0_unix_ns"]
     snap = json.loads(metrics.read_text())
     assert snap["gauges"]["group.loops{mode=hadronio}"] == 2
     assert snap["gauges"]["heal.actions{kind=resize,mode=hadronio}"] >= 1
